@@ -1,0 +1,4 @@
+from dg_tta_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    main()
