@@ -7,25 +7,46 @@ Phases; any failure raises and the script exits non-zero:
 1. device: requires `torch.cuda.is_available()`; prints the card's name and
    power limit as `nvidia-smi` reports them;
 2. build: compiles every CUDA kernel of the main path from the checkout's
-   sources (one `nvcc` per source, all started together);
-3. kernels: holds `conv3x3` against its plain version on the card at every
-   stride-1 conv shape of a TS104 window forward, in f32 (TF32 off for the
-   reference) and bf16, and times the kernel, the plain version and one
-   `F.conv3d` call (a yardstick only; the port never calls it);
+   sources (`conv3x3`, `conv3x3_wgrad`, `warp`: one `nvcc` per source, all
+   started together);
+3. kernels: holds each kernel against its plain version on the card at the
+   main path's shapes, and times the kernel, the plain version and one
+   PyTorch library call of the same function (a yardstick only; the port
+   never calls it):
+   * `conv3x3` at every shape the main path launches it at, f32 (TF32 off
+     for the reference) and bf16 (library: `F.conv3d`): each stride-1
+     conv of a TS104 window forward (one volume), and of a trained TTA
+     step (two volumes, both branches), forward and input gradient (the
+     same kernel on dy with flipped, channel-swapped weights);
+   * `conv3x3_wgrad` at the same shapes with the batch of a TTA step (two
+     patches: both branches), f32 and bf16 (library: cuDNN's weight
+     gradient, `torch.nn.grad.conv3d_weight`);
+   * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
+     border warp of the input, the C=n_opt zeros unwarp of the logits and
+     its adjoint (112 x 112 x 128), and the nearest label sampling of a
+     224 x 224 x 256 label volume onto the patch (library:
+     `F.grid_sample`);
 4. reference: the full-width TS104_GIN U-Net and `predict_volume` on small
-   inputs, on the card, against the same code on the CPU (plain versions);
+   inputs, the conv's autograd backward, one adaptation patch step's
+   gradient and a short `tta_one_volume` (injected draws, 1 member,
+   3 epochs x 2 patches, two of them trained), each on the card against
+   the same code on the CPU (plain versions, TF32 off);
 5. main path: `prepare_tta` and `run_tta` through the port's CLI on a
-   synthetic CT volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows),
-   a seeded full-width TS104_GIN checkpoint (105 classes) and three seeded
-   members; checks the segmentation's shape and that every window forward
-   went through the kernel.
+   synthetic CT volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows)
+   and a seeded full-width TS104_GIN checkpoint (105 classes), with no
+   member files: `run_tta` adapts three members (Phase 1), then predicts
+   and evaluates.  The plan is the default cut in depth only:
+   epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1 (one
+   warm-up and one trained epoch).  Checks the member files and the
+   segmentation, and that every kernel launched exactly as often as the
+   plan says it must.
 
 It prints one JSON line with the kernels' numbers and, last, one JSON line
 naming the device.
 """
 
+import copy
 import json
-import os
 import subprocess
 import sys
 import tempfile
@@ -54,11 +75,23 @@ PEAK_BYTES = 3.35e12
 # products in f32 in another order (f32), and both round that sum to bf16
 # once, so they may differ by the last bit at the largest magnitude (bf16).
 KERNEL_RTOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
+# wgrad kernel vs plain (f32 out), max |diff| / max |plain|: sums over up to
+# 3.2M positions, split across blocks, in another order than cuDNN's.
+WGRAD_RTOL = 1e-4
+# warp kernel vs plain, max |diff| / max |plain|: trilinear f32 sums eight
+# products with fused multiply-adds (f32), both round one f32 sum to bf16
+# (bf16); nearest is exact.
+WARP_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # Network on the card vs on the CPU (plain versions), f32, max |diff| over
 # max |CPU|: summation order only, compounded over the layers.
 REF_RTOL = 1e-4
 N_CLASSES = 105
 VOLUME_SHAPE = (224, 224, 256)
+PATCH = (112, 112, 128)
+N_OPT = 4          # background + the 3 labels of the synthetic target
+# The main path's plan, cut in depth only (module docstring).
+SMOKE_PLAN = dict(epochs=2, patches_to_be_accumulated=4,
+                  start_tta_at_epoch=1)
 
 
 def log(*a):
@@ -98,12 +131,38 @@ def phase_build():
     from dg_tta_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["conv3x3"])
+    logs = build.build(["conv3x3", "conv3x3_wgrad", "warp"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+
+def _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult=1):
+    for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                   ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+        tot[key] += mult * v
+    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+
+
+def _new_totals():
+    return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
+                bytes_ms=0.0, max_abs_err=0.0)
+
+
+def _conv_cases():
+    """Every conv3x3 launch shape of the main path, as (use, volumes,
+    depth, H, W, C, CO, launches of this shape per use, dgrad?): a window
+    forward of inference and eval (one volume), and a trained step's
+    forward and input gradient (two volumes: both branches).  The input
+    gradient runs dy through the kernel with the weights flipped and their
+    channels swapped; the first conv, on the image, takes none."""
+    cases = [("window forward", 1, *s, False) for s in TS104_CONV_SHAPES]
+    cases += [("step forward", 2, *s, False) for s in TS104_CONV_SHAPES]
+    cases += [("step dgrad", 2, depth, H, W, CO, C, mult, True)
+              for depth, H, W, C, CO, mult in TS104_CONV_SHAPES if C > 1]
+    return cases
 
 
 def phase_kernels():
@@ -119,12 +178,20 @@ def phase_kernels():
     totals = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
-                   bytes_ms=0.0, max_abs_err=0.0)
-        for depth, H, W, C, CO, mult in TS104_CONV_SHAPES:
-            x = torch.randn((depth, H, W, C), generator=gen).to(dt).cuda()
-            w = (torch.randn((3, 3, 3, C, CO), generator=gen)
-                 * (2.0 / (27 * C)) ** 0.5).to(dt).cuda()
+        tot = _new_totals()
+        per_use = {}
+        for use, vols, depth, H, W, C, CO, mult, dgrad in _conv_cases():
+            N = vols * depth
+            x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
+            if dgrad:
+                # the forward conv's weights (CO -> C), flipped and swapped
+                # as Conv3x3Function.backward does
+                w = (torch.randn((3, 3, 3, CO, C), generator=gen)
+                     * (2.0 / (27 * CO)) ** 0.5).to(dt).cuda()
+                w = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+            else:
+                w = (torch.randn((3, 3, 3, C, CO), generator=gen)
+                     * (2.0 / (27 * C)) ** 0.5).to(dt).cuda()
             got = conv3x3(x, w, depth=depth)
             torch.cuda.synchronize()
             ref = conv3x3_reference(x, w, depth=depth)
@@ -132,36 +199,182 @@ def phase_kernels():
             scale = ref.float().abs().max().item()
             tol = KERNEL_RTOL[name] * scale
             if not err <= tol:
-                raise AssertionError(f"conv3x3 {name} {(depth, H, W, C, CO)}:"
-                                     f" max abs err {err} > tol {tol}")
-            x5 = x.view(1, depth, H, W, C).permute(0, 4, 1, 2, 3)
+                raise AssertionError(f"conv3x3 {name} {use} "
+                                     f"{(N, depth, H, W, C, CO)}: max abs "
+                                     f"err {err} > tol {tol}")
+            x5 = x.view(vols, depth, H, W, C).permute(0, 4, 1, 2, 3)
             wt = w.permute(4, 3, 0, 1, 2).contiguous()
             k_ms = time_ms(lambda: conv3x3(x, w, depth=depth))
             p_ms = time_ms(lambda: conv3x3_reference(x, w, depth=depth))
             l_ms = time_ms(lambda: F.conv3d(x5, wt, padding=1))
             ops = conv3x3_flops(x.shape, w.shape, depth)
-            nbytes = (x.numel() + w.numel() + depth * H * W * CO) \
+            nbytes = (x.numel() + w.numel() + N * H * W * CO) \
                 * x.element_size()
             ops_ms = ops / PEAK_OPS[name] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
-            log(f"conv3x3 {name} depth={depth} {H}x{W} {C}->{CO}: "
-                f"max_abs_err={err:.3e} (tol {tol:.3e}) "
+            log(f"conv3x3 {name} {use} N={N} depth={depth} {H}x{W} "
+                f"{C}->{CO}: max_abs_err={err:.3e} (tol {tol:.3e}) "
                 f"max_rel_err={err / scale:.3e} (tol {KERNEL_RTOL[name]:.1e}) "
                 f"kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={max(ops_ms, bytes_ms):.4f} "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
-                f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/forward")
-            for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                           ("library_ms", l_ms), ("ops_ms", ops_ms),
-                           ("bytes_ms", bytes_ms)):
-                tot[key] += mult * v
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        n_convs = sum(shape[-1] for shape in TS104_CONV_SHAPES)
-        log(f"conv3x3 {name} per window forward ({n_convs} convs): "
+                f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
+            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
+            _record(per_use.setdefault(use, _new_totals()), err, k_ms, p_ms,
+                    l_ms, ops_ms, bytes_ms, mult)
+        for use, t in per_use.items():
+            log(f"conv3x3 {name} per {use}: kernel_ms={t['ms']:.3f} "
+                f"plain_ms={t['plain_ms']:.3f} "
+                f"library_ms={t['library_ms']:.3f} "
+                f"bound_ms={max(t['ops_ms'], t['bytes_ms']):.3f}")
+        log(f"conv3x3 {name} window forward + trained step (row total): "
             f"kernel_ms={tot['ms']:.3f} plain_ms={tot['plain_ms']:.3f} "
             f"library_ms={tot['library_ms']:.3f} "
             f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.3f}")
+        totals[name] = tot
+    return totals
+
+
+def phase_wgrad():
+    """conv3x3_wgrad at every TS104 stride-1 conv shape, with the batch of
+    one TTA step: both branches of one patch, N = 2 x depth planes."""
+    import torch
+
+    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_flops,
+                                                  conv3x3_wgrad,
+                                                  conv3x3_wgrad_reference)
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    totals = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        tot = _new_totals()
+        for depth, H, W, C, CO, mult in TS104_CONV_SHAPES:
+            N = 2 * depth
+            x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
+            dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
+            got = conv3x3_wgrad(x, dy, depth=depth)
+            torch.cuda.synchronize()
+            ref = conv3x3_wgrad_reference(x, dy, depth=depth)
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= WGRAD_RTOL * scale:
+                raise AssertionError(f"conv3x3_wgrad {name} "
+                                     f"{(N, depth, H, W, C, CO)}: max abs "
+                                     f"err {err} > {WGRAD_RTOL * scale}")
+            x5 = x.view(2, depth, H, W, C).permute(0, 4, 1, 2, 3)
+            dy5 = dy.view(2, depth, H, W, CO).permute(0, 4, 1, 2, 3)
+            k_ms = time_ms(lambda: conv3x3_wgrad(x, dy, depth=depth))
+            p_ms = time_ms(lambda: conv3x3_wgrad_reference(x, dy,
+                                                           depth=depth))
+            l_ms = time_ms(lambda: torch.nn.grad.conv3d_weight(
+                x5, (CO, C, 3, 3, 3), dy5, padding=1))
+            ops = conv3x3_flops(x.shape, (3, 3, 3, C, CO), depth)
+            nbytes = (x.numel() + dy.numel()) * x.element_size() \
+                + 27 * C * CO * 4
+            ops_ms = ops / PEAK_OPS[name] * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            log(f"conv3x3_wgrad {name} N={N} depth={depth} {H}x{W} "
+                f"{C}->{CO}: max_abs_err={err:.3e} "
+                f"(tol {WGRAD_RTOL * scale:.3e}) kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+                f"bound_ms={max(ops_ms, bytes_ms):.4f} "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
+                f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
+            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
+        log(f"conv3x3_wgrad {name} per trained step (14 convs): "
+            f"kernel_ms={tot['ms']:.3f} plain_ms={tot['plain_ms']:.3f} "
+            f"library_ms={tot['library_ms']:.3f} "
+            f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.3f}")
+        totals[name] = tot
+    return totals
+
+
+def _warp_sites(gen, device):
+    """The warp's four call sites in adaptation: (name, C, source shape,
+    grid, mode, padding)."""
+    import torch
+
+    from dg_tta_tpu_torch.core.fields import get_rand_affine
+    from dg_tta_tpu_torch.core.grid import affine_grid
+    from dg_tta_tpu_torch.core.patches import (_compose_pad_correction,
+                                               patch_affine)
+
+    theta, theta_inv = get_rand_affine(
+        torch.randn((1, 3, 4), generator=gen).to(device))
+    grid = affine_grid(theta, PATCH)
+    grid_inv = affine_grid(theta_inv, PATCH)
+    theta_p = _compose_pad_correction(
+        patch_affine(torch.rand(3, generator=gen).numpy(), VOLUME_SHAPE,
+                     PATCH), VOLUME_SHAPE, VOLUME_SHAPE)
+    grid_lab = affine_grid(theta_p.to(device), PATCH)
+    return [("border input warp", 1, PATCH, grid, "trilinear", "border"),
+            ("zeros unwarp", N_OPT, PATCH, grid_inv, "trilinear", "zeros"),
+            ("adjoint", N_OPT, PATCH, grid, "trilinear", "zeros"),
+            ("nearest labels", 1, VOLUME_SHAPE, grid_lab, "nearest",
+             "zeros")]
+
+
+def phase_warp():
+    """The warp kernel at its four call sites, one call each."""
+    import torch
+    import torch.nn.functional as F
+
+    from dg_tta_tpu_torch.core.grid import pack_grid
+    from dg_tta_tpu_torch.kernels.warp import (warp_bytes, warp_flat,
+                                               warp_flat_reference,
+                                               warp_flops,
+                                               warp_source_voxels)
+
+    gen = torch.Generator().manual_seed(2)
+    n_out = PATCH[0] * PATCH[1] * PATCH[2]
+    totals = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        tot = _new_totals()
+        for site, C, src, grid, mode, pad in _warp_sites(gen, "cuda"):
+            n_src = src[0] * src[1] * src[2]
+            flat = torch.randn((1, C, n_src), generator=gen).to(dt).cuda()
+            got = warp_flat(flat, src, grid, mode=mode, padding_mode=pad)
+            torch.cuda.synchronize()
+            ref = warp_flat_reference(flat, src, grid, mode=mode,
+                                      padding_mode=pad)
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            tol = 0.0 if mode == "nearest" else WARP_RTOL[name] * scale
+            if not err <= tol:
+                raise AssertionError(f"warp {name} {site}: max abs err "
+                                     f"{err} > {tol}")
+            vol5 = flat.view(1, C, *src)
+            packed = pack_grid(grid).to(dt)
+            k_ms = time_ms(lambda: warp_flat(flat, src, grid, mode=mode,
+                                             padding_mode=pad))
+            p_ms = time_ms(lambda: warp_flat_reference(
+                flat, src, grid, mode=mode, padding_mode=pad))
+            l_ms = time_ms(lambda: F.grid_sample(
+                vol5, packed, mode="bilinear" if mode == "trilinear"
+                else "nearest", padding_mode=pad, align_corners=False))
+            n_need = warp_source_voxels(src, grid, 1, mode, pad)
+            nbytes = warp_bytes(flat.shape, n_need, n_out,
+                                flat.element_size())
+            ops_ms = warp_flops(flat.shape, n_out, mode) \
+                / PEAK_OPS["float32"] * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            log(f"warp {name} {site} C={C} {src}->{PATCH} {mode} {pad}: "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}) "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"library_ms={l_ms:.4f} "
+                f"bound_ms={max(ops_ms, bytes_ms):.4f} "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
+                f"source voxels needed {n_need} of {n_src} "
+                f"GB/s={nbytes / k_ms / 1e6:.1f}")
+            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms)
+        log(f"warp {name} over the four call sites: kernel_ms={tot['ms']:.4f} "
+            f"plain_ms={tot['plain_ms']:.4f} "
+            f"library_ms={tot['library_ms']:.4f} "
+            f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.4f}")
         totals[name] = tot
     return totals
 
@@ -213,31 +426,165 @@ def phase_reference():
     log(f"reference: predict_volume E=2 {tuple(vol.shape)} "
         f"max_abs_err={err_v:.3e} (tol {REF_RTOL * scale_v:.3e})")
 
+    # the conv's autograd backward: dgrad through conv3x3 with flipped
+    # weights, wgrad through conv3x3_wgrad
+    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3_op
 
-def synthetic_ct(rng, shape):
-    """A CT-like volume in HU (air, body, organs, spine) and its labels
-    (1 liver, 2 spleen, 3 kidney_left), int16 / uint8."""
+    depth, H, W, C, CO = 6, 28, 40, 32, 32
+    x = torch.from_numpy(rng.standard_normal((2 * depth, H, W, C))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, C, CO))
+                          * (2.0 / (27 * C)) ** 0.5).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((2 * depth, H, W, CO))
+                          .astype(np.float32))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        xd, wd = (t.detach().to(dev).requires_grad_(True) for t in (x, w))
+        y = conv3x3_op(xd, wd, depth=depth)
+        (y * ct.to(dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    for what, ref_t, got_t in zip(("y", "dx", "dW"), *outs):
+        err_t = (got_t - ref_t).abs().max().item()
+        scale_t = ref_t.abs().max().item()
+        if not err_t <= REF_RTOL * scale_t:
+            raise AssertionError(f"conv3x3_op {what} card vs CPU: err "
+                                 f"{err_t} scale {scale_t}")
+        log(f"reference: conv3x3_op backward {what} {tuple(ref_t.shape)} "
+            f"max_abs_err={err_t:.3e} (tol {REF_RTOL * scale_t:.3e})")
+    reference_adaptation()
+
+
+def reference_adaptation():
+    """The adaptation of the full-width TS104_GIN net on a small patch, on
+    the card against the CPU, with the same injected draws: one patch
+    step's gradient, then a short `tta_one_volume`.
+
+    Tolerances: the consistency loss compares two nearly equal branches,
+    so its gradient is a sum that mostly cancels, and f32 rounding in
+    another order moves it by up to about 1% of a parameter's norm.
+    AdamW then steps ~lr x sign(gradient): the entries whose gradient is
+    near zero step either way, so after two trained epochs a parameter's
+    update moves by up to about 12%.  Gradients are held to 5% of each
+    parameter's norm and updates to 30%; a missing or wrong backward, or
+    no update, misses by 100%."""
     import numpy as np
+    import torch
 
-    D, H, W = shape
-    z, y, x = np.meshgrid(np.linspace(-1, 1, D), np.linspace(-1, 1, H),
-                          np.linspace(-1, 1, W), indexing="ij")
-    vol = np.full(shape, -1000.0, np.float32)
-    seg = np.zeros(shape, np.uint8)
-    body = (y / 0.8) ** 2 + (x / 0.9) ** 2 < 1.0
-    vol[body] = 30.0
-    organs = [(1, (0.1, 0.2, -0.35), (0.5, 0.3, 0.3), 60.0),
-              (2, (0.1, 0.2, 0.45), (0.3, 0.2, 0.15), 45.0),
-              (3, (-0.1, 0.45, 0.3), (0.25, 0.12, 0.12), 35.0)]
-    for lbl, c, r, hu in organs:
-        m = (((z - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2
-             + ((x - c[2]) / r[2]) ** 2) < 1.0
-        vol[m] = hu
-        seg[m] = lbl
-    spine = ((y - 0.55) / 0.1) ** 2 + (x / 0.1) ** 2 < 1.0
-    vol[spine] = 700.0
-    vol += rng.normal(0.0, 20.0, size=shape).astype(np.float32)
-    return np.clip(vol, -1024, 3071).astype(np.int16), seg
+    from dg_tta_tpu_torch.core.patches import extract_batch
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import make_tta_functions, tta_one_volume
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    model = ts104_model(patch_size=(32, 48, 64))
+    # two trained epochs: the losses of the last one follow an update
+    plan = TTAPlan(epochs=3, patches_to_be_accumulated=2, ensemble_count=1,
+                   start_tta_at_epoch=1)
+    rng = np.random.default_rng(3)
+    shape = (40, 56, 70)
+    vol = rng.normal(0.0, 0.3, size=(1, *shape, 1)).astype(np.float32)
+    lab = np.zeros((1, *shape, 1), np.float32)
+    vol[0, 10:25, 15:40, 20:50] += 2.0
+    lab[0, 10:25, 15:40, 20:50] = 1.0
+    idx = np.arange(N_OPT)
+    net0 = seeded_net(model, 11, "cpu")
+    with torch.no_grad():
+        # nonzero conv biases (unused before InstanceNorm), so that their
+        # weight decay shows
+        for name, p in net0.named_parameters():
+            if name.endswith("conv.bias"):
+                p.copy_(torch.from_numpy(rng.normal(size=p.shape)))
+    init = {k: v.clone() for k, v in net0.state_dict().items()}
+
+    fns = make_tta_functions(model, plan, idx, idx)
+    draws = TorchDraws(seed=7).patch(0, 1, 0, 1, 1)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        net = copy.deepcopy(net0).to(dev)
+        imgs, _ = extract_batch(draws.vol_idx, draws.uniforms,
+                                torch.from_numpy(vol).to(dev), [shape],
+                                model.patch_size, 1)
+        fns.patch_loss(net, draws, imgs).backward()
+        grads.append({k: p.grad.cpu() for k, p in net.named_parameters()
+                      if p.grad is not None})
+    if sorted(grads[0]) != sorted(grads[1]):
+        raise AssertionError("patch step: card and CPU differ in which "
+                             "parameters get a gradient")
+    g_rel = max((grads[1][k] - g).norm().item() / g.norm().item()
+                for k, g in grads[0].items())
+    if not g_rel <= 0.05:
+        raise AssertionError(f"patch step gradient card vs CPU: {g_rel}")
+
+    runs = []
+    for dev in ("cpu", "cuda"):
+        nets, losses, dices = tta_one_volume(
+            model, plan, copy.deepcopy(net0).to(dev),
+            torch.from_numpy(vol).to(dev), [shape], idx, idx,
+            TorchDraws(seed=7), labels_padded=torch.from_numpy(lab).to(dev))
+        runs.append((nets[0].cpu().state_dict(), losses, dices))
+    (ref_p, ref_l, ref_d), (got_p, got_l, got_d) = runs
+    # parameters the loss never reaches (conv biases before InstanceNorm,
+    # unused heads and logit channels) decay by exactly (1 - lr x weight
+    # decay) per trained epoch: 1e-6 relative
+    decay = (1.0 - plan.lr * 0.01) ** (plan.epochs - plan.start_tta_at_epoch)
+    p_rel, moved = 0.0, 0
+    for k, p0 in init.items():
+        ref_dp, got_dp = ref_p[k] - p0, got_p[k] - p0
+        ref_n, err = ref_dp.norm().item(), (got_dp - ref_dp).norm().item()
+        # every nonzero parameter moves, by its gradient or its decay; a
+        # zero one with no gradient (a head's bias) stays zero
+        if (p0.norm().item() > 0 and ref_n == 0) or err > 0.3 * ref_n:
+            raise AssertionError(f"tta_one_volume card vs CPU: update of {k}"
+                                 f" off by {err} of {ref_n}")
+        if ref_n > 0:
+            moved += 1
+            p_rel = max(p_rel, err / ref_n)
+        if k.endswith("conv.bias") and not torch.allclose(
+                got_p[k], decay * p0, rtol=1e-6, atol=0):
+            raise AssertionError(f"tta_one_volume: {k} not decayed by "
+                                 f"{decay}")
+    # losses: the same math in another summation order
+    l_err = float(np.abs(got_l - ref_l).max() / np.abs(ref_l).max())
+    if not (np.all(np.isfinite(got_l)) and l_err <= 1e-3
+            and np.all(np.abs(got_d - ref_d) <= 2e-2)):
+        raise AssertionError(f"tta_one_volume card vs CPU: losses "
+                             f"{got_l.ravel()} vs {ref_l.ravel()}, dices "
+                             f"{got_d.ravel()} vs {ref_d.ravel()}")
+    log(f"reference: TS104 patch {model.patch_size}, one patch step: "
+        f"{len(grads[0])} gradients, largest error {g_rel:.3e} of its norm "
+        f"(tol 5e-2)")
+    log(f"reference: tta_one_volume TS104 patch {model.patch_size}, 1 member "
+        f"x {plan.epochs} epochs x {plan.patches_to_be_accumulated} patches: "
+        f"losses {got_l.ravel()} vs CPU {ref_l.ravel()} (rel err "
+        f"{l_err:.2e}, tol 1e-3); dices {got_d.ravel()} vs "
+        f"{ref_d.ravel()} (tol 2e-2); {moved} parameters updated, largest "
+        f"update error {p_rel:.3e} of its norm (tol 3e-1); conv biases "
+        f"decayed by {decay!r}")
+
+
+def expected_launches(spec, windows, members, plan):
+    """Kernel launches that `run_tta` must make for `plan` on a volume of
+    `windows` sliding windows with labels (one eval per epoch)."""
+    convs = (sum(spec.n_conv_per_stage_encoder)
+             - sum(1 for s in spec.strides if tuple(s) != (1, 1, 1))
+             + sum(spec.n_conv_per_stage_decoder))
+    # every stride-1 conv but the first, whose input is the image, takes an
+    # input gradient
+    first_is_stride1 = tuple(spec.strides[0]) == (1, 1, 1)
+    dgrad = convs - (1 if first_is_stride1 else 0)
+    acc, epochs = plan["patches_to_be_accumulated"], plan["epochs"]
+    trained = acc * max(0, epochs - plan["start_tta_at_epoch"])
+    forward_only = acc * epochs - trained
+    evals = epochs
+    per_member = dict(
+        conv3x3=(forward_only + trained + evals) * convs + trained * dgrad,
+        conv3x3_wgrad=trained * convs,
+        # two input warps and two unwarps per step, two adjoints per
+        # trained step, one label sampling per eval
+        warp=(forward_only + trained) * 4 + trained * 2 + evals)
+    out = {k: members * v for k, v in per_member.items()}
+    out["conv3x3"] += windows * members * convs
+    return out
 
 
 def phase_main_path(work: Path):
@@ -245,82 +592,53 @@ def phase_main_path(work: Path):
     import torch
 
     from dg_tta_tpu_torch.cli.main import main as cli
-    from dg_tta_tpu_torch.data.io import read_image, write_image
+    from dg_tta_tpu_torch.data.io import read_image
     from dg_tta_tpu_torch.infer.sliding_window import (padded_shape,
-                                                         window_origins)
-    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3
-    from dg_tta_tpu_torch.models.convert import save_flat_npz
-    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
-    from dg_tta_tpu_torch.tta.config import (get_parameters_save_path,
-                                             get_tta_folders)
+                                                       window_origins)
+    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
+    from dg_tta_tpu_torch.kernels.warp import warp_flat
+    from dg_tta_tpu_torch.models.convert import load_flat_npz
+    from dg_tta_tpu_torch.obs.profile_inference import ts104_model
+    from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
+    from dg_tta_tpu_torch.tta.config import get_parameters_save_path
 
-    root, raw, results = work / "dg_tta_root", work / "raw", work / "results"
-    for d in (root, raw, results):
-        d.mkdir()
-    os.environ.update(DG_TTA_ROOT=str(root), nnUNet_raw=str(raw),
-                      nnUNet_results=str(results))
-
+    ws = make_workspace(work, seed=0, shape=VOLUME_SHAPE)
     model = ts104_model()
-    labels = {"background": 0, "spleen": 1, "kidney_right": 2,
-              "kidney_left": 3, "gallbladder": 4, "liver": 5}
-    labels.update({f"class_{i:03d}": i for i in range(6, N_CLASSES)})
-    trainer_dir = (root / "_pretrained_weights" /
-                   "nnUNetTrainer_GIN__nnUNetPlans__3d_fullres")
-    (trainer_dir / "fold_0").mkdir(parents=True)
-    with open(trainer_dir / "dataset.json", "w") as f:
-        json.dump({"labels": labels, "channel_names": {"0": "CT"},
-                   "file_ending": ".nii.gz"}, f)
-    pretrained = seeded_net(model, 0, "cpu")
-    n_params = sum(p.numel() for p in pretrained.parameters())
-    save_flat_npz(pretrained.state_dict(),
-                  trainer_dir / "fold_0" / "checkpoint_final.npz")
-
-    tgt = raw / "Dataset900_SynthCT"
-    (tgt / "imagesTs").mkdir(parents=True)
-    (tgt / "labelsTs").mkdir()
-    with open(tgt / "dataset.json", "w") as f:
-        json.dump({"labels": {"background": 0, "liver": 1, "spleen": 2,
-                              "kidney_left": 3},
-                   "channel_names": {"0": "CT"}, "numTraining": 0,
-                   "file_ending": ".nii.gz"}, f)
-    vol, seg = synthetic_ct(np.random.default_rng(0), VOLUME_SHAPE)
-    props = {"spacing": (1.5, 1.5, 1.5)}
-    write_image(tgt / "imagesTs" / "case_0000.nii.gz", vol, props,
-                dtype=np.int16)
-    write_image(tgt / "labelsTs" / "case.nii.gz", seg, props)
-
-    cli(["prepare_tta", "TS104_GIN", "900"])
-    _, plan_dir, results_dir, _, _ = get_tta_folders(
-        "TS104_GIN", "900", "nnUNetTrainer_GIN", "3d_fullres", "0")
-    plan = json.loads((plan_dir / "tta_plan.json").read_text())
+    cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
+    results_dir, plan = edit_plan(**SMOKE_PLAN)
     n_members = plan["ensemble_count"]
-    run_dir = results_dir / "chip_smoke-001"
-    for i in range(n_members):
-        member = seeded_net(model, 100 + i, "cpu")
-        path = get_parameters_save_path(run_dir / "tta_outputTs", "case", i)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        save_flat_npz(member.state_dict(), path)
-    log(f"main path: TS104_GIN {n_params} parameters, {N_CLASSES} classes, "
-        f"volume {VOLUME_SHAPE}, {n_members} members")
+    log(f"main path: TS104_GIN {ws.n_params} parameters, {N_CLASSES} "
+        f"classes, volume {VOLUME_SHAPE}, {n_members} members adapted from "
+        f"scratch; plan cut in depth to {SMOKE_PLAN}")
 
     windows = int(window_origins(padded_shape(VOLUME_SHAPE, model.patch_size),
                                  model.patch_size)[1].sum())
-    convs_per_forward = (sum(model.spec.n_conv_per_stage_encoder)
-                         - sum(1 for s in model.spec.strides if s != (1, 1, 1))
-                         + sum(model.spec.n_conv_per_stage_decoder))
+    expected = expected_launches(model.spec, windows, n_members, plan)
+    counters = {"conv3x3": conv3x3, "conv3x3_wgrad": conv3x3_wgrad,
+                "warp": warp_flat}
     torch.cuda.synchronize()
-    conv3x3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    summaries = cli(["run_tta", "TS104_GIN", "900", "--run_no", "1"])
+    summaries = cli(["run_tta", "TS104_GIN", ws.dataset_id])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = conv3x3.launches
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    expected = windows * n_members * convs_per_forward
     if launches != expected:
-        raise AssertionError(f"conv3x3 launched {launches} times, expected "
-                             f"{windows} windows x {n_members} members x "
-                             f"{convs_per_forward} convs = {expected}")
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected} from the plan")
+    (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
+    pretrained = load_flat_npz(ws.checkpoint)
+    for i in range(n_members):
+        path = get_parameters_save_path(run_dir / "tta_outputTs", "case", i)
+        sd = load_flat_npz(path)
+        if not all(torch.isfinite(v).all() for v in sd.values()):
+            raise AssertionError(f"member {i}: non-finite parameters")
+        if all(torch.equal(v, pretrained[k]) for k, v in sd.items()):
+            raise AssertionError(f"member {i} equals the pretrained weights")
     pred, _ = read_image(run_dir / "tta_outputTs" / "case.nii.gz")
     if pred.shape != (1, *VOLUME_SHAPE):
         raise AssertionError(f"segmentation shape {pred.shape}")
@@ -331,14 +649,20 @@ def phase_main_path(work: Path):
     if "Ts" not in summaries:
         raise AssertionError("no evaluation summary")
     timings = json.loads((run_dir / "timings.json").read_text())
-    infer_s = timings["phases"]["inference"]["total_s"]
-    if not timings["device"].startswith("cuda"):
-        raise AssertionError(f"run_tta ran on {timings['device']}")
+    phases = timings["phases"]
+    if not (timings["device"].startswith("cuda") and "adaptation" in phases
+            and "inference" in phases):
+        raise AssertionError(f"timings.json: {timings}")
+    adapt_s = phases["adaptation"]["total_s"]
+    infer_s = phases["inference"]["total_s"]
     log(f"main path: run_tta {wall:.2f} s wall; phases " + ", ".join(
-        f"{k}={v['total_s']:.2f}s" for k, v in timings["phases"].items()))
-    log(f"main path: inference {infer_s:.3f} s/volume = "
+        f"{k}={v['total_s']:.2f}s" for k, v in phases.items()))
+    log(f"main path: adaptation {adapt_s:.3f} s ({n_members} members x "
+        f"{plan['epochs']} epochs x {plan['patches_to_be_accumulated']} "
+        f"patches, f32), inference {infer_s:.3f} s/volume = "
         f"{60.0 / infer_s:.2f} vol/min ({windows} windows x {n_members} "
-        f"members, {launches} conv3x3 launches, f32); foreground Dice "
+        f"members), peak device memory {peak_gib:.2f} GiB; launches "
+        f"{launches} (expected {expected}); foreground Dice "
         f"{summaries['Ts']['foreground_mean']['Dice']:.4f} (random weights)")
     return launches
 
@@ -347,23 +671,31 @@ def main():
     phase_device()
     import torch
 
-    from dg_tta_tpu_torch.kernels.conv3x3 import REPLACES, SOURCE
+    from dg_tta_tpu_torch.kernels import conv3x3, warp
 
     phase_build()
-    totals = phase_kernels()
+    totals = {"conv3x3": phase_kernels(), "conv3x3_wgrad": phase_wgrad(),
+              "warp": phase_warp()}
     phase_reference()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_main_path(Path(tmp))
 
-    f32 = totals["float32"]
-    bound_by = "operations" if f32["ops_ms"] >= f32["bytes_ms"] else "bytes"
-    print(json.dumps({"kernels": [{
-        "name": "conv3x3", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": max(f32["ops_ms"], f32["bytes_ms"]),
-        "bound_by": bound_by, "library_ms": f32["library_ms"]}]}))
+    sources = {"conv3x3": (conv3x3.SOURCE, conv3x3.REPLACES),
+               "conv3x3_wgrad": (conv3x3.WGRAD_SOURCE, conv3x3.REPLACES),
+               "warp": (warp.SOURCE, warp.REPLACES)}
+    rows = []
+    for name, (source, replaces) in sources.items():
+        f32 = totals[name]["float32"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"],
+            "bound_ms": max(f32["ops_ms"], f32["bytes_ms"]),
+            "bound_by": ("operations" if f32["ops_ms"] >= f32["bytes_ms"]
+                         else "bytes"),
+            "library_ms": f32["library_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

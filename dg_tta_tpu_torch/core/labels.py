@@ -2,11 +2,12 @@
 dataset (the port of `dg_tta_tpu/core/labels.py`).
 
 `generate_label_mapping` is the name-intersection of two `{name: idx}`
-dicts; `map_label_argmaxed` rewrites label values onto the optimized label
-list.
+dicts; `map_label_logits` selects logit channels and `map_label_argmaxed`
+rewrites label values onto the optimized label list.
 """
 
 import numpy as np
+import torch
 
 
 def generate_label_mapping(source_label_dict: dict,
@@ -41,9 +42,22 @@ def get_map_idxs(label_mapping: dict, optimized_labels: list,
     return np.asarray(idxs, dtype=np.int32)
 
 
-def map_label_argmaxed(label: np.ndarray, map_idxs) -> np.ndarray:
+def map_label_logits(logits: torch.Tensor, map_idxs) -> torch.Tensor:
+    """The channels `map_idxs` of channels-last (..., C_model) logits:
+    (..., C_opt)."""
+    idx = torch.as_tensor(np.asarray(map_idxs, dtype=np.int64),
+                          device=logits.device)
+    return logits.index_select(-1, idx)
+
+
+def map_label_argmaxed(label, map_idxs):
     """Rewrite label values: voxels equal to map_idxs[i] become i, all other
-    values become 0."""
+    values become 0.  A numpy array or a torch tensor, returned as such."""
+    if isinstance(label, torch.Tensor):
+        out = torch.zeros_like(label)
+        for i, v in enumerate(np.asarray(map_idxs).tolist()):
+            out = torch.where(label == int(v), i, out)
+        return out
     out = np.zeros_like(label)
     for i, v in enumerate(np.asarray(map_idxs).tolist()):
         out = np.where(label == int(v), i, out).astype(label.dtype)

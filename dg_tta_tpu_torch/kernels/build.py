@@ -82,3 +82,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+_FUNCTIONS = {}
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function `symbol` of `csrc/<name>.cu` with its argument types
+    set (once: a wrapper calls this at every launch) and an int result."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn

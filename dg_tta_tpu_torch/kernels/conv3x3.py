@@ -17,6 +17,14 @@ in the input's type.
 `conv3x3` launches the kernel for CUDA tensors, or raises; it runs
 `conv3x3_reference` only for tensors on the CPU.  `conv3x3.launches` counts
 the kernel's launches.
+
+The backward, for TTA: `conv3x3_wgrad` is the weight gradient, a second
+hand-written kernel (`csrc/conv3x3_wgrad.cu`, plain version
+`conv3x3_wgrad_reference`, count `conv3x3_wgrad.launches`).  The input
+gradient needs no kernel of its own: it is the same zero-padded conv of dy
+with the weights flipped in (kz, ky, kx) and their channel axes swapped, so
+it runs through `conv3x3` again.  `Conv3x3Function` ties the three together
+as a `torch.autograd.Function`; `conv3x3_op` applies it.
 """
 
 import ctypes
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from dg_tta_tpu_torch.kernels import build
 
 SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3.cu"
+WGRAD_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad.cu"
 REPLACES = "dg_tta_tpu/ops/conv2d_pallas.py:99"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,10 +82,9 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch(x, w5, y, depth):
-    lib = build.load("conv3x3")
-    fn = lib.dgtta_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("conv3x3", "dgtta_conv3x3",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                        + [ctypes.c_void_p])
     N, H, W, C = x.shape
     err = fn(x.data_ptr(), w5.data_ptr(), y.data_ptr(), N, depth, H, W, C,
              w5.shape[-1], w5.shape[0], _DTYPE_CODES[x.dtype],
@@ -123,3 +131,127 @@ def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
     kz = 1 if len(w_shape) == 4 else w_shape[0]
     plane_taps = N if kz == 1 else (N // depth) * (3 * depth - 2)
     return 2 * (3 * H - 2) * (3 * W - 2) * C * w_shape[-1] * plane_taps
+
+
+# conv3x3_wgrad tiles (csrc/conv3x3_wgrad.cu): 4 x 16 positions per tile,
+# 32 output channels per block, 4 or 32 input channels per block.
+_WG_TILE_H, _WG_TILE_W, _WG_TCO = 4, 16, 32
+# blocks to aim for when the positions are split: 8 per SM of an H100
+_WG_TARGET_BLOCKS = 8 * 132
+
+
+def _wgrad_check(x, dy, depth, kz):
+    if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
+        raise ValueError(f"x (N, H, W, C) and dy (N, H, W, CO) must share "
+                         f"N, H, W, got {tuple(x.shape)} and "
+                         f"{tuple(dy.shape)}")
+    if kz not in (1, 3):
+        raise ValueError(f"kz must be 1 or 3, got {kz}")
+    if depth < 1 or x.shape[0] % depth:
+        raise ValueError(f"depth {depth} does not divide N={x.shape[0]}")
+    if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
+        raise ValueError(f"x and dy must both be float32 or bfloat16, got "
+                         f"{x.dtype} and {dy.dtype}")
+
+
+def conv3x3_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
+                            depth: int = 1, kz: int = 3) -> torch.Tensor:
+    """Plain PyTorch version: `torch.nn.grad.conv{2,3}d_weight` in f32 on
+    channels-first views.  Returns (kz, 3, 3, C, CO) f32."""
+    _wgrad_check(x, dy, depth, kz)
+    N, H, W, C = x.shape
+    CO = dy.shape[-1]
+    if kz == 1:
+        dw = torch.nn.grad.conv2d_weight(
+            x.permute(0, 3, 1, 2).float(), (CO, C, 3, 3),
+            dy.permute(0, 3, 1, 2).float(), padding=1)
+        return dw.permute(2, 3, 1, 0).unsqueeze(0).contiguous()
+
+    def cf(t):
+        return t.reshape(N // depth, depth, H, W, t.shape[-1]) \
+            .permute(0, 4, 1, 2, 3).float()
+
+    dw = torch.nn.grad.conv3d_weight(cf(x), (CO, C, 3, 3, 3), cf(dy),
+                                     padding=1)
+    return dw.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def wgrad_splits(x_shape, co: int, kz: int = 3) -> int:
+    """How many blocks share the sum over positions of one output tile."""
+    N, H, W, C = x_shape
+    tc = 4 if C <= 4 else 32
+    tiles = N * (-(-H // _WG_TILE_H)) * (-(-W // _WG_TILE_W))
+    base = kz * (-(-C // tc)) * (-(-co // _WG_TCO))
+    return max(1, min(-(-tiles // 4), -(-_WG_TARGET_BLOCKS // base)))
+
+
+def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
+                  kz: int = 3) -> torch.Tensor:
+    """dW[kz,ky,kx,ci,co] = sum_{n,h,w} x[n+kz-KZ//2, h+ky-1, w+kx-1, ci]
+    * dy[n,h,w,co], zero-padded as `conv3x3` pads: the weight gradient of
+    `conv3x3(x, W, depth)`.  Returns (kz, 3, 3, C, CO) f32.  CPU tensors
+    take the plain version; CUDA tensors the kernel."""
+    _wgrad_check(x, dy, depth, kz)
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return conv3x3_wgrad_reference(x, dy, depth, kz)
+    if x.device.type != "cuda" or dy.device != x.device:
+        raise ValueError(f"x and dy must lie on one CUDA device or both on "
+                         f"the CPU, got {x.device} and {dy.device}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("conv3x3_wgrad needs contiguous x and dy")
+    N, H, W, C = x.shape
+    CO = dy.shape[-1]
+    splits = wgrad_splits(x.shape, CO, kz)
+    dw = torch.empty((kz, 3, 3, C, CO), dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    fn = build.function("conv3x3_wgrad", "dgtta_conv3x3_wgrad",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                 0 if scratch is None else scratch.data_ptr(), N, depth, H,
+                 W, C, CO, kz, splits, _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad kernel launch failed with CUDA "
+                           f"error {err} for x {tuple(x.shape)} {x.dtype}, "
+                           f"dy {tuple(dy.shape)}, depth {depth}, kz {kz}")
+    conv3x3_wgrad.launches += 1
+    return dw
+
+
+conv3x3_wgrad.launches = 0
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """`conv3x3` with its backward: dx through `conv3x3` with flipped,
+    channel-swapped weights (skipped when x needs no gradient, as the
+    image entering the first conv), dW through `conv3x3_wgrad`."""
+
+    @staticmethod
+    def forward(ctx, x, w, depth):
+        ctx.depth = depth
+        ctx.save_for_backward(x, w)
+        return conv3x3(x, w, depth)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        w5 = _as_5d(w)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w5.flip((0, 1, 2)).transpose(3, 4).contiguous()
+            dx = conv3x3(dy, wt if w.dim() == 5 else wt[0], ctx.depth)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, dy, ctx.depth, kz=w5.shape[0])
+            dw = dw.reshape(w.shape).to(w.dtype)
+        return dx, dw, None
+
+
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor,
+               depth: int = 1) -> torch.Tensor:
+    """`conv3x3(x, w, depth)` that autograd differentiates through the
+    port's kernels (`Conv3x3Function`)."""
+    return Conv3x3Function.apply(x, w, depth)

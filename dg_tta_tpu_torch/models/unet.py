@@ -8,9 +8,13 @@ parameters; `forward` computes on channels-last (B, D, H, W, C) tensors:
 
 * stride-1 3x3x3 convs: one launch of the Hopper kernel
   `kernels/conv3x3.py` each, on a (B*D, H, W, C) view (the JAX package's
-  three z-tap 2D convs, summed inside the kernel);
-* stride-2 stage-entry convs: `F.conv3d`.  This is a library conv for work
-  that the JAX package also leaves to XLA, outside any Pallas kernel;
+  three z-tap 2D convs, summed inside the kernel).  Autograd runs their
+  backward through the port's kernels too (`conv3x3_op`: the input gradient
+  through the same kernel, the weight gradient through `conv3x3_wgrad`);
+* stride-2 stage-entry convs: `F.conv3d`, forward and backward.  This is a
+  library conv for work that the JAX package also leaves to XLA, outside
+  any Pallas kernel.  cuDNN runs it in TF32 unless
+  `torch.backends.cudnn.allow_tf32` is turned off;
 * transposed convs with kernel == stride: one matmul and a sub-voxel
   interleave, as in the JAX package;
 * InstanceNorm with f32 statistics (the E[x^2]-E[x]^2 form under bf16);
@@ -25,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3
+from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3_op
 from dg_tta_tpu_torch.models.plans import ArchSpec
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -96,7 +100,8 @@ def _conv(x, weight, stride):
     (O, I, kd, kh, kw)."""
     kernel = tuple(weight.shape[2:])
     if tuple(stride) != (1, 1, 1):
-        # library conv for the strided stage entries (module docstring)
+        # library conv for the strided stage entries, TF32 in cuDNN by
+        # default (module docstring)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, stride=tuple(stride),
                      padding=tuple(k // 2 for k in kernel))
         return y.permute(0, 2, 3, 4, 1).contiguous()
@@ -106,7 +111,7 @@ def _conv(x, weight, stride):
             "planes with 1 or 3 z-taps")
     B, D, H, W, C = x.shape
     wk = weight.permute(2, 3, 4, 1, 0).contiguous()   # (kd, 3, 3, I, O)
-    y = conv3x3(x.reshape(B * D, H, W, C), wk, depth=D)
+    y = conv3x3_op(x.reshape(B * D, H, W, C), wk, depth=D)
     return y.view(B, D, H, W, wk.shape[-1])
 
 

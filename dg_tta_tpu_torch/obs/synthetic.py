@@ -1,0 +1,117 @@
+"""A synthetic TS104 workspace for runs of the port on the GPU: a seeded
+full-width TS104_GIN checkpoint and one CT-like target volume with labels,
+laid out as `prepare_tta` / `run_tta` expect.
+
+    ws = make_workspace(Path(tmp), seed=0)
+    cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
+
+`chip_smoke.py` and `obs/profile_adaptation.py` build their runs on it.
+"""
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+
+VOLUME_SHAPE = (224, 224, 256)   # voxels at the TS104 spacing of 1.5 mm
+DATASET_ID = "900"
+TARGET_LABELS = {"background": 0, "liver": 1, "spleen": 2, "kidney_left": 3}
+
+
+def synthetic_ct(rng, shape=VOLUME_SHAPE):
+    """A CT-like volume in HU (air, body, organs, spine) and its labels
+    (1 liver, 2 spleen, 3 kidney_left), int16 / uint8."""
+    D, H, W = shape
+    z, y, x = np.meshgrid(np.linspace(-1, 1, D), np.linspace(-1, 1, H),
+                          np.linspace(-1, 1, W), indexing="ij")
+    vol = np.full(shape, -1000.0, np.float32)
+    seg = np.zeros(shape, np.uint8)
+    body = (y / 0.8) ** 2 + (x / 0.9) ** 2 < 1.0
+    vol[body] = 30.0
+    organs = [(1, (0.1, 0.2, -0.35), (0.5, 0.3, 0.3), 60.0),
+              (2, (0.1, 0.2, 0.45), (0.3, 0.2, 0.15), 45.0),
+              (3, (-0.1, 0.45, 0.3), (0.25, 0.12, 0.12), 35.0)]
+    for lbl, c, r, hu in organs:
+        m = (((z - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2
+             + ((x - c[2]) / r[2]) ** 2) < 1.0
+        vol[m] = hu
+        seg[m] = lbl
+    spine = ((y - 0.55) / 0.1) ** 2 + (x / 0.1) ** 2 < 1.0
+    vol[spine] = 700.0
+    vol += rng.normal(0.0, 20.0, size=shape).astype(np.float32)
+    return np.clip(vol, -1024, 3071).astype(np.int16), seg
+
+
+@dataclasses.dataclass(frozen=True)
+class Workspace:
+    root: Path
+    raw: Path
+    results: Path
+    checkpoint: Path
+    n_params: int
+    dataset_id: str = DATASET_ID
+
+
+def make_workspace(work: Path, seed: int = 0,
+                   shape=VOLUME_SHAPE) -> Workspace:
+    """Write the workspace under `work` and point DG_TTA_ROOT, nnUNet_raw
+    and nnUNet_results at it.  The checkpoint holds the full-width TS104_GIN
+    U-Net (105 classes) with weights drawn from `seed`; the target dataset
+    one synthetic CT of `shape` with its labels."""
+    from dg_tta_tpu_torch.data.io import write_image
+    from dg_tta_tpu_torch.models.convert import save_flat_npz
+    from dg_tta_tpu_torch.obs.profile_inference import (N_CLASSES,
+                                                        seeded_net,
+                                                        ts104_model)
+
+    work = Path(work)
+    root, raw, results = work / "dg_tta_root", work / "raw", work / "results"
+    for d in (root, raw, results):
+        d.mkdir(parents=True)
+    os.environ.update(DG_TTA_ROOT=str(root), nnUNet_raw=str(raw),
+                      nnUNet_results=str(results))
+
+    labels = {"background": 0, "spleen": 1, "kidney_right": 2,
+              "kidney_left": 3, "gallbladder": 4, "liver": 5}
+    labels.update({f"class_{i:03d}": i for i in range(6, N_CLASSES)})
+    trainer_dir = (root / "_pretrained_weights" /
+                   "nnUNetTrainer_GIN__nnUNetPlans__3d_fullres")
+    (trainer_dir / "fold_0").mkdir(parents=True)
+    with open(trainer_dir / "dataset.json", "w") as f:
+        json.dump({"labels": labels, "channel_names": {"0": "CT"},
+                   "file_ending": ".nii.gz"}, f)
+    net = seeded_net(ts104_model(), seed, "cpu")
+    checkpoint = trainer_dir / "fold_0" / "checkpoint_final.npz"
+    save_flat_npz(net.state_dict(), checkpoint)
+
+    tgt = raw / f"Dataset{DATASET_ID}_SynthCT"
+    (tgt / "imagesTs").mkdir(parents=True)
+    (tgt / "labelsTs").mkdir()
+    with open(tgt / "dataset.json", "w") as f:
+        json.dump({"labels": TARGET_LABELS, "channel_names": {"0": "CT"},
+                   "numTraining": 0, "file_ending": ".nii.gz"}, f)
+    vol, seg = synthetic_ct(np.random.default_rng(seed), shape)
+    props = {"spacing": (1.5, 1.5, 1.5)}
+    write_image(tgt / "imagesTs" / "case_0000.nii.gz", vol, props,
+                dtype=np.int16)
+    write_image(tgt / "labelsTs" / "case.nii.gz", seg, props)
+    return Workspace(root=root, raw=raw, results=results,
+                     checkpoint=checkpoint,
+                     n_params=sum(p.numel() for p in net.parameters()))
+
+
+def edit_plan(**changes):
+    """Change keys of the prepared TS104_GIN plan of the synthetic dataset
+    (after `prepare_tta`); returns the run results directory and the plan
+    as a dict."""
+    from dg_tta_tpu_torch.tta.config import get_tta_folders
+
+    _, plan_dir, results_dir, _, _ = get_tta_folders(
+        "TS104_GIN", DATASET_ID, "nnUNetTrainer_GIN", "3d_fullres", "0")
+    path = plan_dir / "tta_plan.json"
+    plan = json.loads(path.read_text())
+    plan.update(changes)
+    path.write_text(json.dumps(plan, indent=4))
+    return results_dir, plan

@@ -1,14 +1,26 @@
 """The TTA program driver: adaptation -> inference -> evaluation (the port
 of `dg_tta_tpu/tta/driver.py`).
 
-This slice runs Phases 2 and 3.  When every member's parameter file of a
-sample already exists, Phase 1 (adaptation) has nothing to do for it; a
-missing member raises `NotImplementedError` until adaptation is ported.
-Member files are `.npz` archives in the JAX package's format, so members
-adapted by `dg_tta_tpu` load unchanged.
+Phase 1 adapts, per sample (or once for all samples with
+`tta_across_all_samples`), every ensemble member whose parameter file is
+missing (`tta/engine.tta_one_volume`); members whose file exists are
+skipped, so an interrupted run resumes member by member.  Each member is
+saved as soon as it finishes, as an `.npz` archive in the JAX package's
+format, so members adapted by either package load in both.  Its per-epoch
+losses and Dices go to the log and, beside the member file, to
+`{id}__ensemble_idx_{m}_tta_results.json`.  Members run one after another
+(the plan's `ensemble_chunk` schedules nothing here).  Phase 2 predicts
+each sample with its members, Phase 3 evaluates against the labels.
 
 At the end the run directory gets `timings.json`: the device and the
-wall-clock seconds of every phase (`obs/timers.PhaseTimer`).
+wall-clock seconds of every phase (`obs/timers.PhaseTimer`): "adaptation",
+"inference" and the rest.
+
+Not in this slice, and raising `NotImplementedError`: wandb logging, the
+loss plots (`obs/plots.py`; ROADMAP A.6), the JAX driver's environment
+overrides DGTTA_EXACT_WARP_GRAD, DGTTA_PATCH_GROUP, DGTTA_REMAT and
+DGTTA_ENGINE, and the adaptation features that
+`tta/engine.check_supported` names.
 """
 
 import dataclasses
@@ -23,15 +35,20 @@ import numpy as np
 import torch
 
 from dg_tta_tpu_torch.core.labels import get_map_idxs, map_label_argmaxed
+from dg_tta_tpu_torch.core.patches import bucket_shape_for, pad_to_bucket
 from dg_tta_tpu_torch.data.io import SUPPORTED_ENDINGS, read_image, write_image
 from dg_tta_tpu_torch.data.preprocess import (preprocess_case,
                                               undo_preprocessing_logits)
 from dg_tta_tpu_torch.eval.metrics import compute_metrics_on_folder
 from dg_tta_tpu_torch.infer.sliding_window import predict_volume
-from dg_tta_tpu_torch.models.convert import load_flat_npz, load_torch_checkpoint
+from dg_tta_tpu_torch.models.convert import (load_flat_npz,
+                                             load_torch_checkpoint,
+                                             save_flat_npz)
 from dg_tta_tpu_torch.models.network import build_model
 from dg_tta_tpu_torch.obs.timers import PhaseTimer
 from dg_tta_tpu_torch.tta.config import get_parameters_save_path
+from dg_tta_tpu_torch.tta.draws import TorchDraws
+from dg_tta_tpu_torch.tta.engine import check_supported, tta_one_volume
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 from dg_tta_tpu_torch.utils.device import resolve_device
 
@@ -136,6 +153,100 @@ def _member_paths(plan: TTAPlan, save_path: Path, sample: TTASample):
             for i in range(plan.ensemble_count)]
 
 
+def _to_device_volume(sample: TTASample, bucket_shape, device):
+    """(C, D, H, W) -> bucket-padded channels-last (D, H, W, C) on `device`
+    (padded with the volume's minimum), its labels as f32 (padded with 0)
+    or None, and the true (D, H, W)."""
+    vol = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(sample.data, 0, -1), dtype=np.float32)).to(device)
+    padded = pad_to_bucket(vol, bucket_shape, pad_value=float(vol.min()))
+    lab = None
+    if sample.label is not None:
+        lab = torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(sample.label, 0, -1), dtype=np.float32)).to(device)
+        lab = pad_to_bucket(lab, bucket_shape, pad_value=0.0)
+    return padded, lab, [float(s) for s in vol.shape[:3]]
+
+
+def _check_driver_supported(plan: TTAPlan):
+    """The adaptation knobs of the JAX driver that this slice does not run
+    raise instead of being ignored."""
+    later = []
+    if plan.wandb_mode != "disabled":
+        later.append(f"wandb logging (wandb_mode={plan.wandb_mode!r}; "
+                     "ROADMAP A.6)")
+    if os.environ.get("DGTTA_EXACT_WARP_GRAD"):
+        later.append("DGTTA_EXACT_WARP_GRAD, the exact warp adjoint "
+                     "(ROADMAP A.5, left out)")
+    for env in ("DGTTA_PATCH_GROUP", "DGTTA_REMAT", "DGTTA_ENGINE"):
+        if os.environ.get(env):
+            later.append(f"{env} (ROADMAP A.5, left out)")
+    if later:
+        raise NotImplementedError(
+            "not ported to dg_tta_tpu_torch yet: " + "; ".join(later))
+
+
+def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
+                  save_path: Path, map_pre, map_tta, device,
+                  timer: PhaseTimer, modify_input_fn=None,
+                  modify_output_fn=None, modify_after_mapping_fn=None,
+                  verbose: bool = True):
+    """Phase 1: adapt and save every missing member of every sample group
+    (one group per sample, or all samples with tta_across_all_samples)."""
+    if plan.tta_across_all_samples:
+        groups = [samples] if samples else []
+    else:
+        groups = [[s] for s in samples]
+    for smp_idx, group in enumerate(groups):
+        group_id = ("all_samples" if plan.tta_across_all_samples
+                    else group[0].sample_id)
+        member_paths = _member_paths(plan, save_path, group[0])
+        param_id = group_id.split("/")[-1]
+        missing = [i for i, p in enumerate(member_paths) if not p.is_file()]
+        if not missing:
+            if verbose:
+                print(f"TTA parameters exist, skipping {group_id}")
+            continue
+        member_paths[0].parent.mkdir(exist_ok=True, parents=True)
+
+        bucket = bucket_shape_for(np.max([s.data.shape[1:] for s in group],
+                                         axis=0))
+        parts = [_to_device_volume(s, bucket, device) for s in group]
+        vols = torch.stack([p[0] for p in parts])
+        shapes = [p[2] for p in parts]
+        labs = (torch.stack([p[1] for p in parts])
+                if all(p[1] is not None for p in parts) else None)
+
+        def log_fn(member, epoch, loss, dice):
+            print(f"  member {member} epoch {epoch:3d} loss={loss:.4f} "
+                  f"pseudo-dice={100 * dice:.1f}%")
+
+        def save_member(m, net_m, loss_m, dice_m, member_paths=member_paths,
+                        param_id=param_id):
+            save_flat_npz(net_m.state_dict(), member_paths[m])
+            results = member_paths[m].parent / (
+                f"{param_id}__ensemble_idx_{m}_tta_results.json")
+            results.write_text(json.dumps({
+                "losses": [float(v) for v in loss_m],
+                "eval_dices": [float(v) for v in dice_m]}, indent=2))
+
+        if verbose:
+            print(f"# TTA {group_id} (members {missing})")
+        with timer.phase("adaptation"):
+            # the draws of a member depend on (sample index, member id)
+            # only, so a resumed run redraws what a full run would have
+            tta_one_volume(
+                model, plan, net, vols, shapes, map_pre, map_tta,
+                TorchDraws(seed=0, sample_index=smp_idx), labels_padded=labs,
+                modify_input_fn=modify_input_fn,
+                modify_output_fn=modify_output_fn,
+                modify_after_mapping_fn=modify_after_mapping_fn,
+                log_fn=log_fn if verbose else None, member_indices=missing,
+                save_member_fn=save_member)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+
 def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
              label_mapping: dict, modifier_fn_module=None,
              timer: Optional[PhaseTimer] = None, verbose: bool = True,
@@ -148,9 +259,15 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
     save_path.mkdir(exist_ok=True, parents=True)
     plan.save(save_path / "tta_plan.json")
 
+    _check_driver_supported(plan)
     mod = getattr(modifier_fn_module, "ModifierFunctions", None)
     modify_input_fn = getattr(mod, "modify_tta_input_fn", None)
+    # adaptation folds the label mapping into the seg head, so there the
+    # model-output hook sees mapped logits (the JAX driver's note); at
+    # inference it sees the raw full-class logits, as in the reference
     modify_model_output_fn = getattr(mod, "modify_tta_model_output_fn", None)
+    modify_after_mapping_fn = getattr(
+        mod, "modify_tta_output_after_mapping_fn", None)
     postprocess_fn = getattr(mod, "postprocess_results_fn", lambda d: None)
 
     optimized_labels = list(plan.optimized_labels)
@@ -158,8 +275,9 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
     map_tta = get_map_idxs(label_mapping, optimized_labels, "tta_labels")
 
     with timer.phase("load_model"):
-        model, _, plans, _ = load_pretrained_bundle(
+        model, net, plans, _ = load_pretrained_bundle(
             plan.pretrained_weights_filepath, device)
+    check_supported(model, plan)
 
     with timer.phase("preprocess"):
         samples = load_tta_data(plan, tta_data_dir, plans)
@@ -167,16 +285,12 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
         print(f"# Loaded {len(samples)} samples")
 
     # ---- Phase 1: adaptation -------------------------------------------
-    for sample in samples:
-        missing = [i for i, p in enumerate(_member_paths(plan, save_path,
-                                                         sample))
-                   if not p.is_file()]
-        if missing:
-            raise NotImplementedError(
-                "adaptation is ported in the next slice: members "
-                f"{missing} of {sample.sample_id} have no parameter file")
-        if verbose:
-            print(f"TTA parameters exist, skipping {sample.sample_id}")
+    adapt_samples(plan, samples, model, net, save_path, map_pre, map_tta,
+                  device, timer, modify_input_fn=modify_input_fn,
+                  modify_output_fn=modify_model_output_fn,
+                  modify_after_mapping_fn=modify_after_mapping_fn,
+                  verbose=verbose)
+    del net
 
     # ---- Phase 2: inference --------------------------------------------
     prediction_paths = []

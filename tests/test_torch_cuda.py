@@ -6,18 +6,31 @@ the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: max |kernel - plain| over max |plain|, 5e-5 in f32 (the same
-products summed in another order; TF32 off for the plain version) and
-2^-7 in bf16 (both round one f32 sum to bf16).
+Tolerances, max |kernel - plain| over max |plain|:
+* conv3x3: 5e-5 in f32 (the same products summed in another order; TF32
+  off for the plain version) and 2^-7 in bf16 (both round one f32 sum to
+  bf16);
+* conv3x3_wgrad: 1e-4, f32 out from f32 or bf16 in (sums over every
+  position, split across blocks, in another order than cuDNN's);
+* warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
+  kernel), 2^-7 in bf16 (one rounding of an f32 sum); nearest is exact
+  (both round the same f32 coordinates half to even).
+The card-vs-CPU runs of the conv's autograd Function and of a small
+`tta_one_volume` state theirs in place.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_reference
+from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_op,
+                                              conv3x3_reference,
+                                              conv3x3_wgrad,
+                                              conv3x3_wgrad_reference)
+from dg_tta_tpu_torch.kernels.warp import warp_flat, warp_flat_reference
 
 RTOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
+WARP_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 
 
 @pytest.fixture
@@ -88,3 +101,166 @@ def test_unet_on_card_matches_cpu(cuda_device):
         got = net.to(cuda_device)(x.to(cuda_device)).cpu()
     assert conv3x3.launches - before == 8  # 4 encoder + 4 decoder convs
     assert _max_rel_err(got, ref) <= 1e-4
+
+
+def _affine_grid(rng, B, out_spatial, device):
+    from dg_tta_tpu_torch.core.grid import affine_grid
+
+    theta = torch.from_numpy((np.eye(3, 4)[None] + 0.1 * rng.normal(
+        size=(B, 3, 4))).astype(np.float32))
+    return affine_grid(theta.to(device), out_spatial)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,padding_mode", [
+    ("trilinear", "zeros"), ("trilinear", "border"), ("nearest", "zeros"),
+    ("nearest", "border")])
+@pytest.mark.parametrize("C,src,out", [
+    (1, (19, 13, 37), (19, 13, 37)),    # ragged, endomorphic
+    (5, (9, 14, 11), (6, 17, 23)),      # not endomorphic
+])
+def test_warp_kernel_matches_plain(cuda_device, dtype, mode, padding_mode,
+                                   C, src, out):
+    rng = np.random.default_rng(0)
+    B = 2
+    flat = torch.from_numpy(rng.normal(size=(B, C, int(np.prod(src))))
+                            .astype(np.float32)).to(cuda_device,
+                                                    getattr(torch, dtype))
+    grid = _affine_grid(rng, B, out, cuda_device)
+    before = warp_flat.launches
+    got = warp_flat(flat, src, grid, mode=mode, padding_mode=padding_mode)
+    torch.cuda.synchronize()
+    assert warp_flat.launches == before + 1
+    ref = warp_flat_reference(flat, src, grid, mode=mode,
+                              padding_mode=padding_mode)
+    assert got.dtype == flat.dtype and got.shape == (B, C, int(np.prod(out)))
+    if mode == "nearest":
+        assert torch.equal(got, ref)
+    else:
+        assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kz,shape", [
+    (3, (12, 6, 19, 37, 13, 40)),   # N, depth, H, W, C, CO: ragged tiles
+    (3, (8, 8, 16, 16, 1, 32)),     # C = 1, the first U-Net conv
+    (3, (4, 1, 5, 3, 9, 70)),       # depth 1: no z-neighbours
+    (1, (6, 3, 9, 20, 36, 7)),      # one z-tap
+    (3, (64, 32, 40, 48, 8, 8)),    # enough positions to split the sum
+])
+def test_wgrad_kernel_matches_plain(cuda_device, dtype, kz, shape):
+    N, D, H, W, C, CO = shape
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    x, dy = x.to(cuda_device, dt), dy.to(cuda_device, dt)
+    before = conv3x3_wgrad.launches
+    got = conv3x3_wgrad(x, dy, depth=D, kz=kz)
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, C, CO)
+    ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
+    assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 13])
+def test_conv_autograd_on_card_matches_cpu(cuda_device, C):
+    """Forward, input and weight gradients of `conv3x3_op` on the card
+    against the CPU (plain versions): f32, 1e-4 of each range."""
+    rng = np.random.default_rng(2)
+    N, D, H, W, CO = 10, 5, 11, 21, 17
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, 3, C, CO)) * 0.2)
+                         .astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xd = x.detach().to(dev).requires_grad_(True)
+        wd = w.detach().to(dev).requires_grad_(True)
+        y = conv3x3_op(xd, wd, depth=D)
+        (y * ct.to(dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    for ref, got in zip(*outs):
+        assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_tta_one_volume_on_card_matches_cpu(cuda_device):
+    """A small adaptation (tiny U-Net, 1 member, 3 epochs x 2 patches, the
+    last two trained, the same injected draws) on the card against the
+    CPU: losses 1e-3 relative; each parameter's update (final - initial)
+    within 5% of the CPU's in norm (AdamW's ~lr x sign steps may flip on
+    near-zero gradients; no update, or a wrong one, misses by 100%); the
+    parameters the loss never reaches decayed by exactly (1 - lr x weight
+    decay) per trained epoch, 1e-6 relative; and the kernels launched as
+    counted."""
+    from dg_tta_tpu_torch.models.network import Model
+    from dg_tta_tpu_torch.models.plans import ArchSpec
+    from dg_tta_tpu_torch.models.unet import init_unet_
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import tta_one_volume
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    spec = ArchSpec(features_per_stage=(8, 16), kernel_sizes=((3, 3, 3),) * 2,
+                    strides=((1, 1, 1), (2, 2, 2)),
+                    n_conv_per_stage_encoder=(1, 1),
+                    n_conv_per_stage_decoder=(1,), num_input_channels=1,
+                    num_classes=4)
+    model = Model(spec=spec, patch_size=(16, 16, 16),
+                  trainer_name="nnUNetTrainer_GIN", uses_gin_internal=True,
+                  uses_mind=False)
+    net = init_unet_(model.build_network(device="cpu"),
+                     torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        # nonzero conv biases (unused before InstanceNorm), so that their
+        # weight decay shows
+        for name, p in net.named_parameters():
+            if name.endswith("conv.bias"):
+                p.copy_(torch.from_numpy(rng.normal(size=p.shape)))
+    init = {n: p.detach().clone() for n, p in net.named_parameters()}
+    vol = rng.normal(size=(1, 24, 28, 20, 1)).astype(np.float32) * 0.1
+    vol[0, 6:12, 7:14, 5:10] += 2.0
+    lab = np.zeros((1, 24, 28, 20, 1), np.float32)
+    lab[0, 6:12, 7:14, 5:10] = 1.0
+    plan = TTAPlan(epochs=3, patches_to_be_accumulated=2, lr=1e-3,
+                   ensemble_count=1, start_tta_at_epoch=1)
+    idx = np.arange(3)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        counts = (conv3x3.launches, conv3x3_wgrad.launches,
+                  warp_flat.launches)
+        nets, losses, dices = tta_one_volume(
+            model, plan, net.to(dev), torch.from_numpy(vol).to(dev),
+            [[24.0, 28.0, 20.0]], idx, idx, TorchDraws(seed=5),
+            labels_padded=torch.from_numpy(lab).to(dev))
+        counts = (conv3x3.launches - counts[0],
+                  conv3x3_wgrad.launches - counts[1],
+                  warp_flat.launches - counts[2])
+        runs.append((nets[0].cpu().state_dict(), losses, dices, counts))
+    (ref_p, ref_l, ref_d, cpu_counts), (got_p, got_l, got_d, counts) = runs
+    assert cpu_counts == (0, 0, 0)
+    # 2 stride-1 convs per forward; 6 steps forward, 4 of them trained
+    # (dgrad of the second conv only), 3 evals; 4 warps per step, 2
+    # adjoints per trained step, 1 label warp per eval
+    assert counts == (6 * 2 + 4 * 1 + 3 * 2, 4 * 2, 6 * 4 + 4 * 2 + 3)
+    np.testing.assert_allclose(got_l, ref_l, rtol=1e-3)
+    np.testing.assert_allclose(got_d, ref_d, atol=2e-2)
+    decay = (1.0 - plan.lr * 0.01) ** (plan.epochs - plan.start_tta_at_epoch)
+    for name, p0 in init.items():
+        ref_dp, got_dp = ref_p[name] - p0, got_p[name] - p0
+        assert ref_dp.norm() > 0, name
+        assert (got_dp - ref_dp).norm() <= 0.05 * ref_dp.norm(), name
+        # unused: conv biases before InstanceNorm, the logit channel of
+        # class 3 (outside idx)
+        sl = (slice(None) if name.endswith("conv.bias") else
+              3 if name.startswith("decoder.seg_layers.") else None)
+        if sl is not None:
+            for p in (ref_p[name], got_p[name]):
+                np.testing.assert_allclose(p[sl].numpy(),
+                                           decay * p0[sl].numpy(),
+                                           rtol=1e-6, err_msg=name)

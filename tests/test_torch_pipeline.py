@@ -1,18 +1,20 @@
-"""The port's `run_tta` inference path against the JAX package's, end to
-end through both CLIs, on the workspace of tests/test_pipeline_e2e.py.
+"""The port's `run_tta` against the JAX package's, end to end through
+both CLIs, on the workspace of tests/test_pipeline_e2e.py.
 
 The JAX CLI prepares the plan and runs a tiny `run_tta` (adaptation with
 two members, inference, evaluation).  The port's CLI then resumes that run
 on the CPU: every member file exists, so it skips adaptation and runs
 inference and evaluation from the same member `.npz` files.  Its logits
 match the JAX logits to the f32 tolerance of tests/test_sliding_window.py
-(1e-4) and its per-class Dice to 1e-3.
+(1e-4) and its per-class Dice to 1e-3.  The port's own run adapts its
+members from scratch and resumes without re-adapting
+(tests/test_torch_engine.py holds its adaptation against the JAX
+engine's).
 """
 
 import json
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -145,9 +147,44 @@ def test_label_mapping_matches_jax():
             np.asarray(jl.map_label_argmaxed(jnp.asarray(lab), idx)))
 
 
-def test_port_run_tta_without_members_raises(workspace):  # noqa: F811
+def test_port_run_tta_adapts_then_resumes(workspace):  # noqa: F811
+    """The port's run_tta adapts every member from scratch on the CPU,
+    saves them in the JAX package's format, and a second run of the same
+    run number skips adaptation."""
+    from dg_tta_tpu.models.convert import flat_npz_to_params
     from dg_tta_tpu_torch.cli.main import main as port_cli
 
+    root, _, _ = workspace
     port_cli(["prepare_tta", *ARGS])
-    with pytest.raises(NotImplementedError, match="adaptation"):
-        port_cli(["run_tta", *ARGS, "--device", "cpu"])
+    plan_path = root / PLAN_DIR / "tta_plan.json"
+    plan = json.loads(plan_path.read_text())
+    plan.update(epochs=2, patches_to_be_accumulated=1, ensemble_count=2)
+    plan_path.write_text(json.dumps(plan))
+
+    summaries = port_cli(["run_tta", *ARGS, "--device", "cpu"])
+    (run_dir,) = list((root / RESULTS_DIR).iterdir())
+    timings = json.loads((run_dir / "timings.json").read_text())
+    assert timings["device"] == "cpu"
+    assert {"adaptation", "inference"} <= set(timings["phases"])
+    assert "Ts" in summaries
+    members = {}
+    for case in ("caseA", "caseB"):
+        for i in range(2):
+            path = _member_file(run_dir, case, i)
+            members[path] = path.read_bytes()
+            # the JAX package loads the port's members
+            tree = flat_npz_to_params(path)
+            assert all(np.isfinite(np.asarray(a)).all()
+                       for a in jax.tree.leaves(tree))
+            res = json.loads((path.parent / f"{case}__ensemble_idx_{i}"
+                              "_tta_results.json").read_text())
+            assert len(res["losses"]) == 2 and len(res["eval_dices"]) == 2
+            assert np.isfinite(res["losses"]).all()
+
+    run_no = int(run_dir.name.rsplit("-", 1)[-1])
+    port_cli(["run_tta", *ARGS, "--run_no", str(run_no), "--device", "cpu"])
+    timings = json.loads((run_dir / "timings.json").read_text())
+    assert "adaptation" not in timings["phases"]
+    assert "inference" in timings["phases"]
+    for path, data in members.items():
+        assert path.read_bytes() == data
