@@ -7,8 +7,10 @@ Phases; any failure raises and the script exits non-zero:
 1. device: requires `torch.cuda.is_available()`; prints the card's name and
    power limit as `nvidia-smi` reports them;
 2. build: compiles every CUDA kernel of the main path from the checkout's
-   sources (`conv3x3`, `conv3x3_wgrad`, `warp`: one `nvcc` per source, all
-   started together);
+   sources (`conv3x3`, `conv3x3_wgrad`, `warp`, `conv3x3_wgmma`,
+   `conv3x3_wgrad_wgmma`: one `nvcc` per source, all started together),
+   and asserts that the SASS of the two wgmma sources holds tensor-core
+   (`HGMMA`) and TMA (`UTMALDG`) instructions;
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -17,10 +19,12 @@ Phases; any failure raises and the script exits non-zero:
      for the reference) and bf16 (library: `F.conv3d`): each stride-1
      conv of a TS104 window forward (one volume), and of a trained TTA
      step (two volumes, both branches), forward and input gradient (the
-     same kernel on dy with flipped, channel-swapped weights);
+     same kernel on dy with flipped, channel-swapped weights); each shape
+     prints its route (`conv3x3_route`: bf16 with C % 16 == 0 and
+     CO % 8 == 0 runs the wgmma kernel, the rest the CUDA-core kernel);
    * `conv3x3_wgrad` at the same shapes with the batch of a TTA step (two
      patches: both branches), f32 and bf16 (library: cuDNN's weight
-     gradient, `torch.nn.grad.conv3d_weight`);
+     gradient, `torch.nn.grad.conv3d_weight`), with its route;
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
      its adjoint (112 x 112 x 128), and the nearest label sampling of a
@@ -31,22 +35,26 @@ Phases; any failure raises and the script exits non-zero:
    gradient and a short `tta_one_volume` (injected draws, 1 member,
    3 epochs x 2 patches, two of them trained), each on the card against
    the same code on the CPU (plain versions, TF32 off);
-5. main path: `prepare_tta` and `run_tta` through the port's CLI on a
-   synthetic CT volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows)
-   and a seeded full-width TS104_GIN checkpoint (105 classes), with no
-   member files: `run_tta` adapts three members (Phase 1), then predicts
-   and evaluates.  The plan is the default cut in depth only:
-   epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1 (one
-   warm-up and one trained epoch).  Checks the member files and the
-   segmentation, and that every kernel launched exactly as often as the
-   plan says it must.
+5. main path, twice, each in a fresh workspace: f32 (the default), then
+   bf16 (`DGTTA_COMPUTE_DTYPE=bfloat16`): `prepare_tta` and `run_tta`
+   through the port's CLI on a synthetic CT volume of 224 x 224 x 256
+   voxels at 1.5 mm (27 windows) and a seeded full-width TS104_GIN
+   checkpoint (105 classes), with no member files: `run_tta` adapts three
+   members (Phase 1), then predicts and evaluates.  The plan is the
+   default cut in depth only: epochs=2, patches_to_be_accumulated=4,
+   start_tta_at_epoch=1 (one warm-up and one trained epoch).  Checks the
+   member files and the segmentation, and that every kernel launched
+   exactly as often as the plan says it must, on each route
+   (`expected_launches`).
 
-It prints one JSON line with the kernels' numbers and, last, one JSON line
+It prints one JSON line with the kernels' numbers (f32, with bf16 fields
+beside them; the wgmma kernels' rows are bf16) and, last, one JSON line
 naming the device.
 """
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -92,6 +100,9 @@ N_OPT = 4          # background + the 3 labels of the synthetic target
 # The main path's plan, cut in depth only (module docstring).
 SMOKE_PLAN = dict(epochs=2, patches_to_be_accumulated=4,
                   start_tta_at_epoch=1)
+# every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
+SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
+           "conv3x3_wgrad_wgmma"]
 
 
 def log(*a):
@@ -131,12 +142,19 @@ def phase_build():
     from dg_tta_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["conv3x3", "conv3x3_wgrad", "warp"])
+    logs = build.build(SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the wgmma route runs on the tensor cores, fed by TMA
+    for name in ("conv3x3_wgmma", "conv3x3_wgrad_wgmma"):
+        sass = build.sass(name)
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: SASS instruction counts {counts}")
+        log(f"  {name}: SASS {counts}")
 
 
 def _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult=1):
@@ -149,6 +167,15 @@ def _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult=1):
 def _new_totals():
     return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                 bytes_ms=0.0, max_abs_err=0.0)
+
+
+def _log_routes(kernel, per, totals):
+    for key, t in sorted(totals.items()):
+        if "/" in key:
+            log(f"{kernel} {key} per {per}: kernel_ms={t['ms']:.3f} "
+                f"plain_ms={t['plain_ms']:.3f} "
+                f"library_ms={t['library_ms']:.3f} "
+                f"bound_ms={max(t['ops_ms'], t['bytes_ms']):.3f}")
 
 
 def _conv_cases():
@@ -170,7 +197,8 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_flops,
-                                                  conv3x3_reference)
+                                                  conv3x3_reference,
+                                                  conv3x3_route)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -192,6 +220,7 @@ def phase_kernels():
             else:
                 w = (torch.randn((3, 3, 3, C, CO), generator=gen)
                      * (2.0 / (27 * C)) ** 0.5).to(dt).cuda()
+            route = conv3x3_route(C, CO, dt)
             got = conv3x3(x, w, depth=depth)
             torch.cuda.synchronize()
             ref = conv3x3_reference(x, w, depth=depth)
@@ -213,16 +242,17 @@ def phase_kernels():
             ops_ms = ops / PEAK_OPS[name] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             log(f"conv3x3 {name} {use} N={N} depth={depth} {H}x{W} "
-                f"{C}->{CO}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+                f"{C}->{CO} route={route}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}) "
                 f"max_rel_err={err / scale:.3e} (tol {KERNEL_RTOL[name]:.1e}) "
                 f"kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={max(ops_ms, bytes_ms):.4f} "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
                 f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
-            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
-            _record(per_use.setdefault(use, _new_totals()), err, k_ms, p_ms,
-                    l_ms, ops_ms, bytes_ms, mult)
+            for t in (tot, per_use.setdefault(use, _new_totals()),
+                      totals.setdefault(f"{name}/{route}", _new_totals())):
+                _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
         for use, t in per_use.items():
             log(f"conv3x3 {name} per {use}: kernel_ms={t['ms']:.3f} "
                 f"plain_ms={t['plain_ms']:.3f} "
@@ -233,6 +263,7 @@ def phase_kernels():
             f"library_ms={tot['library_ms']:.3f} "
             f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.3f}")
         totals[name] = tot
+    _log_routes("conv3x3", "window forward + trained step", totals)
     return totals
 
 
@@ -243,7 +274,8 @@ def phase_wgrad():
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_flops,
                                                   conv3x3_wgrad,
-                                                  conv3x3_wgrad_reference)
+                                                  conv3x3_wgrad_reference,
+                                                  conv3x3_wgrad_route)
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
@@ -255,6 +287,7 @@ def phase_wgrad():
             N = 2 * depth
             x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
             dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
+            route = conv3x3_wgrad_route(C, CO, dt)
             got = conv3x3_wgrad(x, dy, depth=depth)
             torch.cuda.synchronize()
             ref = conv3x3_wgrad_reference(x, dy, depth=depth)
@@ -277,18 +310,21 @@ def phase_wgrad():
             ops_ms = ops / PEAK_OPS[name] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             log(f"conv3x3_wgrad {name} N={N} depth={depth} {H}x{W} "
-                f"{C}->{CO}: max_abs_err={err:.3e} "
+                f"{C}->{CO} route={route}: max_abs_err={err:.3e} "
                 f"(tol {WGRAD_RTOL * scale:.3e}) kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={max(ops_ms, bytes_ms):.4f} "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
                 f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
-            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
+            for t in (tot, totals.setdefault(f"{name}/{route}",
+                                             _new_totals())):
+                _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
         log(f"conv3x3_wgrad {name} per trained step (14 convs): "
             f"kernel_ms={tot['ms']:.3f} plain_ms={tot['plain_ms']:.3f} "
             f"library_ms={tot['library_ms']:.3f} "
             f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.3f}")
         totals[name] = tot
+    _log_routes("conv3x3_wgrad", "trained step", totals)
     return totals
 
 
@@ -562,32 +598,86 @@ def reference_adaptation():
         f"decayed by {decay!r}")
 
 
-def expected_launches(spec, windows, members, plan):
+def _stride1_convs(spec):
+    """(C, CO, takes an input gradient) of every stride-1 3x3 conv of one
+    forward of `spec`, in order; the first conv, on the image, takes no
+    input gradient, and a stage's strided first conv runs in cuDNN."""
+    f = spec.features_per_stage
+    convs = []
+    for s, n in enumerate(spec.n_conv_per_stage_encoder):
+        for i in range(n):
+            if i == 0 and tuple(spec.strides[s]) != (1, 1, 1):
+                continue
+            c_in = f[s] if i else (spec.num_input_channels if s == 0
+                                   else f[s - 1])
+            convs.append((c_in, f[s], not (s == 0 and i == 0)))
+    for d, n in enumerate(spec.n_conv_per_stage_decoder):
+        here = f[len(f) - 2 - d]
+        convs += [(2 * here if i == 0 else here, here, True)
+                  for i in range(n)]
+    return convs
+
+
+def expected_launches(spec, windows, members, plan, dtype="float32"):
     """Kernel launches that `run_tta` must make for `plan` on a volume of
-    `windows` sliding windows with labels (one eval per epoch)."""
-    convs = (sum(spec.n_conv_per_stage_encoder)
-             - sum(1 for s in spec.strides if tuple(s) != (1, 1, 1))
-             + sum(spec.n_conv_per_stage_decoder))
-    # every stride-1 conv but the first, whose input is the image, takes an
-    # input gradient
-    first_is_stride1 = tuple(spec.strides[0]) == (1, 1, 1)
-    dgrad = convs - (1 if first_is_stride1 else 0)
+    `windows` sliding windows with labels (one eval per epoch), in compute
+    type `dtype`: the totals of `conv3x3` and `conv3x3_wgrad` (either
+    route), the launches of their wgmma route (`conv3x3_wgmma`,
+    `conv3x3_wgrad_wgmma`) and of `warp`."""
+    import torch
+
+    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
+                                                  conv3x3_wgrad_route)
+
+    dt = getattr(torch, dtype)
+    convs = _stride1_convs(spec)
+    fwd = len(convs)
+    dgrad = sum(g for _, _, g in convs)
+    fwd_w = sum(conv3x3_route(c, co, dt) == "wgmma" for c, co, _ in convs)
+    dgrad_w = sum(g and conv3x3_route(co, c, dt) == "wgmma"
+                  for c, co, g in convs)
+    wgrad_w = sum(conv3x3_wgrad_route(c, co, dt) == "wgmma"
+                  for c, co, _ in convs)
     acc, epochs = plan["patches_to_be_accumulated"], plan["epochs"]
     trained = acc * max(0, epochs - plan["start_tta_at_epoch"])
-    forward_only = acc * epochs - trained
-    evals = epochs
+    forwards = acc * epochs + epochs   # patch steps and one eval per epoch
     per_member = dict(
-        conv3x3=(forward_only + trained + evals) * convs + trained * dgrad,
-        conv3x3_wgrad=trained * convs,
+        conv3x3=forwards * fwd + trained * dgrad,
+        conv3x3_wgmma=forwards * fwd_w + trained * dgrad_w,
+        conv3x3_wgrad=trained * fwd,
+        conv3x3_wgrad_wgmma=trained * wgrad_w,
         # two input warps and two unwarps per step, two adjoints per
         # trained step, one label sampling per eval
-        warp=(forward_only + trained) * 4 + trained * 2 + evals)
+        warp=acc * epochs * 4 + trained * 2 + epochs)
     out = {k: members * v for k, v in per_member.items()}
-    out["conv3x3"] += windows * members * convs
+    out["conv3x3"] += windows * members * fwd
+    out["conv3x3_wgmma"] += windows * members * fwd_w
     return out
 
 
-def phase_main_path(work: Path):
+def _read_counts():
+    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
+    from dg_tta_tpu_torch.kernels.warp import warp_flat
+
+    return {"conv3x3": conv3x3.launches,
+            "conv3x3_wgmma": conv3x3.wgmma_launches,
+            "conv3x3_wgrad": conv3x3_wgrad.launches,
+            "conv3x3_wgrad_wgmma": conv3x3_wgrad.wgmma_launches,
+            "warp": warp_flat.launches}
+
+
+def _zero_counts():
+    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
+    from dg_tta_tpu_torch.kernels.warp import warp_flat
+
+    for fn in (conv3x3, conv3x3_wgrad):
+        fn.launches = fn.wgmma_launches = 0
+    warp_flat.launches = 0
+
+
+def phase_main_path(work: Path, dtype: str):
+    """`run_tta` through the CLI with `DGTTA_COMPUTE_DTYPE=dtype`; returns
+    the kernels' launch counts of that run."""
     import numpy as np
     import torch
 
@@ -595,8 +685,6 @@ def phase_main_path(work: Path):
     from dg_tta_tpu_torch.data.io import read_image
     from dg_tta_tpu_torch.infer.sliding_window import (padded_shape,
                                                        window_origins)
-    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
-    from dg_tta_tpu_torch.kernels.warp import warp_flat
     from dg_tta_tpu_torch.models.convert import load_flat_npz
     from dg_tta_tpu_torch.obs.profile_inference import ts104_model
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
@@ -607,24 +695,25 @@ def phase_main_path(work: Path):
     cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
     results_dir, plan = edit_plan(**SMOKE_PLAN)
     n_members = plan["ensemble_count"]
-    log(f"main path: TS104_GIN {ws.n_params} parameters, {N_CLASSES} "
-        f"classes, volume {VOLUME_SHAPE}, {n_members} members adapted from "
-        f"scratch; plan cut in depth to {SMOKE_PLAN}")
+    log(f"main path {dtype}: TS104_GIN {ws.n_params} parameters, "
+        f"{N_CLASSES} classes, volume {VOLUME_SHAPE}, {n_members} members "
+        f"adapted from scratch; plan cut in depth to {SMOKE_PLAN}")
 
     windows = int(window_origins(padded_shape(VOLUME_SHAPE, model.patch_size),
                                  model.patch_size)[1].sum())
-    expected = expected_launches(model.spec, windows, n_members, plan)
-    counters = {"conv3x3": conv3x3, "conv3x3_wgrad": conv3x3_wgrad,
-                "warp": warp_flat}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    summaries = cli(["run_tta", "TS104_GIN", ws.dataset_id])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    expected = expected_launches(model.spec, windows, n_members, plan, dtype)
+    os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        summaries = cli(["run_tta", "TS104_GIN", ws.dataset_id])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        del os.environ["DGTTA_COMPUTE_DTYPE"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if launches != expected:
@@ -655,16 +744,34 @@ def phase_main_path(work: Path):
         raise AssertionError(f"timings.json: {timings}")
     adapt_s = phases["adaptation"]["total_s"]
     infer_s = phases["inference"]["total_s"]
-    log(f"main path: run_tta {wall:.2f} s wall; phases " + ", ".join(
-        f"{k}={v['total_s']:.2f}s" for k, v in phases.items()))
-    log(f"main path: adaptation {adapt_s:.3f} s ({n_members} members x "
-        f"{plan['epochs']} epochs x {plan['patches_to_be_accumulated']} "
-        f"patches, f32), inference {infer_s:.3f} s/volume = "
+    log(f"main path {dtype}: run_tta {wall:.2f} s wall; phases "
+        + ", ".join(f"{k}={v['total_s']:.2f}s" for k, v in phases.items()))
+    log(f"main path {dtype}: adaptation {adapt_s:.3f} s ({n_members} members"
+        f" x {plan['epochs']} epochs x {plan['patches_to_be_accumulated']} "
+        f"patches, {dtype}), inference {infer_s:.3f} s/volume = "
         f"{60.0 / infer_s:.2f} vol/min ({windows} windows x {n_members} "
         f"members), peak device memory {peak_gib:.2f} GiB; launches "
         f"{launches} (expected {expected}); foreground Dice "
         f"{summaries['Ts']['foreground_mean']['Dice']:.4f} (random weights)")
     return launches
+
+
+def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None):
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+           "plain_ms": t["plain_ms"],
+           "bound_ms": max(t["ops_ms"], t["bytes_ms"]),
+           "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
+                        else "bytes"),
+           "library_ms": t["library_ms"]}
+    if bf16 is not None:
+        row.update(bf16_route=bf16_route, bf16_ms=bf16["ms"],
+                   bf16_plain_ms=bf16["plain_ms"],
+                   bf16_bound_ms=max(bf16["ops_ms"], bf16["bytes_ms"]),
+                   bf16_library_ms=bf16["library_ms"],
+                   bf16_max_abs_err=bf16["max_abs_err"])
+    return row
 
 
 def main():
@@ -677,24 +784,29 @@ def main():
     totals = {"conv3x3": phase_kernels(), "conv3x3_wgrad": phase_wgrad(),
               "warp": phase_warp()}
     phase_reference()
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_main_path(Path(tmp))
+        for dtype in ("float32", "bfloat16"):
+            runs[dtype] = phase_main_path(Path(tmp) / dtype, dtype)
 
-    sources = {"conv3x3": (conv3x3.SOURCE, conv3x3.REPLACES),
-               "conv3x3_wgrad": (conv3x3.WGRAD_SOURCE, conv3x3.REPLACES),
-               "warp": (warp.SOURCE, warp.REPLACES)}
-    rows = []
-    for name, (source, replaces) in sources.items():
-        f32 = totals[name]["float32"]
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"],
-            "bound_ms": max(f32["ops_ms"], f32["bytes_ms"]),
-            "bound_by": ("operations" if f32["ops_ms"] >= f32["bytes_ms"]
-                         else "bytes"),
-            "library_ms": f32["library_ms"]})
+    def core(name):
+        # launches of the CUDA-core kernel over both runs
+        return sum(r[name] - r.get(f"{name}_wgmma", 0) for r in runs.values())
+
+    routes = "wgmma where C % 16 == 0 and CO % 8 == 0, else cuda_core"
+    c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
+    rows = [
+        _row("conv3x3", conv3x3.SOURCE, conv3x3.REPLACES, core("conv3x3"),
+             c["float32"], c["bfloat16"], routes),
+        _row("conv3x3_wgrad", conv3x3.WGRAD_SOURCE, conv3x3.REPLACES,
+             core("conv3x3_wgrad"), wg["float32"], wg["bfloat16"], routes),
+        _row("warp", warp.SOURCE, warp.REPLACES, core("warp"),
+             totals["warp"]["float32"], totals["warp"]["bfloat16"], "cuda"),
+        _row("conv3x3_wgmma", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
+             runs["bfloat16"]["conv3x3_wgmma"], c["bfloat16/wgmma"]),
+        _row("conv3x3_wgrad_wgmma", conv3x3.WGRAD_WGMMA_SOURCE,
+             conv3x3.REPLACES, runs["bfloat16"]["conv3x3_wgrad_wgmma"],
+             wg["bfloat16/wgmma"])]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports a plain C function and is compiled by `nvcc`
 for `sm_90a` into `build/torch_kernels/lib<name>_<hash>.so` under the
 checkout's root, at first use, then loaded with `ctypes`.  The file name
-carries a hash of the source, so an edited source is rebuilt and a stale
+carries a hash of the source together with every shared header
+(`csrc/*.cuh`), so an edited source or header is rebuilt and a stale
 library is never loaded.  No source includes PyTorch's headers: `nvcc`
 builds each one in seconds, where `torch.utils.cpp_extension.load` takes
 minutes for a file that includes `torch/extension.h`.
@@ -41,7 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -82,6 +86,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library of `csrc/<name>.cu`, as `cuobjdump
+    -sass` prints it (the toolkit's, beside `nvcc`)."""
+    build([name])
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
 
 
 _FUNCTIONS = {}

@@ -1,4 +1,4 @@
-"""NHWC 3x3 stride-1 pad-1 convolution: the Hopper kernel and its plain
+"""NHWC 3x3 stride-1 pad-1 convolution: the Hopper kernels and their plain
 version.
 
 Replaces `dg_tta_tpu/ops/conv2d_pallas.py::conv3x3_pallas`.  With `w` of
@@ -10,21 +10,31 @@ for every stride-1 3x3x3 conv: `x` is then a (B*depth, H, W, C) view of a
 of the same volume (zeros past its ends).  One launch per 3D conv keeps
 the z-tap partial sums in registers instead of three output passes.
 
-The CUDA source (`csrc/conv3x3.cu`) says what bounds it on an H100 and
-what its design does about that.  f32 or bf16 in, f32 accumulation, output
-in the input's type.
+Two routes, each its own CUDA source with its own C entry, chosen by
+`conv3x3_route(C, CO, dtype)` from the call's shapes alone (no fallback:
+a launch error raises):
+* "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C % 16 == 0 and
+  CO % 8 == 0, an implicit GEMM on the tensor cores fed by TMA; every
+  TS104 conv and input gradient but the first conv on the 1-channel image;
+* "cuda_core" (`csrc/conv3x3.cu`): f32, and bf16 with other channel
+  counts; f32 accumulation in FMAs on the CUDA cores.
+The sources say what bounds each on an H100 and what the design does about
+it.  f32 accumulation, output in the input's type.
 
-`conv3x3` launches the kernel for CUDA tensors, or raises; it runs
-`conv3x3_reference` only for tensors on the CPU.  `conv3x3.launches` counts
-the kernel's launches.
+`conv3x3` launches a kernel for CUDA tensors, or raises; it runs
+`conv3x3_reference` only for tensors on the CPU.  `conv3x3.launches`
+counts its launches on either route, `conv3x3.wgmma_launches` those on the
+"wgmma" route.
 
-The backward, for TTA: `conv3x3_wgrad` is the weight gradient, a second
-hand-written kernel (`csrc/conv3x3_wgrad.cu`, plain version
-`conv3x3_wgrad_reference`, count `conv3x3_wgrad.launches`).  The input
-gradient needs no kernel of its own: it is the same zero-padded conv of dy
-with the weights flipped in (kz, ky, kx) and their channel axes swapped, so
-it runs through `conv3x3` again.  `Conv3x3Function` ties the three together
-as a `torch.autograd.Function`; `conv3x3_op` applies it.
+The backward, for TTA: `conv3x3_wgrad` is the weight gradient, again two
+routes (`conv3x3_wgrad_route`: "wgmma", `csrc/conv3x3_wgrad_wgmma.cu`, or
+"cuda_core", `csrc/conv3x3_wgrad.cu`; plain version
+`conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches` and
+`conv3x3_wgrad.wgmma_launches`).  The input gradient needs no kernel of its
+own: it is the same zero-padded conv of dy with the weights flipped in
+(kz, ky, kx) and their channel axes swapped, so it runs through `conv3x3`
+again.  `Conv3x3Function` ties the three together as a
+`torch.autograd.Function`; `conv3x3_op` applies it.
 """
 
 import ctypes
@@ -36,8 +46,34 @@ from dg_tta_tpu_torch.kernels import build
 
 SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3.cu"
 WGRAD_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad.cu"
+WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgmma.cu"
+WGRAD_WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_wgmma.cu"
 REPLACES = "dg_tta_tpu/ops/conv2d_pallas.py:99"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def conv3x3_route(C: int, CO: int, dtype) -> str:
+    """The kernel that runs `conv3x3` on CUDA tensors of C input and CO
+    output channels: "wgmma" for bf16 with C % 16 == 0 and CO % 8 == 0
+    (TMA needs 16-byte rows, wgmma steps of 16 along K), else
+    "cuda_core"."""
+    if dtype == torch.bfloat16 and C % 16 == 0 and CO % 8 == 0:
+        return "wgmma"
+    return "cuda_core"
+
+
+def conv3x3_wgrad_route(C: int, CO: int, dtype) -> str:
+    """The kernel that runs `conv3x3_wgrad`: the rule of `conv3x3_route`
+    ("wgmma" or "cuda_core")."""
+    return conv3x3_route(C, CO, dtype)
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the TMA loads of the wgmma route, got "
+                             f"data_ptr() % 16 == {t.data_ptr() % 16}")
 
 
 def _as_5d(w: torch.Tensor) -> torch.Tensor:
@@ -95,13 +131,30 @@ def _launch(x, w5, y, depth):
                            f"w {tuple(w5.shape)}, depth {depth}")
 
 
+def _launch_wgmma(x, w5, y, depth):
+    fn = build.function("conv3x3_wgmma", "dgtta_conv3x3_wgmma",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p])
+    # K-major weights for the GEMM: (kz, 3, 3, CO, C), ci contiguous
+    wt = w5.transpose(3, 4).contiguous()
+    N, H, W, C = x.shape
+    err = fn(x.data_ptr(), wt.data_ptr(), y.data_ptr(), N, depth, H, W, C,
+             w5.shape[-1], w5.shape[0],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 wgmma kernel launch failed with CUDA "
+                           f"error {err} for x {tuple(x.shape)}, w "
+                           f"{tuple(w5.shape)}, depth {depth}")
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1) -> torch.Tensor:
     """y[n,h,w,co] = sum_{kz,ky,kx,ci} x[n+kz-KZ//2, h+ky-1, w+kx-1, ci]
     * w[kz,ky,kx,ci,co], zero-padded in H, W and within each group of
     `depth` planes; KZ = 1 for a (3, 3, C, CO) `w`, 3 for (3, 3, 3, C, CO).
 
     x: (N, H, W, C), N a multiple of depth.  Returns (N, H, W, CO) in x's
-    type.  CPU tensors take the plain version; CUDA tensors the kernel.
+    type.  CPU tensors take the plain version; CUDA tensors the kernel of
+    `conv3x3_route`.
     """
     w5 = _check(x, w, depth)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -111,15 +164,20 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1) -> torch.Tensor:
                          f"the CPU, got {x.device} and {w.device}")
     if not (x.is_contiguous() and w5.is_contiguous()):
         raise ValueError("conv3x3 needs contiguous x and w")
-    N, H, W, _ = x.shape
+    N, H, W, C = x.shape
+    route = conv3x3_route(C, w5.shape[-1], x.dtype)
+    if route == "wgmma":
+        _check_aligned(x=x)
     y = torch.empty((N, H, W, w5.shape[-1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        _launch(x, w5, y, depth)
+        (_launch_wgmma if route == "wgmma" else _launch)(x, w5, y, depth)
     conv3x3.launches += 1
+    conv3x3.wgmma_launches += route == "wgmma"
     return y
 
 
 conv3x3.launches = 0
+conv3x3.wgmma_launches = 0
 
 
 def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
@@ -138,6 +196,11 @@ def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
 _WG_TILE_H, _WG_TILE_W, _WG_TCO = 4, 16, 32
 # blocks to aim for when the positions are split: 8 per SM of an H100
 _WG_TARGET_BLOCKS = 8 * 132
+# conv3x3_wgrad_wgmma tiles (csrc/conv3x3_wgrad_wgmma.cu): 4 x 16 positions
+# per stage, 64 input channels and 32 or 64 output channels per block, one
+# block per kz; aim for 4 blocks per SM (one resident at a time)
+_WGW_TILE_H, _WGW_TILE_W, _WGW_TCI = 4, 16, 64
+_WGW_TARGET_BLOCKS = 4 * 132
 
 
 def _wgrad_check(x, dy, depth, kz):
@@ -185,12 +248,24 @@ def wgrad_splits(x_shape, co: int, kz: int = 3) -> int:
     return max(1, min(-(-tiles // 4), -(-_WG_TARGET_BLOCKS // base)))
 
 
+def wgrad_wgmma_splits(x_shape, co: int, kz: int = 3) -> int:
+    """How many blocks share the sum over positions of one output tile on
+    the "wgmma" route: enough for `_WGW_TARGET_BLOCKS`, at least 16
+    position tiles each."""
+    N, H, W, C = x_shape
+    tiles = N * (-(-H // _WGW_TILE_H)) * (-(-W // _WGW_TILE_W))
+    bn = 32 if co <= 32 else 64
+    base = kz * (-(-C // _WGW_TCI)) * (-(-co // bn))
+    return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
+
+
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                   kz: int = 3) -> torch.Tensor:
     """dW[kz,ky,kx,ci,co] = sum_{n,h,w} x[n+kz-KZ//2, h+ky-1, w+kx-1, ci]
     * dy[n,h,w,co], zero-padded as `conv3x3` pads: the weight gradient of
     `conv3x3(x, W, depth)`.  Returns (kz, 3, 3, C, CO) f32.  CPU tensors
-    take the plain version; CUDA tensors the kernel."""
+    take the plain version; CUDA tensors the kernel of
+    `conv3x3_wgrad_route`."""
     _wgrad_check(x, dy, depth, kz)
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return conv3x3_wgrad_reference(x, dy, depth, kz)
@@ -201,27 +276,40 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
         raise ValueError("conv3x3_wgrad needs contiguous x and dy")
     N, H, W, C = x.shape
     CO = dy.shape[-1]
-    splits = wgrad_splits(x.shape, CO, kz)
+    wgmma = conv3x3_wgrad_route(C, CO, x.dtype) == "wgmma"
+    if wgmma:
+        _check_aligned(x=x, dy=dy)
+        splits = wgrad_wgmma_splits(x.shape, CO, kz)
+        fn = build.function("conv3x3_wgrad_wgmma", "dgtta_conv3x3_wgrad_wgmma",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            + [ctypes.c_void_p])
+    else:
+        splits = wgrad_splits(x.shape, CO, kz)
+        fn = build.function("conv3x3_wgrad", "dgtta_conv3x3_wgrad",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                            + [ctypes.c_void_p])
     dw = torch.empty((kz, 3, 3, C, CO), dtype=torch.float32, device=x.device)
     scratch = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    fn = build.function("conv3x3_wgrad", "dgtta_conv3x3_wgrad",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                        + [ctypes.c_void_p])
+    args = [x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), N, depth, H, W, C,
+            CO, kz, splits]
+    if not wgmma:
+        args.append(_DTYPE_CODES[x.dtype])
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                 0 if scratch is None else scratch.data_ptr(), N, depth, H,
-                 W, C, CO, kz, splits, _DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad kernel launch failed with CUDA "
-                           f"error {err} for x {tuple(x.shape)} {x.dtype}, "
-                           f"dy {tuple(dy.shape)}, depth {depth}, kz {kz}")
+        raise RuntimeError(f"conv3x3_wgrad {'wgmma ' if wgmma else ''}kernel "
+                           f"launch failed with CUDA error {err} for x "
+                           f"{tuple(x.shape)} {x.dtype}, dy "
+                           f"{tuple(dy.shape)}, depth {depth}, kz {kz}")
     conv3x3_wgrad.launches += 1
+    conv3x3_wgrad.wgmma_launches += wgmma
     return dw
 
 
 conv3x3_wgrad.launches = 0
+conv3x3_wgrad.wgmma_launches = 0
 
 
 class Conv3x3Function(torch.autograd.Function):

@@ -15,13 +15,16 @@ default plan through the CLI.
    kernels and the peak device memory.
 2. CLI (unless --no-cli): `prepare_tta` and `run_tta` of the default
    TEMPLATE_PLAN (12 epochs x 16 patches x 3 members) on the synthetic
-   workspace of `obs/synthetic.py`, with no member files; prints the
-   phases of `timings.json`, tta_sec_per_volume (adaptation + inference),
-   the peak device memory and the members' final losses.
+   workspace of `obs/synthetic.py`, with no member files, in `--dtype`
+   (`DGTTA_COMPUTE_DTYPE` is set for the call and restored after it);
+   prints the phases of `timings.json`, tta_sec_per_volume (adaptation +
+   inference), the peak device memory, the members' final losses and the
+   conv kernels' launches per route.
 """
 
 import argparse
 import json
+import os
 import tempfile
 import time
 from collections import defaultdict
@@ -102,21 +105,35 @@ def profile_steps(dtype, trace=None):
         prof.export_chrome_trace(trace)
 
 
-def run_default_plan():
+def run_default_plan(dtype="float32"):
     from dg_tta_tpu_torch.cli.main import main as cli
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
 
+    counters = _counters()
     with tempfile.TemporaryDirectory(prefix="profile_adaptation_") as tmp:
         ws = make_workspace(Path(tmp), seed=0, shape=VOLUME_SHAPE)
         cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
         results_dir, plan = edit_plan()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        cli(["run_tta", "TS104_GIN", ws.dataset_id])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        before = {k: (c.launches, getattr(c, "wgmma_launches", 0))
+                  for k, c in counters.items()}
+        saved = os.environ.get("DGTTA_COMPUTE_DTYPE")
+        os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
+        try:
+            t0 = time.perf_counter()
+            cli(["run_tta", "TS104_GIN", ws.dataset_id])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                del os.environ["DGTTA_COMPUTE_DTYPE"]
+            else:
+                os.environ["DGTTA_COMPUTE_DTYPE"] = saved
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {k: (c.launches - before[k][0],
+                        getattr(c, "wgmma_launches", 0) - before[k][1])
+                    for k, c in counters.items()}
         (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
         timings = json.loads((run_dir / "timings.json").read_text())
         final = [json.loads(p.read_text())["losses"][-1] for p in
@@ -126,12 +143,15 @@ def run_default_plan():
     infer = phases["inference"]["total_s"]
     print(f"cli: default plan ({plan['epochs']} epochs x "
           f"{plan['patches_to_be_accumulated']} patches x "
-          f"{plan['ensemble_count']} members, f32) on {timings['device']}: "
+          f"{plan['ensemble_count']} members, {dtype}) on "
+          f"{timings['device']}: "
           f"run_tta wall {wall:.2f} s; phases " + ", ".join(
               f"{k}={v['total_s']:.3f}s" for k, v in phases.items()))
     print(f"cli: tta_sec_per_volume {adapt + infer:.3f} (adaptation "
           f"{adapt:.3f} + inference {infer:.3f}); peak device memory "
           f"{peak:.2f} GiB; final losses {final}")
+    print("cli: launches (total, wgmma route) " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
 
 
 def main(argv=None):
@@ -146,7 +166,7 @@ def main(argv=None):
     resolve_device("cuda")
     profile_steps(args.dtype, args.trace)
     if not args.no_cli:
-        run_default_plan()
+        run_default_plan(args.dtype)
 
 
 if __name__ == "__main__":

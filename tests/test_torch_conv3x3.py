@@ -144,3 +144,63 @@ def test_flops_count_skips_z_taps_past_the_volume():
         w_shape = (3, 3, 3, 3, 2) if kz == 3 else (3, 3, 3, 2)
         assert conv3x3_flops((N, H, W, 3), w_shape, depth) == \
             2 * 3 * 2 * _taps_inside(N, H, W, depth, kz)
+
+
+@pytest.mark.parametrize("C,CO,dtype,route", [
+    (32, 32, torch.bfloat16, "wgmma"),
+    (16, 40, torch.bfloat16, "wgmma"),
+    (320, 320, torch.bfloat16, "wgmma"),
+    (1, 32, torch.bfloat16, "cuda_core"),      # the first conv, on the image
+    (24, 32, torch.bfloat16, "cuda_core"),     # C not a multiple of 16
+    (32, 12, torch.bfloat16, "cuda_core"),     # CO not a multiple of 8
+    (32, 32, torch.float32, "cuda_core"),      # f32 stays on the CUDA cores
+])
+def test_routes(C, CO, dtype, route):
+    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
+                                                  conv3x3_wgrad_route)
+
+    assert conv3x3_route(C, CO, dtype) == route
+    assert conv3x3_wgrad_route(C, CO, dtype) == route
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expected_launches_route_split(dtype):
+    """chip_smoke's launch count at a tiny spec, worked out by hand.
+
+    Stride-1 convs per forward: stage 0 (1 -> 16, 16 -> 16), stage 1's
+    second (32 -> 32; its first is strided, cuDNN), decoder (32 -> 16,
+    16 -> 16): 5 forward launches, 4 input gradients (not the first), 5
+    weight gradients.  In bf16 all but the C = 1 conv (forward and weight
+    gradient) take the wgmma route: 4, 4, 4.  Plan: 2 epochs x 4 patches,
+    the second epoch trained: 8 patch forwards + 2 evals = 10 forwards, 4
+    trained steps; 3 windows; 2 members.
+      conv3x3 = 2 x (10 x 5 + 4 x 4) + 3 x 2 x 5 = 162
+      conv3x3_wgmma (bf16) = 2 x (10 x 4 + 4 x 4) + 3 x 2 x 4 = 136
+      conv3x3_wgrad = 2 x 4 x 5 = 40, its wgmma route (bf16) 2 x 4 x 4 = 32
+      warp = 2 x (8 x 4 + 4 x 2 + 2) = 84
+    """
+    from dg_tta_tpu_torch.models.plans import ArchSpec
+
+    spec = ArchSpec(features_per_stage=(16, 32),
+                    kernel_sizes=((3, 3, 3),) * 2,
+                    strides=((1, 1, 1), (2, 2, 2)),
+                    n_conv_per_stage_encoder=(2, 2),
+                    n_conv_per_stage_decoder=(2,), num_input_channels=1,
+                    num_classes=4)
+    plan = dict(epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1)
+    got = _chip_smoke().expected_launches(spec, 3, 2, plan, dtype)
+    bf16 = dtype == "bfloat16"
+    assert got == dict(conv3x3=162, conv3x3_wgmma=136 if bf16 else 0,
+                       conv3x3_wgrad=40,
+                       conv3x3_wgrad_wgmma=32 if bf16 else 0, warp=84)

@@ -9,7 +9,8 @@ the port is installed:
 Tolerances, max |kernel - plain| over max |plain|:
 * conv3x3: 5e-5 in f32 (the same products summed in another order; TF32
   off for the plain version) and 2^-7 in bf16 (both round one f32 sum to
-  bf16);
+  bf16), on either route (the CUDA-core kernel, or the wgmma kernel that
+  takes bf16 with C % 16 == 0 and CO % 8 == 0);
 * conv3x3_wgrad: 1e-4, f32 out from f32 or bf16 in (sums over every
   position, split across blocks, in another order than cuDNN's);
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
@@ -25,8 +26,9 @@ import torch
 
 from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_op,
                                               conv3x3_reference,
-                                              conv3x3_wgrad,
-                                              conv3x3_wgrad_reference)
+                                              conv3x3_route, conv3x3_wgrad,
+                                              conv3x3_wgrad_reference,
+                                              conv3x3_wgrad_route)
 from dg_tta_tpu_torch.kernels.warp import warp_flat, warp_flat_reference
 
 RTOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
@@ -264,3 +266,99 @@ def test_tta_one_volume_on_card_matches_cpu(cuda_device):
                 np.testing.assert_allclose(p[sl].numpy(),
                                            decay * p0[sl].numpy(),
                                            rtol=1e-6, err_msg=name)
+
+
+# The wgmma route (bf16, C % 16 == 0, CO % 8 == 0): (N, depth, H, W, C, CO,
+# kz).  Ragged planes leave pixel tiles part empty; CO = 40 leaves the
+# second 64-channel tile part empty; the deepest TS104 level is a 7 x 8
+# plane at C = CO = 320.
+WGMMA_CASES = {
+    "ragged_c16": (12, 6, 19, 37, 16, 40, 3),
+    "depth1_c32": (4, 1, 9, 21, 32, 32, 3),
+    "two_volumes_co320": (8, 4, 20, 18, 32, 320, 3),
+    "plane_7x8_c320": (6, 3, 7, 8, 320, 320, 3),
+    "c512": (4, 2, 14, 16, 512, 256, 3),
+    "one_z_tap": (6, 3, 11, 13, 64, 32, 1),
+}
+
+
+def _wgmma_inputs(case, seed, device):
+    N, D, H, W, C, CO, kz = WGMMA_CASES[case]
+    assert conv3x3_route(C, CO, torch.bfloat16) == "wgmma"
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(kz, 3, 3, C, CO))
+                          * (2.0 / (27 * C)) ** 0.5).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    return [t.to(device, torch.bfloat16) for t in (x, w, dy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_conv3x3_wgmma_matches_plain(cuda_device, case):
+    x, w, _ = _wgmma_inputs(case, 3, cuda_device)
+    depth = WGMMA_CASES[case][1]
+    before = (conv3x3.launches, conv3x3.wgmma_launches)
+    got = conv3x3(x, w, depth=depth)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3.wgmma_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (*x.shape[:3],
+                                                         w.shape[-1])
+    ref = conv3x3_reference(x, w, depth=depth)
+    assert _max_rel_err(got, ref) <= RTOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["depth1_c32", "two_volumes_co320",
+                                  "plane_7x8_c320"])
+def test_conv3x3_wgmma_dgrad_with_flipped_swapped_weights(cuda_device, case):
+    """The input gradient as Conv3x3Function.backward runs it: dy (CO
+    channels) through the kernel with the forward weights flipped in
+    (kz, ky, kx) and their channel axes swapped."""
+    _, w, dy = _wgmma_inputs(case, 4, cuda_device)
+    depth = WGMMA_CASES[case][1]
+    wt = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    assert conv3x3_route(wt.shape[3], wt.shape[4], wt.dtype) == "wgmma"
+    before = conv3x3.wgmma_launches
+    got = conv3x3(dy, wt, depth=depth)
+    torch.cuda.synchronize()
+    assert conv3x3.wgmma_launches == before + 1
+    ref = conv3x3_reference(dy, wt, depth=depth)
+    assert _max_rel_err(got, ref) <= RTOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_wgrad_wgmma_matches_plain(cuda_device, case):
+    x, _, dy = _wgmma_inputs(case, 5, cuda_device)
+    N, D, H, W, C, CO, kz = WGMMA_CASES[case]
+    assert conv3x3_wgrad_route(C, CO, torch.bfloat16) == "wgmma"
+    before = (conv3x3_wgrad.launches, conv3x3_wgrad.wgmma_launches)
+    got = conv3x3_wgrad(x, dy, depth=D, kz=kz)
+    torch.cuda.synchronize()
+    assert (conv3x3_wgrad.launches, conv3x3_wgrad.wgmma_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, C, CO)
+    ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
+    assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wgmma_routes_reject_misaligned_tensors(cuda_device):
+    """TMA reads from 16-byte boundaries: a view that starts 2 bytes in
+    raises before any launch."""
+    shape = (4, 6, 8, 16)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda_device)
+    x = buf[1:n + 1].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    w = torch.zeros((3, 3, 3, 16, 32), dtype=torch.bfloat16,
+                    device=cuda_device)
+    dy = torch.zeros((4, 6, 8, 32), dtype=torch.bfloat16, device=cuda_device)
+    before = (conv3x3.launches, conv3x3_wgrad.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3(x, w, depth=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_wgrad(x, dy, depth=2)
+    assert (conv3x3.launches, conv3x3_wgrad.launches) == before

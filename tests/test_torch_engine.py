@@ -435,3 +435,26 @@ def test_mind_model_raises(setup):
     model = dataclasses.replace(port_model(), uses_mind=True)
     with pytest.raises(NotImplementedError, match="MIND"):
         make_tta_functions(model, TTAPlan(), IDX3, IDX3)
+
+
+def test_bf16_trajectory_tracks_jax_bf16(setup):
+    """DGTTA_COMPUTE_DTYPE=bfloat16 in both packages, with the JAX engine's
+    own draws: per-epoch losses of the port within 5% of the JAX package's
+    bf16 run, the bound of test_bf16_adaptation_tracks_f32 (the two
+    frameworks round to bf16 at other places)."""
+    params, vols, shapes, labels = setup
+    plan_kw = dict(epochs=2, patches_to_be_accumulated=2, lr=1e-3,
+                   ensemble_count=1, start_tta_at_epoch=0)
+    key = jax.random.PRNGKey(8)
+    _, ref_losses, _ = jax_tta_one_volume(
+        dataclasses.replace(jax_model(), compute_dtype="bfloat16"),
+        JaxPlan(**plan_kw), params, jnp.asarray(vols), jnp.asarray(shapes),
+        IDX3, IDX3, key, labels_padded=jnp.asarray(labels))
+    nets, losses, _ = tta_one_volume(
+        dataclasses.replace(port_model(), compute_dtype="bfloat16"),
+        TTAPlan(**plan_kw), port_net(params), torch.from_numpy(vols), shapes,
+        IDX3, IDX3, JaxDraws(key, n_acc=2),
+        labels_padded=torch.from_numpy(labels))
+    assert all(p.dtype == torch.float32 for p in nets[0].parameters())
+    assert losses.shape == (2, 1) and np.all(np.isfinite(losses))
+    np.testing.assert_allclose(losses, np.asarray(ref_losses), rtol=0.05)
