@@ -10,30 +10,39 @@ for every stride-1 3x3x3 conv: `x` is then a (B*depth, H, W, C) view of a
 of the same volume (zeros past its ends).  One launch per 3D conv keeps
 the z-tap partial sums in registers instead of three output passes.
 
-Two routes, each its own CUDA source with its own C entry, chosen by
+Four routes, each a CUDA source with its own C entry, chosen by
 `conv3x3_route(C, CO, dtype)` from the call's shapes alone (no fallback:
-a launch error raises):
+a launch error raises, and a misaligned tensor raises before the launch):
+* "c1" (`csrc/conv3x3_c1.cu`): C == 1, f32 and bf16, the first conv on
+  the 1-channel image; a kernel bound by the bytes of its output;
 * "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C % 16 == 0 and
-  CO % 8 == 0, an implicit GEMM on the tensor cores fed by TMA; every
-  TS104 conv and input gradient but the first conv on the 1-channel image;
-* "cuda_core" (`csrc/conv3x3.cu`): f32, and bf16 with other channel
-  counts; f32 accumulation in FMAs on the CUDA cores.
-The sources say what bounds each on an H100 and what the design does about
-it.  f32 accumulation, output in the input's type.
+  CO % 8 == 0, an implicit GEMM on the tensor cores fed by TMA;
+* "wgmma_tf32x3" (the same source, its f32 instantiation): f32 with
+  C % 8 == 0 and CO % 8 == 0, each product at f32 accuracy from three
+  tf32 products (3xTF32); the weights are split once per call into a
+  tf32 part and its remainder (`tf32_split`);
+* "cuda_core" (`csrc/conv3x3.cu`): the other channel counts; f32 FMAs on
+  the CUDA cores.
+Every TS104 conv and input gradient takes "c1" (the first conv) or a
+wgmma route.  The sources say what bounds each on an H100 and what the
+design does about it.  f32 accumulation, output in the input's type.
 
 `conv3x3` launches a kernel for CUDA tensors, or raises; it runs
 `conv3x3_reference` only for tensors on the CPU.  `conv3x3.launches`
-counts its launches on either route, `conv3x3.wgmma_launches` those on the
-"wgmma" route.
+counts its launches on every route; `conv3x3.wgmma_launches`,
+`conv3x3.tf32x3_launches` and `conv3x3.c1_launches` those on the
+"wgmma", "wgmma_tf32x3" and "c1" routes (`route_launches` gives them all,
+"cuda_core" included).
 
-The backward, for TTA: `conv3x3_wgrad` is the weight gradient, again two
-routes (`conv3x3_wgrad_route`: "wgmma", `csrc/conv3x3_wgrad_wgmma.cu`, or
-"cuda_core", `csrc/conv3x3_wgrad.cu`; plain version
-`conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches` and
-`conv3x3_wgrad.wgmma_launches`).  The input gradient needs no kernel of its
-own: it is the same zero-padded conv of dy with the weights flipped in
-(kz, ky, kx) and their channel axes swapped, so it runs through `conv3x3`
-again.  `Conv3x3Function` ties the three together as a
+The backward, for TTA: `conv3x3_wgrad` is the weight gradient, with three
+routes (`conv3x3_wgrad_route`: "c1", `csrc/conv3x3_c1.cu`; "wgmma",
+`csrc/conv3x3_wgrad_wgmma.cu`, for bf16; "cuda_core",
+`csrc/conv3x3_wgrad.cu`, for f32 and the other channel counts; plain
+version `conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches`,
+`.wgmma_launches` and `.c1_launches`).  The input gradient needs no
+kernel of its own: it is the same zero-padded conv of dy with the weights
+flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
+`conv3x3` again.  `Conv3x3Function` ties the three together as a
 `torch.autograd.Function`; `conv3x3_op` applies it.
 """
 
@@ -48,32 +57,79 @@ SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3.cu"
 WGRAD_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad.cu"
 WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgmma.cu"
 WGRAD_WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_wgmma.cu"
+C1_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_c1.cu"
 REPLACES = "dg_tta_tpu/ops/conv2d_pallas.py:99"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def conv3x3_route(C: int, CO: int, dtype) -> str:
     """The kernel that runs `conv3x3` on CUDA tensors of C input and CO
-    output channels: "wgmma" for bf16 with C % 16 == 0 and CO % 8 == 0
-    (TMA needs 16-byte rows, wgmma steps of 16 along K), else
-    "cuda_core"."""
-    if dtype == torch.bfloat16 and C % 16 == 0 and CO % 8 == 0:
-        return "wgmma"
+    output channels: "c1" for C == 1; "wgmma" for bf16 with C % 16 == 0
+    and CO % 8 == 0 (TMA needs 16-byte rows, bf16 wgmma steps of 16 along
+    K); "wgmma_tf32x3" for f32 with C % 8 == 0 and CO % 8 == 0 (tf32 steps
+    of 8); else "cuda_core"."""
+    if C == 1:
+        return "c1"
+    if CO % 8 == 0:
+        if dtype == torch.bfloat16 and C % 16 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and C % 8 == 0:
+            return "wgmma_tf32x3"
     return "cuda_core"
 
 
 def conv3x3_wgrad_route(C: int, CO: int, dtype) -> str:
-    """The kernel that runs `conv3x3_wgrad`: the rule of `conv3x3_route`
-    ("wgmma" or "cuda_core")."""
-    return conv3x3_route(C, CO, dtype)
+    """The kernel that runs `conv3x3_wgrad`: "c1" or "wgmma" as
+    `conv3x3_route` says; f32 otherwise stays on "cuda_core" (its weight
+    gradient has no tensor-core route yet)."""
+    route = conv3x3_route(C, CO, dtype)
+    return "cuda_core" if route == "wgmma_tf32x3" else route
 
 
-def _check_aligned(**tensors):
+# the launch counter of each route but "cuda_core", per wrapper
+_COUNTERS = {"wgmma": "wgmma_launches", "wgmma_tf32x3": "tf32x3_launches",
+             "c1": "c1_launches"}
+
+
+def _count(fn, route):
+    fn.launches += 1
+    if route in _COUNTERS:
+        name = _COUNTERS[route]
+        setattr(fn, name, getattr(fn, name) + 1)
+
+
+def route_launches(fn) -> dict:
+    """{route: launches} of `conv3x3` or `conv3x3_wgrad` since their
+    counters were last set to 0; "cuda_core" is the rest of `launches`."""
+    out = {route: getattr(fn, name) for route, name in _COUNTERS.items()
+           if hasattr(fn, name)}
+    out["cuda_core"] = fn.launches - sum(out.values())
+    return out
+
+
+def zero_launches(fn):
+    """Sets every launch counter of `conv3x3` or `conv3x3_wgrad` to 0."""
+    fn.launches = 0
+    for name in _COUNTERS.values():
+        if hasattr(fn, name):
+            setattr(fn, name, 0)
+
+
+def tf32_split(w: torch.Tensor):
+    """(hi, lo) of an f32 tensor: hi = w rounded to the nearest tf32 value
+    (ties away from zero; the low 13 mantissa bits cleared), lo = w - hi.
+    hi and w agree to a factor of 2, so lo is exact and hi + lo == w."""
+    bits = w.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w - hi
+
+
+def _check_aligned(route, **tensors):
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for "
-                             f"the TMA loads of the wgmma route, got "
-                             f"data_ptr() % 16 == {t.data_ptr() % 16}")
+                             f"the {route} route's TMA or vector accesses, "
+                             f"got data_ptr() % 16 == {t.data_ptr() % 16}")
 
 
 def _as_5d(w: torch.Tensor) -> torch.Tensor:
@@ -133,28 +189,65 @@ def _launch(x, w5, y, depth):
 
 def _launch_wgmma(x, w5, y, depth):
     fn = build.function("conv3x3_wgmma", "dgtta_conv3x3_wgmma",
-                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p])
-    # K-major weights for the GEMM: (kz, 3, 3, CO, C), ci contiguous
+    # K-major weights for the GEMM: (kz, 3, 3, CO, C), ci contiguous; f32
+    # as a tf32 part and its remainder (3xTF32)
     wt = w5.transpose(3, 4).contiguous()
+    wt_lo = None
+    if x.dtype == torch.float32:
+        wt, wt_lo = tf32_split(wt)
     N, H, W, C = x.shape
-    err = fn(x.data_ptr(), wt.data_ptr(), y.data_ptr(), N, depth, H, W, C,
-             w5.shape[-1], w5.shape[0],
+    err = fn(x.data_ptr(), wt.data_ptr(),
+             0 if wt_lo is None else wt_lo.data_ptr(), y.data_ptr(), N,
+             depth, H, W, C, w5.shape[-1], w5.shape[0],
+             _DTYPE_CODES[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 wgmma kernel launch failed with CUDA "
-                           f"error {err} for x {tuple(x.shape)}, w "
-                           f"{tuple(w5.shape)}, depth {depth}")
+                           f"error {err} for x {tuple(x.shape)} {x.dtype}, "
+                           f"w {tuple(w5.shape)}, depth {depth}")
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1) -> torch.Tensor:
+def _launch_c1(x, w5, y, depth):
+    fn = build.function("conv3x3_c1", "dgtta_conv3x3_c1",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p])
+    N, H, W, _ = x.shape
+    err = fn(x.data_ptr(), w5.data_ptr(), y.data_ptr(), N, depth, H, W,
+             w5.shape[-1], w5.shape[0], _DTYPE_CODES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 c1 kernel launch failed with CUDA "
+                           f"error {err} for x {tuple(x.shape)} {x.dtype}, "
+                           f"w {tuple(w5.shape)}, depth {depth}")
+
+
+_LAUNCH = {"cuda_core": _launch, "wgmma": _launch_wgmma,
+           "wgmma_tf32x3": _launch_wgmma, "c1": _launch_c1}
+
+
+def _pick_route(route, chosen):
+    """`route` if given, else the route the shapes choose; the CUDA-core
+    kernels take every shape, another route only the shapes it chose."""
+    if route is None or route == chosen:
+        return chosen
+    if route != "cuda_core":
+        raise ValueError(f"route {route!r} does not take this call (its "
+                         f"shapes choose {chosen!r})")
+    return route
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
+            route=None) -> torch.Tensor:
     """y[n,h,w,co] = sum_{kz,ky,kx,ci} x[n+kz-KZ//2, h+ky-1, w+kx-1, ci]
     * w[kz,ky,kx,ci,co], zero-padded in H, W and within each group of
     `depth` planes; KZ = 1 for a (3, 3, C, CO) `w`, 3 for (3, 3, 3, C, CO).
 
     x: (N, H, W, C), N a multiple of depth.  Returns (N, H, W, CO) in x's
     type.  CPU tensors take the plain version; CUDA tensors the kernel of
-    `conv3x3_route`.
+    `conv3x3_route`, or of `route="cuda_core"` where the caller asks for the
+    CUDA-core kernel (to compare the routes on one shape).
     """
     w5 = _check(x, w, depth)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -165,19 +258,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1) -> torch.Tensor:
     if not (x.is_contiguous() and w5.is_contiguous()):
         raise ValueError("conv3x3 needs contiguous x and w")
     N, H, W, C = x.shape
-    route = conv3x3_route(C, w5.shape[-1], x.dtype)
-    if route == "wgmma":
-        _check_aligned(x=x)
+    route = _pick_route(route, conv3x3_route(C, w5.shape[-1], x.dtype))
+    if route in ("wgmma", "wgmma_tf32x3"):
+        _check_aligned(route, x=x)
     y = torch.empty((N, H, W, w5.shape[-1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        (_launch_wgmma if route == "wgmma" else _launch)(x, w5, y, depth)
-    conv3x3.launches += 1
-    conv3x3.wgmma_launches += route == "wgmma"
+        _LAUNCH[route](x, w5, y, depth)
+    _count(conv3x3, route)
     return y
 
 
 conv3x3.launches = 0
-conv3x3.wgmma_launches = 0
+conv3x3.wgmma_launches = conv3x3.tf32x3_launches = conv3x3.c1_launches = 0
 
 
 def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
@@ -201,6 +293,9 @@ _WG_TARGET_BLOCKS = 8 * 132
 # block per kz; aim for 4 blocks per SM (one resident at a time)
 _WGW_TILE_H, _WGW_TILE_W, _WGW_TCI = 4, 16, 64
 _WGW_TARGET_BLOCKS = 4 * 132
+# conv3x3_c1 tiles (csrc/conv3x3_c1.cu): 16 x 32 positions, 32 output
+# channels per block; the weight gradient aims for 8 blocks per SM
+_C1_TILE_H, _C1_TILE_W, _C1_TCO = 16, 32, 32
 
 
 def _wgrad_check(x, dy, depth, kz):
@@ -259,13 +354,21 @@ def wgrad_wgmma_splits(x_shape, co: int, kz: int = 3) -> int:
     return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
 
 
+def wgrad_c1_splits(x_shape, co: int) -> int:
+    """How many blocks share the sum over positions on the "c1" route: one
+    position tile each at most, `_WG_TARGET_BLOCKS` in all."""
+    N, H, W, _ = x_shape
+    tiles = N * (-(-H // _C1_TILE_H)) * (-(-W // _C1_TILE_W))
+    return max(1, min(tiles, -(-_WG_TARGET_BLOCKS // -(-co // _C1_TCO))))
+
+
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
-                  kz: int = 3) -> torch.Tensor:
+                  kz: int = 3, route=None) -> torch.Tensor:
     """dW[kz,ky,kx,ci,co] = sum_{n,h,w} x[n+kz-KZ//2, h+ky-1, w+kx-1, ci]
     * dy[n,h,w,co], zero-padded as `conv3x3` pads: the weight gradient of
     `conv3x3(x, W, depth)`.  Returns (kz, 3, 3, C, CO) f32.  CPU tensors
     take the plain version; CUDA tensors the kernel of
-    `conv3x3_wgrad_route`."""
+    `conv3x3_wgrad_route`, or of `route="cuda_core"` as in `conv3x3`."""
     _wgrad_check(x, dy, depth, kz)
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return conv3x3_wgrad_reference(x, dy, depth, kz)
@@ -276,11 +379,17 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
         raise ValueError("conv3x3_wgrad needs contiguous x and dy")
     N, H, W, C = x.shape
     CO = dy.shape[-1]
-    wgmma = conv3x3_wgrad_route(C, CO, x.dtype) == "wgmma"
-    if wgmma:
-        _check_aligned(x=x, dy=dy)
+    route = _pick_route(route, conv3x3_wgrad_route(C, CO, x.dtype))
+    if route == "wgmma":
+        _check_aligned(route, x=x, dy=dy)
         splits = wgrad_wgmma_splits(x.shape, CO, kz)
         fn = build.function("conv3x3_wgrad_wgmma", "dgtta_conv3x3_wgrad_wgmma",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            + [ctypes.c_void_p])
+    elif route == "c1":
+        _check_aligned(route, dy=dy)
+        splits = wgrad_c1_splits(x.shape, CO)
+        fn = build.function("conv3x3_c1", "dgtta_conv3x3_wgrad_c1",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p])
     else:
@@ -292,24 +401,23 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
     scratch = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     args = [x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), N, depth, H, W, C,
-            CO, kz, splits]
-    if not wgmma:
+            0 if scratch is None else scratch.data_ptr(), N, depth, H, W]
+    args += [CO, kz, splits] if route == "c1" else [C, CO, kz, splits]
+    if route != "wgmma":
         args.append(_DTYPE_CODES[x.dtype])
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad {'wgmma ' if wgmma else ''}kernel "
-                           f"launch failed with CUDA error {err} for x "
-                           f"{tuple(x.shape)} {x.dtype}, dy "
-                           f"{tuple(dy.shape)}, depth {depth}, kz {kz}")
-    conv3x3_wgrad.launches += 1
-    conv3x3_wgrad.wgmma_launches += wgmma
+        raise RuntimeError(f"conv3x3_wgrad {route} kernel launch failed with "
+                           f"CUDA error {err} for x {tuple(x.shape)} "
+                           f"{x.dtype}, dy {tuple(dy.shape)}, depth {depth}, "
+                           f"kz {kz}")
+    _count(conv3x3_wgrad, route)
     return dw
 
 
 conv3x3_wgrad.launches = 0
-conv3x3_wgrad.wgmma_launches = 0
+conv3x3_wgrad.wgmma_launches = conv3x3_wgrad.c1_launches = 0
 
 
 class Conv3x3Function(torch.autograd.Function):

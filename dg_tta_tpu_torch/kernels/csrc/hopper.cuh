@@ -5,7 +5,7 @@
 //
 // The tensor maps are encoded by cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the libraries link against the runtime only
-// (no -lcuda).  Every map here is bf16 with zero fill out of bounds:
+// (no -lcuda).  Every map here (bf16 or f32) has zero fill out of bounds:
 // a box that reaches past a tensor's edge reads zeros, which is the conv's
 // zero padding in H and W.
 //
@@ -16,7 +16,7 @@
 // wgmma operand it is
 //   * K-major (innermost = the reduction axis, e.g. input channels):
 //     layout S, stride between 8-row groups (SBO) = 8 * S; a step of 16
-//     bf16 along K adds 32 bytes to the start address;
+//     bf16 (or 8 tf32) along K adds 32 bytes to the start address;
 //   * MN-major (innermost = rows of the output, e.g. channels of dW, rows
 //     = positions = the reduction axis): layout S, SBO = 8 * S again (8
 //     positions per swizzle atom), one S-byte span of M or N (LBO unused);
@@ -63,19 +63,22 @@ inline CUtensorMapSwizzle swizzle_for(int inner_bytes) {
                              : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims[i] elements,
-// strides[i] bytes between steps of dimension i + 1, box[i] elements per
-// load.  The swizzle spans the box's innermost extent (32, 64 or 128 bytes).
-// Returns false if cuTensorMapEncodeTiled refuses the map.
+// A tensor map of `rank` dimensions of `type` elements of `elem_bytes`
+// bytes each (bf16 unless said otherwise), innermost first: dims[i]
+// elements, strides[i] bytes between steps of dimension i + 1, box[i]
+// elements per load.  The swizzle spans the box's innermost extent (32, 64
+// or 128 bytes).  Returns false if cuTensorMapEncodeTiled refuses the map.
 inline bool make_map(CUtensorMap* map, const void* base, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides,
-                     const cuuint32_t* box) {
+                     const cuuint32_t* box,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     int elem_bytes = 2) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_for(box[0] * 2),
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle_for(box[0] * elem_bytes),
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -265,6 +268,69 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+
+// tf32: D(64 x N, f32 registers) += A(64 x 8) * B(8 x N), A from registers,
+// B K-major in shared memory by descriptor (32-bit types take no transpose).
+// Each register holds one tf32 value (an f32 whose low 13 mantissa bits are
+// ignored).  Warp w of the warpgroup holds rows 16 w .. 16 w + 15; lane l
+//   a[0] = A[16 w + l / 4][l % 4],     a[1] = A[16 w + l / 4 + 8][l % 4],
+//   a[2] = A[16 w + l / 4][l % 4 + 4], a[3] = A[16 w + l / 4 + 8][l % 4 + 4];
+// the accumulator as in wgmma_m64n32k16.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_m64k8_tf32(float (&d)[N / 2],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  if constexpr (N == 32) wgmma_m64n32k8_tf32(d, a, db);
+  else wgmma_m64n64k8_tf32(d, a, db);
+}
+
+// Rounds f32 to tf32 (nearest, ties away from zero): the low 13 mantissa
+// bits of the result are zero.
+__device__ __forceinline__ uint32_t cvt_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
 
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da,

@@ -11,10 +11,16 @@ parameters; `forward` computes on channels-last (B, D, H, W, C) tensors:
   three z-tap 2D convs, summed inside the kernel).  Autograd runs their
   backward through the port's kernels too (`conv3x3_op`: the input gradient
   through the same kernel, the weight gradient through `conv3x3_wgrad`);
-* stride-2 stage-entry convs: `F.conv3d`, forward and backward.  This is a
-  library conv for work that the JAX package also leaves to XLA, outside
-  any Pallas kernel.  cuDNN runs it in TF32 unless
-  `torch.backends.cudnn.allow_tf32` is turned off;
+* stride-2 stage-entry convs: `F.conv3d` forward, `torch.nn.grad`'s
+  conv3d_input / conv3d_weight backward.  This is a library conv for work
+  that the JAX package also leaves to XLA, outside any Pallas kernel.
+  cuDNN would run it in TF32 under PyTorch's default
+  `torch.backends.cudnn.allow_tf32 = True`, ~3 decimal digits, against
+  the JAX package's full f32.  So a small `autograd.Function`
+  (`_StridedConv3d`) turns that flag off around its forward and around
+  its backward, which autograd runs later, outside any block that wrapped
+  the forward call, and restores it after each: the port owns no global
+  precision state, and bf16 convs do not read the flag;
 * transposed convs with kernel == stride: one matmul and a sub-voxel
   interleave, as in the JAX package;
 * InstanceNorm with f32 statistics (the E[x^2]-E[x]^2 form under bf16);
@@ -23,6 +29,7 @@ parameters; `forward` computes on channels-last (B, D, H, W, C) tensors:
 * 1x1x1 heads: a matmul, with `head_channel_idx` selecting output classes.
 """
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -95,15 +102,50 @@ class Decoder(nn.Module):
             self.seg_layers.append(nn.Conv3d(here, spec.num_classes, 1))
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+class _StridedConv3d(torch.autograd.Function):
+    """`F.conv3d` of channels-first x whose forward and backward both run
+    with cuDNN's TF32 off (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.stride, ctx.padding = stride, padding
+        with _no_tf32():
+            return F.conv3d(x, weight, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        kw = dict(stride=ctx.stride, padding=ctx.padding)
+        dx = dw = None
+        with _no_tf32():
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv3d_input(x.shape, weight, dy, **kw)
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv3d_weight(x, weight.shape, dy, **kw)
+        return dx, dw, None, None
+
+
 def _conv(x, weight, stride):
     """Bias-free 3D conv of channels-last x with a torch-layout weight
     (O, I, kd, kh, kw)."""
     kernel = tuple(weight.shape[2:])
     if tuple(stride) != (1, 1, 1):
-        # library conv for the strided stage entries, TF32 in cuDNN by
-        # default (module docstring)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, stride=tuple(stride),
-                     padding=tuple(k // 2 for k in kernel))
+        # library conv for the strided stage entries, TF32 off (module
+        # docstring)
+        y = _StridedConv3d.apply(x.permute(0, 4, 1, 2, 3), weight,
+                                 tuple(stride),
+                                 tuple(k // 2 for k in kernel))
         return y.permute(0, 2, 3, 4, 1).contiguous()
     if kernel not in ((3, 3, 3), (1, 3, 3)):
         raise NotImplementedError(

@@ -19,7 +19,7 @@ default plan through the CLI.
    (`DGTTA_COMPUTE_DTYPE` is set for the call and restored after it);
    prints the phases of `timings.json`, tta_sec_per_volume (adaptation +
    inference), the peak device memory, the members' final losses and the
-   conv kernels' launches per route.
+   kernels' launches per route.
 """
 
 import argparse
@@ -43,6 +43,14 @@ def _counters():
 
     return {"conv3x3": conv3x3, "conv3x3_wgrad": conv3x3_wgrad,
             "warp": warp_flat}
+
+
+def _route_counts():
+    """{kernel: {route: launches}} of the port's kernels so far."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import route_launches
+
+    return {k: (route_launches(c) if k != "warp" else {"cuda": c.launches})
+            for k, c in _counters().items()}
 
 
 def profile_steps(dtype, trace=None):
@@ -109,15 +117,13 @@ def run_default_plan(dtype="float32"):
     from dg_tta_tpu_torch.cli.main import main as cli
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
 
-    counters = _counters()
     with tempfile.TemporaryDirectory(prefix="profile_adaptation_") as tmp:
         ws = make_workspace(Path(tmp), seed=0, shape=VOLUME_SHAPE)
         cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
         results_dir, plan = edit_plan()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = {k: (c.launches, getattr(c, "wgmma_launches", 0))
-                  for k, c in counters.items()}
+        before = _route_counts()
         saved = os.environ.get("DGTTA_COMPUTE_DTYPE")
         os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
         try:
@@ -131,9 +137,8 @@ def run_default_plan(dtype="float32"):
             else:
                 os.environ["DGTTA_COMPUTE_DTYPE"] = saved
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = {k: (c.launches - before[k][0],
-                        getattr(c, "wgmma_launches", 0) - before[k][1])
-                    for k, c in counters.items()}
+        launches = {k: {r: n - before[k][r] for r, n in routes.items()}
+                    for k, routes in _route_counts().items()}
         (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
         timings = json.loads((run_dir / "timings.json").read_text())
         final = [json.loads(p.read_text())["losses"][-1] for p in
@@ -150,7 +155,7 @@ def run_default_plan(dtype="float32"):
     print(f"cli: tta_sec_per_volume {adapt + infer:.3f} (adaptation "
           f"{adapt:.3f} + inference {infer:.3f}); peak device memory "
           f"{peak:.2f} GiB; final losses {final}")
-    print("cli: launches (total, wgmma route) " + ", ".join(
+    print("cli: launches per route " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
 
 

@@ -146,21 +146,202 @@ def test_flops_count_skips_z_taps_past_the_volume():
             2 * 3 * 2 * _taps_inside(N, H, W, depth, kz)
 
 
-@pytest.mark.parametrize("C,CO,dtype,route", [
-    (32, 32, torch.bfloat16, "wgmma"),
-    (16, 40, torch.bfloat16, "wgmma"),
-    (320, 320, torch.bfloat16, "wgmma"),
-    (1, 32, torch.bfloat16, "cuda_core"),      # the first conv, on the image
-    (24, 32, torch.bfloat16, "cuda_core"),     # C not a multiple of 16
-    (32, 12, torch.bfloat16, "cuda_core"),     # CO not a multiple of 8
-    (32, 32, torch.float32, "cuda_core"),      # f32 stays on the CUDA cores
+@pytest.mark.parametrize("C,CO,dtype,route,wgrad_route", [
+    (32, 32, torch.bfloat16, "wgmma", "wgmma"),
+    (16, 40, torch.bfloat16, "wgmma", "wgmma"),
+    (320, 320, torch.bfloat16, "wgmma", "wgmma"),
+    # the first conv, on the image, in either type
+    (1, 32, torch.bfloat16, "c1", "c1"),
+    (1, 32, torch.float32, "c1", "c1"),
+    (1, 7, torch.float32, "c1", "c1"),
+    (24, 32, torch.bfloat16, "cuda_core", "cuda_core"),  # C % 16 != 0
+    (32, 12, torch.bfloat16, "cuda_core", "cuda_core"),  # CO % 8 != 0
+    # f32 on the tensor cores as 3xTF32; its weight gradient stays
+    (32, 32, torch.float32, "wgmma_tf32x3", "cuda_core"),
+    (24, 40, torch.float32, "wgmma_tf32x3", "cuda_core"),
+    (512, 256, torch.float32, "wgmma_tf32x3", "cuda_core"),
+    (32, 12, torch.float32, "cuda_core", "cuda_core"),   # CO % 8 != 0
+    # a 12-channel stem (MIND features): C % 8 != 0
+    (12, 32, torch.float32, "cuda_core", "cuda_core"),
+    (12, 32, torch.bfloat16, "cuda_core", "cuda_core"),
 ])
-def test_routes(C, CO, dtype, route):
+def test_routes(C, CO, dtype, route, wgrad_route):
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
                                                   conv3x3_wgrad_route)
 
     assert conv3x3_route(C, CO, dtype) == route
-    assert conv3x3_wgrad_route(C, CO, dtype) == route
+    assert conv3x3_wgrad_route(C, CO, dtype) == wgrad_route
+
+
+def test_tf32_split_is_exact():
+    """w_hi has its low 13 mantissa bits clear and w_hi + w_lo == w
+    exactly; |w_lo| <= 2^-11 |w| (round to nearest)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import tf32_split
+
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy((rng.normal(size=4096)
+                          * 10.0 ** rng.uniform(-6, 3, size=4096))
+                         .astype(np.float32))
+    hi, lo = tf32_split(w)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(hi + lo, w)
+    assert (lo.abs() <= w.abs() * 2.0 ** -11).all()
+
+
+def _tf32(a, mode):
+    """a (float64 array of f32 values) as tf32: rounded to nearest
+    ("rna", the kernel's cvt.rna) or truncated ("rz", the low bits a
+    tensor core ignores)."""
+    bits = a.astype(np.float32).view(np.int32)
+    if mode == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(np.float32).astype(np.float64)
+
+
+def _conv64(x, w):
+    """(N, D, H, W, C) x (3, 3, 3, C, CO) conv in float64, zero-padded."""
+    import torch.nn.functional as F
+
+    y = F.conv3d(torch.from_numpy(x).permute(0, 4, 1, 2, 3),
+                 torch.from_numpy(w).permute(4, 3, 0, 1, 2), padding=1)
+    return y.permute(0, 2, 3, 4, 1).numpy()
+
+
+@pytest.mark.parametrize("C", [8, 64, 512])
+def test_3xtf32_products_meet_the_f32_tolerance(C):
+    """The "wgmma_tf32x3" route's algorithm in float64: x split in the
+    kernel (hi and lo rounded to tf32), w by `tf32_split` (hi; lo as the
+    tensor core reads it, truncated), the three products x_hi w_hi +
+    x_hi w_lo + x_lo w_hi summed exactly.  It stays within the route's
+    f32 tolerance of the exact conv, 5e-5 of the output's range (chip_smoke
+    KERNEL_RTOL), where TF32 alone misses it."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import tf32_split
+
+    rng = np.random.default_rng(C)
+    x = rng.normal(size=(1, 3, 5, 6, C)).astype(np.float32).astype(np.float64)
+    w32 = (rng.normal(size=(3, 3, 3, C, 8)) * (2.0 / (27 * C)) ** 0.5) \
+        .astype(np.float32)
+    w = w32.astype(np.float64)
+    w_hi, w_lo = (t.numpy().astype(np.float64)
+                  for t in tf32_split(torch.from_numpy(w32)))
+    x_hi = _tf32(x, "rna")
+    x_lo = _tf32(x - x_hi, "rna")
+    w_lo = _tf32(w_lo, "rz")
+    exact = _conv64(x, w)
+    scale = np.abs(exact).max()
+    got = _conv64(x_hi, w_hi) + _conv64(x_hi, w_lo) + _conv64(x_lo, w_hi)
+    assert np.abs(got - exact).max() <= 5e-5 * scale / 10
+    tf32_alone = _conv64(x_hi, w_hi)
+    assert np.abs(tf32_alone - exact).max() > 5e-5 * scale
+
+
+def test_3xtf32_promotion_bounds_truncated_accumulation():
+    """The tensor cores add each step's products into the f32 accumulator
+    with truncation.  Over the longest K of the main path (27 x 512) that
+    drift is ~1e-4 of the output's range; the kernel therefore adds its
+    accumulator into a second, rounded f32 sum every `kPromote` stages of
+    32 channels (csrc/conv3x3_wgmma.cu).  A model of that: k8 steps of
+    three exact 8-term products, each step's sum truncated to f32, with
+    and without the promotion."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "dg_tta_tpu_torch"
+           / "kernels" / "csrc" / "conv3x3_wgmma.cu").read_text()
+    promote = int(re.search(r"constexpr int kPromote = (\d+);", src)[1])
+    steps_per_promotion = promote * 32 // 8
+    rng = np.random.default_rng(9)
+    M, K = 96, 27 * 512
+    a = rng.normal(size=(M, K)).astype(np.float32).astype(np.float64)
+    b = (rng.normal(size=K) * (2.0 / K) ** 0.5).astype(np.float32) \
+        .astype(np.float64)
+    exact = a @ b
+    a_hi = _tf32(a, "rna")
+    a_lo = _tf32(a - a_hi, "rna")
+    b_hi = _tf32(b, "rna")
+    b_lo = _tf32(b - b_hi, "rz")
+
+    def trunc32(v):
+        f = v.astype(np.float32)
+        over = np.abs(f.astype(np.float64)) > np.abs(v)
+        f[over] = np.nextafter(f[over], np.float32(0))
+        return f.astype(np.float64)
+
+    def run(every):
+        acc = np.zeros(M)
+        tot = np.zeros(M, np.float32)
+        for s, k0 in enumerate(range(0, K, 8)):
+            sl = slice(k0, k0 + 8)
+            for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                acc = trunc32(acc + pa[:, sl] @ pb[sl])
+            if every and (s + 1) % every == 0:
+                tot = tot + acc.astype(np.float32)
+                acc[:] = 0
+        tot = tot + acc.astype(np.float32)
+        return np.abs(tot - exact).max() / np.abs(exact).max()
+
+    assert run(steps_per_promotion) <= 5e-5 / 2
+    assert run(0) > run(steps_per_promotion)
+
+
+def test_strided_convs_run_without_tf32(monkeypatch):
+    """The U-Net's stride-2 convs (cuDNN on the card) see
+    `torch.backends.cudnn.allow_tf32` False in their forward and in their
+    backward, which autograd runs outside the forward's scope; the flag is
+    PyTorch's default again afterwards; the gradients are those of
+    `F.conv3d`."""
+    import torch.nn.functional as F
+
+    from dg_tta_tpu_torch.models.plans import ArchSpec
+    from dg_tta_tpu_torch.models.unet import (PlainConvUNet, _StridedConv3d,
+                                              init_unet_)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+
+    def recording(fn, what):
+        # the strided convs only: the stride-1 convs' plain versions, which
+        # the CPU runs in place of the kernels, call these too
+        def wrapped(*args, **kw):
+            if kw.get("stride", 1) not in (1, (1, 1, 1)):
+                seen.append((what, torch.backends.cudnn.allow_tf32))
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(F, "conv3d", recording(F.conv3d, "forward"))
+    monkeypatch.setattr(torch.nn.grad, "conv3d_input",
+                        recording(torch.nn.grad.conv3d_input, "dgrad"))
+    monkeypatch.setattr(torch.nn.grad, "conv3d_weight",
+                        recording(torch.nn.grad.conv3d_weight, "wgrad"))
+    spec = ArchSpec(features_per_stage=(4, 8, 8),
+                    kernel_sizes=((3, 3, 3),) * 3,
+                    strides=((1, 1, 1), (2, 2, 2), (2, 2, 2)),
+                    n_conv_per_stage_encoder=(1, 1, 1),
+                    n_conv_per_stage_decoder=(1, 1), num_input_channels=1,
+                    num_classes=3)
+    net = init_unet_(PlainConvUNet(spec), torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(1, 8, 8, 8, 1)).astype(np.float32))
+    net(x).square().sum().backward()
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert sorted(set(seen)) == [("dgrad", False), ("forward", False),
+                                 ("wgrad", False)]
+    assert len([s for s in seen if s[0] == "forward"]) == 2
+
+    rng = np.random.default_rng(11)
+    xs = torch.from_numpy(rng.normal(size=(2, 3, 7, 9, 5)))
+    ws = torch.from_numpy(rng.normal(size=(4, 3, 3, 3, 3)))
+    ct = torch.from_numpy(rng.normal(size=(2, 4, 4, 5, 3)))
+    outs = []
+    for fn in (lambda a, b: _StridedConv3d.apply(a, b, (2, 2, 2), (1, 1, 1)),
+               lambda a, b: F.conv3d(a, b, stride=2, padding=1)):
+        a, b = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+        y = fn(a, b)
+        (y * ct).sum().backward()
+        outs.append((y.detach(), a.grad, b.grad))
+    for ref, got in zip(*outs):
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
 
 
 def _chip_smoke():
@@ -181,13 +362,15 @@ def test_expected_launches_route_split(dtype):
     Stride-1 convs per forward: stage 0 (1 -> 16, 16 -> 16), stage 1's
     second (32 -> 32; its first is strided, cuDNN), decoder (32 -> 16,
     16 -> 16): 5 forward launches, 4 input gradients (not the first), 5
-    weight gradients.  In bf16 all but the C = 1 conv (forward and weight
-    gradient) take the wgmma route: 4, 4, 4.  Plan: 2 epochs x 4 patches,
-    the second epoch trained: 8 patch forwards + 2 evals = 10 forwards, 4
+    weight gradients.  The C = 1 conv takes the "c1" route (forward and
+    weight gradient) in both types; the other four take "wgmma" in bf16,
+    "wgmma_tf32x3" in f32 (forward and input gradient; their f32 weight
+    gradient stays on "cuda_core").  Plan: 2 epochs x 4 patches, the
+    second epoch trained: 8 patch forwards + 2 evals = 10 forwards, 4
     trained steps; 3 windows; 2 members.
-      conv3x3 = 2 x (10 x 5 + 4 x 4) + 3 x 2 x 5 = 162
-      conv3x3_wgmma (bf16) = 2 x (10 x 4 + 4 x 4) + 3 x 2 x 4 = 136
-      conv3x3_wgrad = 2 x 4 x 5 = 40, its wgmma route (bf16) 2 x 4 x 4 = 32
+      conv3x3 = 2 x (10 x 5 + 4 x 4) + 3 x 2 x 5 = 162, of it
+        c1 = 2 x 10 + 3 x 2 = 26, the wgmma route of the type 136
+      conv3x3_wgrad = 2 x 4 x 5 = 40, of it c1 8, the rest 32
       warp = 2 x (8 x 4 + 4 x 2 + 2) = 84
     """
     from dg_tta_tpu_torch.models.plans import ArchSpec
@@ -201,6 +384,9 @@ def test_expected_launches_route_split(dtype):
     plan = dict(epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1)
     got = _chip_smoke().expected_launches(spec, 3, 2, plan, dtype)
     bf16 = dtype == "bfloat16"
-    assert got == dict(conv3x3=162, conv3x3_wgmma=136 if bf16 else 0,
-                       conv3x3_wgrad=40,
-                       conv3x3_wgrad_wgmma=32 if bf16 else 0, warp=84)
+    assert got == dict(
+        conv3x3=162, conv3x3_c1=26, conv3x3_wgmma=136 if bf16 else 0,
+        conv3x3_wgmma_tf32x3=0 if bf16 else 136, conv3x3_cuda_core=0,
+        conv3x3_wgrad=40, conv3x3_wgrad_c1=8,
+        conv3x3_wgrad_wgmma=32 if bf16 else 0,
+        conv3x3_wgrad_cuda_core=0 if bf16 else 32, warp=84)

@@ -7,10 +7,11 @@ the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances, max |kernel - plain| over max |plain|:
-* conv3x3: 5e-5 in f32 (the same products summed in another order; TF32
-  off for the plain version) and 2^-7 in bf16 (both round one f32 sum to
-  bf16), on either route (the CUDA-core kernel, or the wgmma kernel that
-  takes bf16 with C % 16 == 0 and CO % 8 == 0);
+* conv3x3: 5e-5 in f32 (the same products summed in another order, on
+  the "wgmma_tf32x3" route each from three tf32 products; TF32 off for the
+  plain version) and 2^-7 in bf16 (both round one f32 sum to bf16), on
+  every route ("c1" for C = 1, "wgmma" for bf16 and "wgmma_tf32x3" for
+  f32 with C and CO multiples of 16/8, else "cuda_core");
 * conv3x3_wgrad: 1e-4, f32 out from f32 or bf16 in (sums over every
   position, split across blocks, in another order than cuDNN's);
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
@@ -362,3 +363,141 @@ def test_wgmma_routes_reject_misaligned_tensors(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         conv3x3_wgrad(x, dy, depth=2)
     assert (conv3x3.launches, conv3x3_wgrad.launches) == before
+
+
+# The "wgmma_tf32x3" route (f32, C % 8 == 0, CO % 8 == 0): (N, depth, H, W,
+# C, CO, kz).  C = 8, 24 and 48 take the 32- and 64-byte swizzles (8 and 16
+# channels per stage), the rest 128 bytes; C = 512 is the longest sum of
+# the main path, where the accumulator's promotion matters.
+TF32X3_CASES = {
+    "ragged_c16": (12, 6, 19, 37, 16, 40, 3),
+    "c8": (6, 3, 11, 13, 8, 16, 3),
+    "c24": (4, 2, 9, 21, 24, 32, 3),
+    "c48": (4, 2, 10, 18, 48, 64, 3),
+    "depth1_c32": (4, 1, 9, 21, 32, 32, 3),
+    "two_volumes_co320": (8, 4, 20, 18, 32, 320, 3),
+    "plane_7x8_c320": (6, 3, 7, 8, 320, 320, 3),
+    "c512": (4, 2, 14, 16, 512, 256, 3),
+    "one_z_tap": (6, 3, 11, 13, 64, 32, 1),
+}
+
+
+def _tf32x3_inputs(case, seed, device):
+    N, D, H, W, C, CO, kz = TF32X3_CASES[case]
+    assert conv3x3_route(C, CO, torch.float32) == "wgmma_tf32x3"
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(kz, 3, 3, C, CO))
+                          * (2.0 / (27 * C)) ** 0.5).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    return [t.to(device) for t in (x, w, dy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TF32X3_CASES))
+def test_conv3x3_tf32x3_matches_plain(cuda_device, case):
+    """f32 on the tensor cores at f32's tolerance (5e-5), not TF32's."""
+    x, w, _ = _tf32x3_inputs(case, 6, cuda_device)
+    depth = TF32X3_CASES[case][1]
+    before = (conv3x3.launches, conv3x3.tf32x3_launches)
+    got = conv3x3(x, w, depth=depth)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3.tf32x3_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (*x.shape[:3],
+                                                        w.shape[-1])
+    ref = conv3x3_reference(x, w, depth=depth)
+    assert _max_rel_err(got, ref) <= RTOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["depth1_c32", "two_volumes_co320",
+                                  "plane_7x8_c320", "c512"])
+def test_conv3x3_tf32x3_dgrad_with_flipped_swapped_weights(cuda_device,
+                                                           case):
+    """The input gradient as Conv3x3Function.backward runs it, f32."""
+    _, w, dy = _tf32x3_inputs(case, 7, cuda_device)
+    depth = TF32X3_CASES[case][1]
+    wt = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    assert conv3x3_route(wt.shape[3], wt.shape[4], wt.dtype) == \
+        "wgmma_tf32x3"
+    before = conv3x3.tf32x3_launches
+    got = conv3x3(dy, wt, depth=depth)
+    torch.cuda.synchronize()
+    assert conv3x3.tf32x3_launches == before + 1
+    ref = conv3x3_reference(dy, wt, depth=depth)
+    assert _max_rel_err(got, ref) <= RTOL["float32"]
+
+
+@pytest.mark.cuda
+def test_tf32x3_route_rejects_misaligned_tensors(cuda_device):
+    shape = (4, 6, 8, 16)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=torch.float32, device=cuda_device)
+    x = buf[1:n + 1].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    w = torch.zeros((3, 3, 3, 16, 32), device=cuda_device)
+    before = conv3x3.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3(x, w, depth=2)
+    assert conv3x3.launches == before
+
+
+# The "c1" route (C = 1, either type): (N, depth, H, W, CO, kz).  Ragged
+# planes leave 16 x 32 tiles part empty; CO = 40 takes two channel slices,
+# the second part empty; CO = 7 is odd (no pair accesses).
+C1_CASES = {
+    "first_conv": (8, 8, 16, 16, 32, 3),
+    "ragged": (12, 6, 19, 37, 32, 3),
+    "depth1": (4, 1, 5, 3, 32, 3),
+    "co40": (4, 2, 17, 33, 40, 3),
+    "co7_odd": (6, 3, 9, 20, 7, 3),
+    "one_z_tap": (6, 3, 11, 45, 32, 1),
+    "many_tiles": (64, 32, 40, 72, 32, 3),
+}
+
+
+def _c1_inputs(case, seed, dtype, device):
+    N, D, H, W, CO, kz = C1_CASES[case]
+    assert conv3x3_route(1, CO, dtype) == "c1"
+    assert conv3x3_wgrad_route(1, CO, dtype) == "c1"
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, 1)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(kz, 3, 3, 1, CO)) * 0.3)
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    return [t.to(device, dtype) for t in (x, w, dy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(C1_CASES))
+def test_conv3x3_c1_matches_plain(cuda_device, dtype, case):
+    dt = getattr(torch, dtype)
+    x, w, _ = _c1_inputs(case, 8, dt, cuda_device)
+    depth = C1_CASES[case][1]
+    before = (conv3x3.launches, conv3x3.c1_launches)
+    got = conv3x3(x, w, depth=depth)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3.c1_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == dt and got.shape == (*x.shape[:3], w.shape[-1])
+    assert _max_rel_err(got, conv3x3_reference(x, w, depth=depth)) \
+        <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(C1_CASES))
+def test_wgrad_c1_matches_plain(cuda_device, dtype, case):
+    dt = getattr(torch, dtype)
+    x, _, dy = _c1_inputs(case, 9, dt, cuda_device)
+    N, D, H, W, CO, kz = C1_CASES[case]
+    before = (conv3x3_wgrad.launches, conv3x3_wgrad.c1_launches)
+    got = conv3x3_wgrad(x, dy, depth=D, kz=kz)
+    torch.cuda.synchronize()
+    assert (conv3x3_wgrad.launches, conv3x3_wgrad.c1_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, 1, CO)
+    ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
+    assert _max_rel_err(got, ref) <= 1e-4
