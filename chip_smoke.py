@@ -8,10 +8,11 @@ Phases; any failure raises and the script exits non-zero:
    power limit as `nvidia-smi` reports them;
 2. build: compiles every CUDA kernel of the main path from the checkout's
    sources (`conv3x3`, `conv3x3_wgrad`, `warp`, `conv3x3_wgmma`,
-   `conv3x3_wgrad_wgmma`, `conv3x3_c1`: one `nvcc` per source, all started
-   together), and asserts that the SASS of the wgmma kernels (bf16 and
-   f32 3xTF32 instantiations of `conv3x3_wgmma`, and `conv3x3_wgrad_wgmma`)
-   holds tensor-core (`HGMMA`) and TMA (`UTMALDG`) instructions;
+   `conv3x3_wgrad_wgmma`, `conv3x3_c1`, `conv3x3_wgrad_tf32x3`: one `nvcc`
+   per source, all started together), and asserts that the SASS of the
+   wgmma kernels (bf16 and f32 3xTF32 instantiations of `conv3x3_wgmma`,
+   `conv3x3_wgrad_wgmma` and the f32 `conv3x3_wgrad_tf32x3`) holds
+   tensor-core (`HGMMA`) and TMA (`UTMALDG`) instructions;
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -29,13 +30,21 @@ Phases; any failure raises and the script exits non-zero:
    * `conv3x3_wgrad` at the same shapes with the batch of a TTA step (two
      patches: both branches), f32 and bf16 (library: cuDNN's weight
      gradient, `torch.nn.grad.conv3d_weight`), with its route ("c1",
-     "wgmma" for bf16, "cuda_core" for f32), the C = 1 conv also forced
-     onto the CUDA-core kernel;
+     "wgmma" for bf16, "wgmma_tf32x3" for f32), the C = 1 and f32 shapes
+     also forced onto the CUDA-core kernel, and the f32 routes' per-step
+     totals on the same shapes side by side;
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
-     its adjoint (112 x 112 x 128), and the nearest label sampling of a
-     224 x 224 x 256 label volume onto the patch (library:
-     `F.grid_sample`);
+     its adjoint (112 x 112 x 128, times 1 / |det|), and the nearest label
+     sampling of a 224 x 224 x 256 label volume onto the patch, through
+     both entries: `warp_affine_flat` (the main path's: the points built
+     from theta in the kernel), held bit for bit to `warp_flat` on the
+     card's `affine_grid`, and `warp_flat` on that precomputed grid; each
+     timed eagerly (CUDA events around back-to-back calls, which measure
+     the host where it is slower), on the device alone (the calls replayed
+     from a CUDA graph) and, for the affine entry, in host microseconds
+     per call (library: `F.grid_sample` on a precomputed grid, and
+     `F.affine_grid` + `F.grid_sample`);
 4. reference, under PyTorch's default precision flags (asserted), as a
    user's run finds them: the full-width TS104_GIN U-Net on a small patch,
    its forward and one step's gradient, a stride-2 stage-entry conv
@@ -54,8 +63,8 @@ Phases; any failure raises and the script exits non-zero:
    patches_to_be_accumulated=4, start_tta_at_epoch=1 (one warm-up and one
    trained epoch).  Checks the member files and the segmentation, that
    every kernel launched exactly as often as the plan says it must, on
-   each route (`expected_launches`), and that the CUDA-core `conv3x3`
-   launched not at all.
+   each route (`expected_launches`), and that the CUDA-core `conv3x3` and
+   `conv3x3_wgrad` and the grid entry of the warp launched not at all.
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
@@ -123,7 +132,7 @@ SMOKE_PLAN = dict(epochs=2, patches_to_be_accumulated=4,
                   start_tta_at_epoch=1)
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
-           "conv3x3_wgrad_wgmma", "conv3x3_c1"]
+           "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3"]
 
 
 def log(*a):
@@ -188,10 +197,12 @@ def phase_build():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {name}: {line.strip()}")
     # the wgmma routes run on the tensor cores, fed by TMA: the bf16 and
-    # the f32 (3xTF32) instantiations of conv3x3_wgmma, and wgrad's
+    # the f32 (3xTF32) instantiations of conv3x3_wgmma, and wgrad's bf16
+    # and f32 kernels
     for name, marker in (("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_"),
                          ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf"),
-                         ("conv3x3_wgrad_wgmma", "wgrad_wgmma_kernel")):
+                         ("conv3x3_wgrad_wgmma", "wgrad_wgmma_kernel"),
+                         ("conv3x3_wgrad_tf32x3", "wgrad_tf32x3_kernel")):
         funcs = [f for f in build.sass(name).split("Function : ")[1:]
                  if marker in f.split("\n", 1)[0]]
         counts = {op: sum(f.count(op) for f in funcs)
@@ -332,8 +343,9 @@ def phase_kernels():
 def phase_wgrad():
     """conv3x3_wgrad at every TS104 stride-1 conv shape, with the batch of
     one TTA step: both branches of one patch, N = 2 x depth planes; the
-    C = 1 conv on the "c1" route and, for comparison, on the CUDA-core
-    kernel that ran it before."""
+    C = 1 conv on the "c1" route and the f32 shapes on "wgmma_tf32x3",
+    each also, for comparison, on the CUDA-core kernel that ran it
+    before."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_flops,
@@ -346,6 +358,7 @@ def phase_wgrad():
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         tot = _new_totals()
+        side = {}  # f32: both routes' per-step totals on the tf32x3 shapes
         for depth, H, W, C, CO, mult in TS104_CONV_SHAPES:
             N = 2 * depth
             x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
@@ -362,10 +375,11 @@ def phase_wgrad():
             ops = conv3x3_flops(x.shape, (3, 3, 3, C, CO), depth)
             nbytes = (x.numel() + dy.numel()) * x.element_size() \
                 + 27 * C * CO * 4
-            ops_ms = ops / PEAK_OPS[name] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             main = conv3x3_wgrad_route(C, CO, dt)
-            for route in [main] + (["cuda_core"] if main == "c1" else []):
+            for route in [main] + (["cuda_core"] if main in (
+                    "c1", "wgmma_tf32x3") else []):
+                ops_ms = _ops_ms(ops, name, route)
                 got = conv3x3_wgrad(x, dy, depth=depth, route=route)
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item()
@@ -385,11 +399,19 @@ def phase_wgrad():
                     f"bound_ms={max(ops_ms, bytes_ms):.4f} "
                     f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
                     f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
+                if main == "wgmma_tf32x3":
+                    side[route] = side.get(route, 0.0) + mult * k_ms
                 at = [totals.setdefault(f"{name}/{route}", _new_totals())]
                 if route == main:
                     at.append(tot)
                 for t in at:
                     _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
+        if side:
+            log(f"conv3x3_wgrad {name} per trained step on the "
+                f"wgmma_tf32x3 shapes: wgmma_tf32x3 "
+                f"{side['wgmma_tf32x3']:.3f} ms, cuda_core (forced) "
+                f"{side['cuda_core']:.3f} ms, ratio "
+                f"{side['wgmma_tf32x3'] / side['cuda_core']:.3f}")
         log(f"conv3x3_wgrad {name} per trained step (14 convs, the main "
             f"path's routes): kernel_ms={tot['ms']:.3f} "
             f"plain_ms={tot['plain_ms']:.3f} "
@@ -402,87 +424,186 @@ def phase_wgrad():
 
 def _warp_sites(gen, device):
     """The warp's four call sites in adaptation: (name, C, source shape,
-    grid, mode, padding)."""
+    theta, scale, mode, padding)."""
     import torch
 
-    from dg_tta_tpu_torch.core.fields import get_rand_affine
-    from dg_tta_tpu_torch.core.grid import affine_grid
+    from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
     from dg_tta_tpu_torch.core.patches import (_compose_pad_correction,
                                                patch_affine)
 
     theta, theta_inv = get_rand_affine(
         torch.randn((1, 3, 4), generator=gen).to(device))
-    grid = affine_grid(theta, PATCH)
-    grid_inv = affine_grid(theta_inv, PATCH)
     theta_p = _compose_pad_correction(
         patch_affine(torch.rand(3, generator=gen).numpy(), VOLUME_SHAPE,
-                     PATCH), VOLUME_SHAPE, VOLUME_SHAPE)
-    grid_lab = affine_grid(theta_p.to(device), PATCH)
-    return [("border input warp", 1, PATCH, grid, "trilinear", "border"),
-            ("zeros unwarp", N_OPT, PATCH, grid_inv, "trilinear", "zeros"),
-            ("adjoint", N_OPT, PATCH, grid, "trilinear", "zeros"),
-            ("nearest labels", 1, VOLUME_SHAPE, grid_lab, "nearest",
+                     PATCH), VOLUME_SHAPE, VOLUME_SHAPE).to(device)
+    return [("border input warp", 1, PATCH, theta, None, "trilinear",
+             "border"),
+            ("zeros unwarp", N_OPT, PATCH, theta_inv, None, "trilinear",
+             "zeros"),
+            ("adjoint", N_OPT, PATCH, theta, affine_abs_det(theta),
+             "trilinear", "zeros"),
+            ("nearest labels", 1, VOLUME_SHAPE, theta_p, None, "nearest",
              "zeros")]
 
 
+def device_ms(fn, reps=20):
+    """Device time per call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed, so no host work separates the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, iters=5, warmup=1) / reps
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of `fn` (its enqueue time: the device
+    runs behind it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_warp():
-    """The warp kernel at its four call sites, one call each."""
+    """The warp kernel at its four call sites, through both entries: the
+    affine entry the main path takes, and the grid entry on the grid that
+    `affine_grid` makes on the card."""
     import torch
     import torch.nn.functional as F
 
-    from dg_tta_tpu_torch.core.grid import pack_grid
-    from dg_tta_tpu_torch.kernels.warp import (warp_bytes, warp_flat,
-                                               warp_flat_reference,
+    from dg_tta_tpu_torch.core.grid import affine_grid, pack_grid
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                               warp_affine_reference,
+                                               warp_bytes, warp_flat,
                                                warp_flops,
                                                warp_source_voxels)
 
     gen = torch.Generator().manual_seed(2)
     n_out = PATCH[0] * PATCH[1] * PATCH[2]
     totals = {}
+    log("warp: the bf16 library yardsticks sample at bf16-rounded points "
+        "(F.grid_sample takes its grid in the input's type), so the f32 "
+        "comparison is the one that decides")
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
-        tot = _new_totals()
-        for site, C, src, grid, mode, pad in _warp_sites(gen, "cuda"):
+        tot = {"affine": _new_totals(), "grid": _new_totals()}
+        extra = dict(device_ms=0.0, host_us=0.0, grid_device_ms=0.0,
+                     library_device_ms=0.0, library_affine_ms=0.0)
+        for site, C, src, theta, scale, mode, pad in _warp_sites(gen, "cuda"):
             n_src = src[0] * src[1] * src[2]
             flat = torch.randn((1, C, n_src), generator=gen).to(dt).cuda()
-            got = warp_flat(flat, src, grid, mode=mode, padding_mode=pad)
+            grid = affine_grid(theta, PATCH)
+            kw = dict(mode=mode, padding_mode=pad)
+
+            def affine():
+                return warp_affine_flat(flat, src, theta, PATCH, scale=scale,
+                                        **kw)
+
+            def by_grid():
+                out = warp_flat(flat, src, grid, **kw)
+                return out if scale is None else \
+                    out * scale.reshape(-1, 1, 1).to(dt)
+
+            got, same = affine(), by_grid()
             torch.cuda.synchronize()
-            ref = warp_flat_reference(flat, src, grid, mode=mode,
-                                      padding_mode=pad)
+            ref = warp_affine_reference(flat, src, theta, PATCH, scale=scale,
+                                        **kw)
+            diff = (got.float() - same.float()).abs().max().item()
+            if diff != 0.0:
+                raise AssertionError(f"warp {name} {site}: warp_affine_flat "
+                                     f"differs from warp_flat on the card's "
+                                     f"affine_grid by {diff}")
             err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = 0.0 if mode == "nearest" else WARP_RTOL[name] * scale
+            scale_ref = ref.float().abs().max().item()
+            tol = 0.0 if mode == "nearest" else WARP_RTOL[name] * scale_ref
             if not err <= tol:
                 raise AssertionError(f"warp {name} {site}: max abs err "
                                      f"{err} > {tol}")
             vol5 = flat.view(1, C, *src)
             packed = pack_grid(grid).to(dt)
-            k_ms = time_ms(lambda: warp_flat(flat, src, grid, mode=mode,
-                                             padding_mode=pad))
-            p_ms = time_ms(lambda: warp_flat_reference(
-                flat, src, grid, mode=mode, padding_mode=pad))
-            l_ms = time_ms(lambda: F.grid_sample(
-                vol5, packed, mode="bilinear" if mode == "trilinear"
-                else "nearest", padding_mode=pad, align_corners=False))
+            lib_mode = "bilinear" if mode == "trilinear" else "nearest"
+            theta_l = theta.to(dt)
+
+            def library():
+                return F.grid_sample(vol5, packed, mode=lib_mode,
+                                     padding_mode=pad, align_corners=False)
+
+            def library_affine():
+                g = F.affine_grid(theta_l, (1, C, *PATCH),
+                                  align_corners=False)
+                return F.grid_sample(vol5, g, mode=lib_mode,
+                                     padding_mode=pad, align_corners=False)
+
+            k_ms = time_ms(affine)
+            k_dev = device_ms(affine)
+            k_host = host_us(affine)
+            g_ms = time_ms(lambda: warp_flat(flat, src, grid, **kw))
+            g_dev = device_ms(lambda: warp_flat(flat, src, grid, **kw))
+            p_ms = time_ms(lambda: warp_affine_reference(
+                flat, src, theta, PATCH, scale=scale, **kw))
+            l_ms = time_ms(library)
+            l_dev = device_ms(library)
+            la_ms = time_ms(library_affine)
             n_need = warp_source_voxels(src, grid, 1, mode, pad)
-            nbytes = warp_bytes(flat.shape, n_need, n_out,
-                                flat.element_size())
             ops_ms = warp_flops(flat.shape, n_out, mode) \
                 / PEAK_OPS["float32"] * 1e3
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            log(f"warp {name} {site} C={C} {src}->{PATCH} {mode} {pad}: "
-                f"max_abs_err={err:.3e} (tol {tol:.3e}) "
-                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"library_ms={l_ms:.4f} "
-                f"bound_ms={max(ops_ms, bytes_ms):.4f} "
-                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
-                f"source voxels needed {n_need} of {n_src} "
-                f"GB/s={nbytes / k_ms / 1e6:.1f}")
-            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms)
-        log(f"warp {name} over the four call sites: kernel_ms={tot['ms']:.4f} "
-            f"plain_ms={tot['plain_ms']:.4f} "
-            f"library_ms={tot['library_ms']:.4f} "
-            f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.4f}")
+            bytes_ms = {e: warp_bytes(flat.shape, n_need, n_out,
+                                      flat.element_size(), gb)
+                        / PEAK_BYTES * 1e3
+                        for e, gb in (("affine", 48), ("grid", 12 * n_out))}
+            bound = {e: max(ops_ms, b) for e, b in bytes_ms.items()}
+            log(f"warp {name} {site} C={C} {src}->{PATCH} {mode} {pad}"
+                f"{'' if scale is None else ' x 1/|det|'}: affine entry "
+                f"== grid entry on affine_grid (max |diff| 0); "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}); affine entry "
+                f"kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
+                f"host_us={k_host:.1f} bound_ms={bound['affine']:.4f}; "
+                f"grid entry kernel_ms={g_ms:.4f} device_ms={g_dev:.4f} "
+                f"bound_ms={bound['grid']:.4f}; "
+                f"plain_ms={p_ms:.4f}; library F.grid_sample "
+                f"library_ms={l_ms:.4f} device_ms={l_dev:.4f}, "
+                f"F.affine_grid + F.grid_sample {la_ms:.4f} ms; source "
+                f"voxels needed {n_need} of {n_src}; affine entry "
+                f"GB/s={bytes_ms['affine'] * PEAK_BYTES / 1e9 / k_dev:.1f} "
+                f"(device)")
+            _record(tot["affine"], err, k_ms, p_ms, l_ms, ops_ms,
+                    bytes_ms["affine"])
+            _record(tot["grid"], err, g_ms, p_ms, l_ms, ops_ms,
+                    bytes_ms["grid"])
+            for key, v in (("device_ms", k_dev), ("host_us", k_host),
+                           ("grid_device_ms", g_dev),
+                           ("library_device_ms", l_dev),
+                           ("library_affine_ms", la_ms)):
+                extra[key] += v
+        tot["affine"].update(extra)
+        bound = {e: max(t["ops_ms"], t["bytes_ms"]) for e, t in tot.items()}
+        log(f"warp {name} over the four call sites: affine entry "
+            f"kernel_ms={tot['affine']['ms']:.4f} "
+            f"device_ms={extra['device_ms']:.4f} "
+            f"host_us={extra['host_us']:.1f} "
+            f"bound_ms={bound['affine']:.4f}; "
+            f"grid entry kernel_ms={tot['grid']['ms']:.4f} "
+            f"device_ms={extra['grid_device_ms']:.4f} "
+            f"bound_ms={bound['grid']:.4f}; "
+            f"plain_ms={tot['affine']['plain_ms']:.4f}; library "
+            f"F.grid_sample library_ms={tot['affine']['library_ms']:.4f} "
+            f"device_ms={extra['library_device_ms']:.4f}, F.affine_grid + "
+            f"F.grid_sample {extra['library_affine_ms']:.4f} ms")
         totals[name] = tot
     return totals
 
@@ -755,7 +876,7 @@ def _stride1_convs(spec):
 
 
 CONV_ROUTES = ("c1", "wgmma", "wgmma_tf32x3", "cuda_core")
-WGRAD_ROUTES = ("c1", "wgmma", "cuda_core")
+WGRAD_ROUTES = ("c1", "wgmma", "wgmma_tf32x3", "cuda_core")
 
 
 def expected_launches(spec, windows, members, plan, dtype="float32"):
@@ -763,8 +884,9 @@ def expected_launches(spec, windows, members, plan, dtype="float32"):
     `windows` sliding windows with labels (one eval per epoch), in compute
     type `dtype`: the totals of `conv3x3` and `conv3x3_wgrad`, their
     launches on each route (`conv3x3_<route>`, `conv3x3_wgrad_<route>`, as
-    `conv3x3_route` and `conv3x3_wgrad_route` pick them) and those of
-    `warp`."""
+    `conv3x3_route` and `conv3x3_wgrad_route` pick them), and those of the
+    warp's affine entry (`warp_affine`: every warp of adaptation) and grid
+    entry (`warp`: none)."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -787,19 +909,21 @@ def expected_launches(spec, windows, members, plan, dtype="float32"):
     out["conv3x3_wgrad"] = sum(out[f"conv3x3_wgrad_{r}"]
                                for r in WGRAD_ROUTES)
     # two input warps and two unwarps per step, two adjoints per trained
-    # step, one label sampling per eval
-    out["warp"] = members * (acc * epochs * 4 + trained * 2 + epochs)
+    # step, one label sampling per eval, all by an affine
+    out["warp_affine"] = members * (acc * epochs * 4 + trained * 2 + epochs)
+    out["warp"] = 0
     return out
 
 
 def _read_counts():
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
                                                   route_launches)
-    from dg_tta_tpu_torch.kernels.warp import warp_flat
+    from dg_tta_tpu_torch.kernels.warp import warp_affine_flat, warp_flat
 
     out = {"conv3x3": conv3x3.launches,
            "conv3x3_wgrad": conv3x3_wgrad.launches,
-           "warp": warp_flat.launches}
+           "warp": warp_flat.launches,
+           "warp_affine": warp_affine_flat.launches}
     for fn, prefix in ((conv3x3, "conv3x3"), (conv3x3_wgrad, "conv3x3_wgrad")):
         out.update({f"{prefix}_{r}": n for r, n in route_launches(fn).items()})
     return out
@@ -808,11 +932,11 @@ def _read_counts():
 def _zero_counts():
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
                                                   zero_launches)
-    from dg_tta_tpu_torch.kernels.warp import warp_flat
+    from dg_tta_tpu_torch.kernels.warp import warp_affine_flat, warp_flat
 
     zero_launches(conv3x3)
     zero_launches(conv3x3_wgrad)
-    warp_flat.launches = 0
+    warp_flat.launches = warp_affine_flat.launches = 0
 
 
 def phase_main_path(work: Path, dtype: str):
@@ -859,9 +983,10 @@ def phase_main_path(work: Path, dtype: str):
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{expected} from the plan")
-    if launches["conv3x3_cuda_core"]:
-        raise AssertionError("the main path launched the CUDA-core conv3x3 "
-                             f"{launches['conv3x3_cuda_core']} times")
+    for key in ("conv3x3_cuda_core", "conv3x3_wgrad_cuda_core", "warp"):
+        if launches[key]:
+            raise AssertionError(f"the main path launched {key} "
+                                 f"{launches[key]} times")
     (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
     pretrained = load_flat_npz(ws.checkpoint)
     for i in range(n_members):
@@ -899,7 +1024,8 @@ def phase_main_path(work: Path, dtype: str):
     return launches
 
 
-def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None):
+def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None,
+         **extra):
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -914,6 +1040,7 @@ def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None):
                    bf16_bound_ms=max(bf16["ops_ms"], bf16["bytes_ms"]),
                    bf16_library_ms=bf16["library_ms"],
                    bf16_max_abs_err=bf16["max_abs_err"])
+    row.update(extra)
     return row
 
 
@@ -937,17 +1064,31 @@ def main():
         return sum(r[key] for r in runs.values())
 
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
+    w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
     rows = [
-        # the CUDA-core kernels, timed on the shapes they ran before this
-        # slice's routes took them (f32: every conv; bf16: C = 1)
+        # the CUDA-core kernels, timed on the shapes they ran before the
+        # later routes took them (f32: every conv; bf16: C = 1)
         _row("conv3x3", conv3x3.SOURCE, conv3x3.REPLACES,
              both("conv3x3_cuda_core"), c["float32/cuda_core"],
              c["bfloat16/cuda_core"], "cuda_core"),
         _row("conv3x3_wgrad", conv3x3.WGRAD_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_cuda_core"), wg["float32/cuda_core"],
              wg["bfloat16/cuda_core"], "cuda_core"),
+        # the warp's grid entry (timed on the card's affine_grid; no
+        # launch on the main path since its affine entry took every site)
+        # and its affine entry
         _row("warp", warp.SOURCE, warp.REPLACES, both("warp"),
-             totals["warp"]["float32"], totals["warp"]["bfloat16"], "cuda"),
+             w32["grid"], w16["grid"], "cuda",
+             device_ms=w32["affine"]["grid_device_ms"],
+             bf16_device_ms=w16["affine"]["grid_device_ms"]),
+        _row("warp_affine", warp.SOURCE, warp.REPLACES, both("warp_affine"),
+             w32["affine"], w16["affine"], "cuda",
+             **{k: w32["affine"][k] for k in (
+                 "device_ms", "host_us", "library_device_ms",
+                 "library_affine_ms")},
+             **{f"bf16_{k}": w16["affine"][k] for k in (
+                 "device_ms", "host_us", "library_device_ms",
+                 "library_affine_ms")}),
         _row("conv3x3_wgmma", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
              runs["bfloat16"]["conv3x3_wgmma"], c["bfloat16/wgmma"]),
         _row("conv3x3_wgrad_wgmma", conv3x3.WGRAD_WGMMA_SOURCE,
@@ -956,6 +1097,9 @@ def main():
         _row("conv3x3_wgmma_tf32x3", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
              runs["float32"]["conv3x3_wgmma_tf32x3"],
              c["float32/wgmma_tf32x3"]),
+        _row("conv3x3_wgrad_tf32x3", conv3x3.WGRAD_TF32X3_SOURCE,
+             conv3x3.REPLACES, runs["float32"]["conv3x3_wgrad_wgmma_tf32x3"],
+             wg["float32/wgmma_tf32x3"]),
         _row("conv3x3_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_c1"), c["float32/c1"], c["bfloat16/c1"], "c1"),
         _row("conv3x3_wgrad_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,

@@ -9,7 +9,10 @@ Conventions, as in the JAX package:
   * `align_corners` follows torch.
 
 `grid_sample_flat` is the wrapper of the hand-written warp kernel
-(`kernels/warp.py`): every resample of the port goes through it.
+(`kernels/warp.py`) for a grid in memory; warps by an affine call the
+kernel's affine entry (`kernels/warp.warp_affine_flat`), which builds the
+points of `affine_grid` itself.  Every resample of the port goes through
+one of the two.
 """
 
 import torch
@@ -18,11 +21,13 @@ from dg_tta_tpu_torch.kernels.warp import warp_flat
 
 
 def _base_coords(size: int, align_corners: bool, device=None):
-    """Normalized sample coordinates along one axis, torch convention."""
+    """Normalized sample coordinates along one axis, torch convention,
+    computed on the CPU (its division by `size` is a true division, which
+    the warp kernel's affine entry repeats) and moved to `device`."""
     if align_corners:
-        return torch.linspace(-1.0, 1.0, size, device=device)
-    i = torch.arange(size, dtype=torch.float32, device=device)
-    return (2.0 * i + 1.0) / size - 1.0
+        return torch.linspace(-1.0, 1.0, size).to(device)
+    i = torch.arange(size, dtype=torch.float32)
+    return ((2.0 * i + 1.0) / size - 1.0).to(device)
 
 
 def identity_grid(spatial_size, align_corners: bool = False, device=None):

@@ -19,8 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dg_tta_tpu_torch.core.grid import affine_grid, grid_sample
-from dg_tta_tpu_torch.kernels.warp import _unnormalize
+from dg_tta_tpu_torch.kernels.warp import _unnormalize, warp_affine_flat
 
 
 def pad_to_bucket(vol: torch.Tensor, bucket_shape, pad_value=0.0):
@@ -82,18 +81,19 @@ def _compose_pad_correction(theta, true_shape, padded_shape):
 def sample_with_affine(vol_padded, true_shape, theta, patch_size,
                        mode: str = "trilinear", pad_with_min: bool = True):
     """Sample one (1, *patch_size, C) patch of a (D, H, W, C) volume by a
-    true-frame affine (1, 3, 4), through `grid_sample`."""
+    true-frame affine (1, 3, 4), through the warp kernel's affine entry
+    (`warp_affine_flat`: the grid of `affine_grid`, built in the kernel)."""
     theta = _compose_pad_correction(theta, true_shape, vol_padded.shape[:3])
-    grid = affine_grid(theta.to(vol_padded.device), patch_size,
-                       align_corners=False)
-    vol = vol_padded[None]
+    D, H, W, C = vol_padded.shape
+    vol = vol_padded
     if pad_with_min:
         vmin = vol.min()
-        patch = grid_sample(vol - vmin, grid, mode=mode,
-                            padding_mode="zeros", align_corners=False)
-        return patch + vmin
-    return grid_sample(vol, grid, mode=mode, padding_mode="zeros",
-                       align_corners=False)
+        vol = vol - vmin
+    flat = vol.movedim(-1, 0).reshape(1, C, D * H * W).contiguous()
+    patch = warp_affine_flat(flat, (D, H, W), theta.to(vol.device),
+                             patch_size, mode=mode, padding_mode="zeros")
+    patch = patch.reshape(1, C, *patch_size).movedim(1, -1)
+    return patch + vmin if pad_with_min else patch
 
 
 def _padded_block(v, start, size, fill):

@@ -34,12 +34,14 @@ counts its launches on every route; `conv3x3.wgmma_launches`,
 "wgmma", "wgmma_tf32x3" and "c1" routes (`route_launches` gives them all,
 "cuda_core" included).
 
-The backward, for TTA: `conv3x3_wgrad` is the weight gradient, with three
-routes (`conv3x3_wgrad_route`: "c1", `csrc/conv3x3_c1.cu`; "wgmma",
-`csrc/conv3x3_wgrad_wgmma.cu`, for bf16; "cuda_core",
-`csrc/conv3x3_wgrad.cu`, for f32 and the other channel counts; plain
-version `conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches`,
-`.wgmma_launches` and `.c1_launches`).  The input gradient needs no
+The backward, for TTA: `conv3x3_wgrad` is the weight gradient, with the
+same four routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
+`csrc/conv3x3_c1.cu`; "wgmma", `csrc/conv3x3_wgrad_wgmma.cu`, for bf16;
+"wgmma_tf32x3", `csrc/conv3x3_wgrad_tf32x3.cu`, for f32, 3xTF32 with dy
+split and transposed by a pre-pass; "cuda_core", `csrc/conv3x3_wgrad.cu`,
+for the other channel counts; plain version `conv3x3_wgrad_reference`;
+counts `conv3x3_wgrad.launches`, `.wgmma_launches`, `.tf32x3_launches`
+and `.c1_launches`).  The input gradient needs no
 kernel of its own: it is the same zero-padded conv of dy with the weights
 flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
 `conv3x3` again.  `Conv3x3Function` ties the three together as a
@@ -57,6 +59,8 @@ SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3.cu"
 WGRAD_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad.cu"
 WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgmma.cu"
 WGRAD_WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_wgmma.cu"
+WGRAD_TF32X3_SOURCE = \
+    "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_tf32x3.cu"
 C1_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_c1.cu"
 REPLACES = "dg_tta_tpu/ops/conv2d_pallas.py:99"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,11 +83,11 @@ def conv3x3_route(C: int, CO: int, dtype) -> str:
 
 
 def conv3x3_wgrad_route(C: int, CO: int, dtype) -> str:
-    """The kernel that runs `conv3x3_wgrad`: "c1" or "wgmma" as
-    `conv3x3_route` says; f32 otherwise stays on "cuda_core" (its weight
-    gradient has no tensor-core route yet)."""
-    route = conv3x3_route(C, CO, dtype)
-    return "cuda_core" if route == "wgmma_tf32x3" else route
+    """The kernel that runs `conv3x3_wgrad`: the route `conv3x3_route`
+    picks for the same shapes ("wgmma_tf32x3" is then
+    `csrc/conv3x3_wgrad_tf32x3.cu`, which also steps 8 channels along M and
+    needs 16-byte rows)."""
+    return conv3x3_route(C, CO, dtype)
 
 
 # the launch counter of each route but "cuda_core", per wrapper
@@ -293,6 +297,10 @@ _WG_TARGET_BLOCKS = 8 * 132
 # block per kz; aim for 4 blocks per SM (one resident at a time)
 _WGW_TILE_H, _WGW_TILE_W, _WGW_TCI = 4, 16, 64
 _WGW_TARGET_BLOCKS = 4 * 132
+# conv3x3_wgrad_tf32x3 tiles (csrc/conv3x3_wgrad_tf32x3.cu): 4 x 16 positions
+# per stage, 32 input and 32 output channels per block, one block per kz;
+# one block per SM is resident (672 threads)
+_WGT_TCI, _WGT_TCO = 32, 32
 # conv3x3_c1 tiles (csrc/conv3x3_c1.cu): 16 x 32 positions, 32 output
 # channels per block; the weight gradient aims for 8 blocks per SM
 _C1_TILE_H, _C1_TILE_W, _C1_TCO = 16, 32, 32
@@ -354,6 +362,16 @@ def wgrad_wgmma_splits(x_shape, co: int, kz: int = 3) -> int:
     return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
 
 
+def wgrad_tf32x3_splits(x_shape, co: int, kz: int = 3) -> int:
+    """How many blocks share the sum over positions of one output tile on
+    the "wgmma_tf32x3" route: enough for `_WGW_TARGET_BLOCKS`, at least 16
+    position tiles each."""
+    N, H, W, C = x_shape
+    tiles = N * (-(-H // _WGW_TILE_H)) * (-(-W // _WGW_TILE_W))
+    base = kz * (-(-C // _WGT_TCI)) * (-(-co // _WGT_TCO))
+    return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
+
+
 def wgrad_c1_splits(x_shape, co: int) -> int:
     """How many blocks share the sum over positions on the "c1" route: one
     position tile each at most, `_WG_TARGET_BLOCKS` in all."""
@@ -380,6 +398,8 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
     N, H, W, C = x.shape
     CO = dy.shape[-1]
     route = _pick_route(route, conv3x3_wgrad_route(C, CO, x.dtype))
+    if route == "wgmma_tf32x3":
+        return _wgrad_tf32x3(x, dy, depth, kz)
     if route == "wgmma":
         _check_aligned(route, x=x, dy=dy)
         splits = wgrad_wgmma_splits(x.shape, CO, kz)
@@ -416,8 +436,38 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
     return dw
 
 
+def _wgrad_tf32x3(x, dy, depth, kz):
+    """`conv3x3_wgrad` on the "wgmma_tf32x3" route: the pre-pass writes dy
+    transposed and split (hi, lo) into `dyt`, then the 3xTF32 kernel and
+    the fixed-order sum of the splits run."""
+    _check_aligned("wgmma_tf32x3", x=x, dy=dy)
+    N, H, W, C = x.shape
+    CO = dy.shape[-1]
+    splits = wgrad_tf32x3_splits(x.shape, CO, kz)
+    fn = build.function("conv3x3_wgrad_tf32x3", "dgtta_conv3x3_wgrad_tf32x3",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                        + [ctypes.c_void_p])
+    dyt = torch.empty(2 * N * H * CO * (-(-W // 4) * 4), dtype=torch.float32,
+                      device=x.device)
+    dw = torch.empty((kz, 3, 3, C, CO), dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dy.data_ptr(), dyt.data_ptr(), dw.data_ptr(),
+                 0 if scratch is None else scratch.data_ptr(), N, depth, H,
+                 W, C, CO, kz, splits,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad wgmma_tf32x3 kernel launch failed "
+                           f"with CUDA error {err} for x {tuple(x.shape)}, "
+                           f"dy {tuple(dy.shape)}, depth {depth}, kz {kz}")
+    _count(conv3x3_wgrad, "wgmma_tf32x3")
+    return dw
+
+
 conv3x3_wgrad.launches = 0
-conv3x3_wgrad.wgmma_launches = conv3x3_wgrad.c1_launches = 0
+conv3x3_wgrad.wgmma_launches = conv3x3_wgrad.tf32x3_launches = 0
+conv3x3_wgrad.c1_launches = 0
 
 
 class Conv3x3Function(torch.autograd.Function):

@@ -3,8 +3,9 @@
 //
 // The backward of dg_tta_tpu/ops/conv2d_pallas.py::conv3x3_pallas, which the
 // TPU package left to XLA's conv transpose, for bf16 x and dy with
-// C % 16 == 0 and CO % 8 == 0; conv3x3_wgrad.cu keeps f32 and the other
-// channel counts.  The same function as conv3x3_wgrad.cu:
+// C % 16 == 0 and CO % 8 == 0; conv3x3_wgrad_tf32x3.cu takes f32,
+// conv3x3_c1.cu C = 1 and conv3x3_wgrad.cu the other channel counts.  The
+// same function as conv3x3_wgrad.cu:
 //
 //   dW[kz,ky,kx,ci,co] = sum_{n,h,w} x[n+kz-KZ/2, h+ky-1, w+kx-1, ci]
 //                                    * dy[n,h,w,co]

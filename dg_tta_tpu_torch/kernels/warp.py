@@ -9,10 +9,18 @@ normalized coordinates gives (B, C, Do*Ho*Wo).  Trilinear or nearest
 (half to even), zeros or border padding, both `align_corners`, any source
 and output shapes.  f32 or bf16 in, f32 sums, output in the input's type.
 
-The CUDA source (`csrc/warp.cu`) says what bounds it on an H100 and what
-its design does about that.  `warp_flat` launches the kernel for CUDA
-tensors, or raises; it runs `warp_flat_reference` only for tensors on the
-CPU.  `warp_flat.launches` counts the kernel's launches.
+Two entries into the kernel (`csrc/warp.cu`, which says what bounds it on
+an H100 and what its design does about that):
+* `warp_flat` samples at a grid, an (x, y, z) tuple of coordinate arrays;
+* `warp_affine_flat` samples at the grid `core/grid.affine_grid(theta,
+  out_spatial)` would make, built in the kernel from theta's 12 numbers per
+  batch entry (no grid in memory, bit for bit the same points), with an
+  optional per-batch factor on the output; every warp of adaptation takes
+  it.
+Each launches the kernel for CUDA tensors, or raises; it runs its plain
+version (`warp_flat_reference`, `warp_affine_reference`) only for tensors
+on the CPU.  `warp_flat.launches` and `warp_affine_flat.launches` count
+the kernel's launches through each.
 """
 
 import ctypes
@@ -156,6 +164,118 @@ def warp_flat(flat, src_spatial, grid, mode: str = "trilinear",
 warp_flat.launches = 0
 
 
+def _check_affine(flat, src_spatial, theta, out_spatial, mode, padding_mode,
+                  align_corners, scale):
+    """Raises on a call `warp_affine_flat` does not take; returns the source
+    and output shapes as int triples.  Lean: it runs at every launch."""
+    if mode not in MODES or padding_mode not in PADDINGS:
+        raise ValueError(f"mode must be one of {MODES} and padding_mode one "
+                         f"of {PADDINGS}, got {mode!r}, {padding_mode!r}")
+    if align_corners:
+        raise ValueError("warp_affine_flat builds align_corners=False grids "
+                         "only; use affine_grid and warp_flat")
+    D, H, W = src_spatial
+    Do, Ho, Wo = out_spatial
+    fs, ts = flat.shape, theta.shape
+    if len(fs) != 3 or fs[2] != D * H * W or flat.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flat must be a float32 or bfloat16 (B, C, N) "
+                         f"volume of {(D, H, W)}, got {tuple(fs)} "
+                         f"{flat.dtype}")
+    if len(ts) != 3 or ts[0] not in (1, fs[0]) or ts[1] != 3 or ts[2] != 4 \
+            or theta.dtype != torch.float32:
+        raise ValueError(f"theta must be float32 ({fs[0]} or 1, 3, 4), got "
+                         f"{tuple(ts)} {theta.dtype}")
+    if scale is not None and (scale.dim() != 1
+                              or scale.shape[0] not in (1, fs[0])
+                              or scale.dtype != torch.float32):
+        raise ValueError(f"scale must be float32 ({fs[0]} or 1,), got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    return (int(D), int(H), int(W)), (int(Do), int(Ho), int(Wo))
+
+
+def warp_affine_reference(flat, src_spatial, theta, out_spatial,
+                          mode: str = "trilinear",
+                          padding_mode: str = "zeros",
+                          align_corners: bool = False, scale=None):
+    """Plain PyTorch version of `warp_affine_flat`: `core/grid.affine_grid`
+    then `warp_flat_reference`, times `scale` in flat's type."""
+    from dg_tta_tpu_torch.core.grid import affine_grid
+
+    src_spatial, out_spatial = _check_affine(
+        flat, src_spatial, theta, out_spatial, mode, padding_mode,
+        align_corners, scale)
+    grid = affine_grid(theta, out_spatial, align_corners=False)
+    out = warp_flat_reference(flat, src_spatial, grid, mode, padding_mode,
+                              align_corners=False)
+    if scale is not None:
+        out = out * scale.reshape(-1, 1, 1).to(out.dtype)
+    return out
+
+
+_AFFINE_FN = []  # the C entry, resolved at the first launch
+
+
+def warp_affine_flat(flat, src_spatial, theta, out_spatial,
+                     mode: str = "trilinear", padding_mode: str = "zeros",
+                     align_corners: bool = False, scale=None):
+    """`flat` (B, C, D*H*W) resampled at the points of
+    `affine_grid(theta, out_spatial)`: theta is a float32 (B or 1, 3, 4)
+    tensor on flat's device (no host sync), `align_corners` must be False
+    (every caller's), and `scale`, if given, a float32 (B or 1,) factor
+    applied as `out * scale.to(flat.dtype)`.  Returns (B, C, Do*Ho*Wo) in
+    flat's type, equal to `warp_flat(flat, src_spatial, affine_grid(theta,
+    out_spatial), ...) * scale`.  CPU tensors take the plain version; CUDA
+    tensors the kernel, with one shape check and no tensor made but the
+    output."""
+    src_spatial, out_spatial = _check_affine(
+        flat, src_spatial, theta, out_spatial, mode, padding_mode,
+        align_corners, scale)
+    dev = flat.device
+    if dev.type == "cpu" and theta.device == dev \
+            and (scale is None or scale.device == dev):
+        return warp_affine_reference(flat, src_spatial, theta, out_spatial,
+                                     mode, padding_mode, False, scale)
+    if dev.type != "cuda" or theta.device != dev \
+            or (scale is not None and scale.device != dev):
+        raise ValueError(f"flat, theta and scale must lie on one CUDA device "
+                         f"or all on the CPU, got {dev}, {theta.device} and "
+                         f"{None if scale is None else scale.device}")
+    if not (flat.is_contiguous() and theta.is_contiguous()
+            and (scale is None or scale.is_contiguous())):
+        raise ValueError("warp_affine_flat needs contiguous flat, theta and "
+                         "scale")
+    if not _AFFINE_FN:
+        _AFFINE_FN.append(build.function(
+            "warp", "dgtta_warp_affine",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 11
+            + [ctypes.c_void_p]))
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"warp_affine_flat launches on the current CUDA "
+                         f"device, {torch.cuda.current_device()}, got "
+                         f"tensors on {dev}")
+    B, C, _ = flat.shape
+    (D, H, W), (Do, Ho, Wo) = src_spatial, out_spatial
+    out = torch.empty((B, C, Do * Ho * Wo), dtype=flat.dtype, device=dev)
+    err = _AFFINE_FN[0](
+        flat.data_ptr(), theta.data_ptr(), 12 if theta.shape[0] > 1 else 0,
+        0 if scale is None else scale.data_ptr(),
+        1 if scale is not None and scale.shape[0] > 1 else 0, out.data_ptr(),
+        B, C, D, H, W, Do, Ho, Wo, int(mode == "nearest"),
+        int(padding_mode == "border"), _DTYPE_CODES[flat.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp affine kernel launch failed with CUDA "
+                           f"error {err} for flat {tuple(flat.shape)} "
+                           f"{flat.dtype}, source {src_spatial}, output "
+                           f"{out_spatial}")
+    warp_affine_flat.launches += 1
+    return out
+
+
+warp_affine_flat.launches = 0
+
+
 def warp_source_voxels(src_spatial, grid, batch: int = 1,
                        mode: str = "trilinear", padding_mode: str = "zeros",
                        align_corners: bool = False) -> int:
@@ -191,13 +311,15 @@ def warp_source_voxels(src_spatial, grid, batch: int = 1,
     return int(need.sum())
 
 
-def warp_bytes(flat_shape, n_source: int, n_out: int,
-               element_size: int) -> int:
+def warp_bytes(flat_shape, n_source: int, n_out: int, element_size: int,
+               grid_bytes: int) -> int:
     """Bytes one call must move: the `n_source` source voxels it needs
-    (`warp_source_voxels`) read once per channel, three f32 coordinates per
-    output voxel, the output written once."""
+    (`warp_source_voxels`) read once per channel, the output written once,
+    and `grid_bytes` of sample points: three f32 coordinates per output
+    voxel for `warp_flat` (12 * B * n_out), theta's 48 bytes per batch
+    entry for `warp_affine_flat`."""
     B, C, _ = flat_shape
-    return (C * n_source + B * C * n_out) * element_size + 3 * 4 * B * n_out
+    return (C * n_source + B * C * n_out) * element_size + grid_bytes
 
 
 def warp_flops(flat_shape, n_out: int, mode: str = "trilinear") -> int:

@@ -11,8 +11,9 @@ default plan through the CLI.
    warm up, then once under `torch.profiler`: prints the wall time per
    step, the device time summed per kernel name (top 15), the device's
    idle share (one minus the summed device time over the wall time; one
-   stream, so device intervals do not overlap), the launches of the port's
-   kernels and the peak device memory.
+   stream, so device intervals do not overlap), the device kernels per
+   step (every kernel the profiler saw, library ones included), the
+   launches of the port's kernels and the peak device memory.
 2. CLI (unless --no-cli): `prepare_tta` and `run_tta` of the default
    TEMPLATE_PLAN (12 epochs x 16 patches x 3 members) on the synthetic
    workspace of `obs/synthetic.py`, with no member files, in `--dtype`
@@ -39,17 +40,18 @@ STEPS = 4
 
 def _counters():
     from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
-    from dg_tta_tpu_torch.kernels.warp import warp_flat
+    from dg_tta_tpu_torch.kernels.warp import warp_affine_flat, warp_flat
 
     return {"conv3x3": conv3x3, "conv3x3_wgrad": conv3x3_wgrad,
-            "warp": warp_flat}
+            "warp": warp_flat, "warp_affine": warp_affine_flat}
 
 
 def _route_counts():
     """{kernel: {route: launches}} of the port's kernels so far."""
     from dg_tta_tpu_torch.kernels.conv3x3 import route_launches
 
-    return {k: (route_launches(c) if k != "warp" else {"cuda": c.launches})
+    return {k: (route_launches(c) if k.startswith("conv3x3")
+                else {"cuda": c.launches})
             for k, c in _counters().items()}
 
 
@@ -104,8 +106,9 @@ def profile_steps(dtype, trace=None):
           f"branches) + AdamW; loss {float(loss):.5f}")
     print(f"profile: wall {wall * 1e3:.1f} ms = {wall * 1e3 / STEPS:.1f} "
           f"ms/step (profiled), device busy {busy:.1f} ms, idle share "
-          f"{1 - busy / (wall * 1e3):.3f}, peak device memory {peak:.2f} "
-          f"GiB, launches {launches}")
+          f"{1 - busy / (wall * 1e3):.3f}, device kernels per step "
+          f"{sum(counts.values()) / STEPS:.1f}, peak device memory "
+          f"{peak:.2f} GiB, launches {launches}")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"{ms:10.1f} ms {100 * ms / busy:5.1f}% x{counts[name]:<6d} "
               f"{name[:110]}")

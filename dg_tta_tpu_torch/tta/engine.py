@@ -8,7 +8,9 @@ through ONE network forward (2B batch), unwarp each branch's logits back
 to the patch frame (zeros padding) and take 1 - mean foreground soft Dice
 between them.  `patches_to_be_accumulated` steps sum their gradients; the
 mean gradient takes one AdamW step over the released parameters.  Every
-warp is the hand-written warp kernel (`core/grid.grid_sample_flat`), every
+warp is the hand-written warp kernel's affine entry
+(`kernels/warp.warp_affine_flat`: the points built from theta in the
+kernel, no grid in memory), every
 stride-1 conv of the forward and backward the conv kernels
 (`kernels/conv3x3.py`).
 
@@ -40,10 +42,10 @@ import numpy as np
 import torch
 
 from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
-from dg_tta_tpu_torch.core.grid import affine_grid, grid_sample_flat
 from dg_tta_tpu_torch.core.labels import map_label_argmaxed
 from dg_tta_tpu_torch.core.losses import consistency_loss_flat, dice_coeff
 from dg_tta_tpu_torch.core.patches import extract_batch
+from dg_tta_tpu_torch.kernels.warp import warp_affine_flat
 from dg_tta_tpu_torch.models.network import Model
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 
@@ -74,35 +76,38 @@ def check_supported(model: Model, plan: TTAPlan):
 
 
 class _WarpWithInverse(torch.autograd.Function):
-    """`grid_sample_flat` by `grid` whose backward resamples the incoming
-    gradient by `grid_inv` (zeros padding) times `inv_det`.
+    """The warp of `x` by the affine `theta` (`warp_affine_flat`) whose
+    backward resamples the incoming gradient by `theta_inv` (zeros
+    padding) times `inv_det`.
 
     The true adjoint of a resample is a scatter-add.  The TTA branch warps
     come with their exact inverse map, and the continuous adjoint of
     x -> x o theta is y -> |det theta|^-1 y o theta^-1, so the backward is
-    the same forward kernel on the other grid; its discretization error is
-    O(h^2) for the near-identity warps of TTA.  Plain autograd through an
-    exact resample would not match the JAX package, which uses this form.
+    the same forward kernel on the other affine, with the factor applied
+    in its store; its discretization error is O(h^2) for the
+    near-identity warps of TTA.  Plain autograd through an exact resample
+    would not match the JAX package, which uses this form (with the two
+    affines' grids).
     """
 
     @staticmethod
-    def forward(ctx, x, grid, grid_inv, inv_det, spatial, padding_mode):
+    def forward(ctx, x, theta, theta_inv, inv_det, spatial, padding_mode):
         ctx.spatial = spatial
-        ctx.save_for_backward(*grid_inv, inv_det)
-        return grid_sample_flat(x, spatial, grid, padding_mode=padding_mode,
-                                align_corners=False)
+        ctx.save_for_backward(theta_inv, inv_det)
+        return warp_affine_flat(x, spatial, theta, spatial,
+                                padding_mode=padding_mode)
 
     @staticmethod
     def backward(ctx, g):
-        gx, gy, gz, inv_det = ctx.saved_tensors
-        dx = grid_sample_flat(g.contiguous(), ctx.spatial, (gx, gy, gz),
-                              padding_mode="zeros", align_corners=False)
-        dx = dx * inv_det.reshape(-1, 1, 1).to(dx.dtype)
+        theta_inv, inv_det = ctx.saved_tensors
+        dx = warp_affine_flat(g.contiguous(), ctx.spatial, theta_inv,
+                              ctx.spatial, padding_mode="zeros",
+                              scale=inv_det)
         return dx, None, None, None, None, None
 
 
-def _warp_with_inverse(x, grid, grid_inv, inv_det, spatial, padding_mode):
-    return _WarpWithInverse.apply(x, tuple(grid), tuple(grid_inv), inv_det,
+def _warp_with_inverse(x, theta, theta_inv, inv_det, spatial, padding_mode):
+    return _WarpWithInverse.apply(x, theta, theta_inv, inv_det,
                                   tuple(spatial), padding_mode)
 
 
@@ -166,29 +171,27 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
 
     def branch_aug(noise, imgs, branch_id):
         """One branch's input augmentation: the warped input and the
-        (grid, grid_inv, adjoint scale) that undo it, or None."""
+        (theta, theta_inv, adjoint scale) that undo it, or None."""
         if not _in_branch(plan.do_spatial_aug_in, branch_id):
             return imgs, None
         Bi, Cin = imgs.shape[0], imgs.shape[-1]
         theta, theta_inv = get_rand_affine(
             torch.tensor(noise, dtype=torch.float32, device=imgs.device))
-        grid = affine_grid(theta, patch_size, align_corners=False)
-        grid_inv = affine_grid(theta_inv, patch_size, align_corners=False)
         # adjoint scale of the inverse warp: 1 / |det theta_inv| = |det R|
         adj_scale = affine_abs_det(theta)
         xf = imgs.movedim(-1, 1).reshape(Bi, Cin, -1).contiguous()
-        xf = grid_sample_flat(xf, patch_size, grid, padding_mode="border",
-                              align_corners=False)
+        xf = warp_affine_flat(xf, patch_size, theta, patch_size,
+                              padding_mode="border")
         x = xf.reshape(Bi, Cin, *patch_size).movedim(1, -1)
-        return x, (grid, grid_inv, adj_scale)
+        return x, (theta, theta_inv, adj_scale)
 
     def branch_unwarp_flat(logits_flat, warp_ctx):
         """Undo a branch's warp on channels-first flat (B, C, N) logits; the
-        backward resamples by the forward grid (`_WarpWithInverse`)."""
+        backward resamples by the forward affine (`_WarpWithInverse`)."""
         if warp_ctx is None:
             return logits_flat
-        grid, grid_inv, adj_scale = warp_ctx
-        return _warp_with_inverse(logits_flat, grid_inv, grid, adj_scale,
+        theta, theta_inv, adj_scale = warp_ctx
+        return _warp_with_inverse(logits_flat, theta_inv, theta, adj_scale,
                                   patch_size, "zeros")
 
     def both_branches(net, draws, imgs):

@@ -156,10 +156,11 @@ def test_flops_count_skips_z_taps_past_the_volume():
     (1, 7, torch.float32, "c1", "c1"),
     (24, 32, torch.bfloat16, "cuda_core", "cuda_core"),  # C % 16 != 0
     (32, 12, torch.bfloat16, "cuda_core", "cuda_core"),  # CO % 8 != 0
-    # f32 on the tensor cores as 3xTF32; its weight gradient stays
-    (32, 32, torch.float32, "wgmma_tf32x3", "cuda_core"),
-    (24, 40, torch.float32, "wgmma_tf32x3", "cuda_core"),
-    (512, 256, torch.float32, "wgmma_tf32x3", "cuda_core"),
+    # f32 on the tensor cores as 3xTF32, its weight gradient too
+    (32, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
+    (24, 40, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
+    (512, 256, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
+    (8, 8, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
     (32, 12, torch.float32, "cuda_core", "cuda_core"),   # CO % 8 != 0
     # a 12-channel stem (MIND features): C % 8 != 0
     (12, 32, torch.float32, "cuda_core", "cuda_core"),
@@ -236,23 +237,51 @@ def test_3xtf32_products_meet_the_f32_tolerance(C):
     assert np.abs(tf32_alone - exact).max() > 5e-5 * scale
 
 
-def test_3xtf32_promotion_bounds_truncated_accumulation():
+def _longest_wgrad_tf32x3_k():
+    """The most positions one block of the f32 weight gradient sums at a
+    TS104 shape (a trained step's batch, N = 2 x depth planes)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_tf32x3_splits
+
+    longest = 0
+    for depth, H, W, C, CO, _ in _chip_smoke().TS104_CONV_SHAPES:
+        if C == 1:
+            continue
+        N = 2 * depth
+        tiles = N * (-(-H // 4)) * (-(-W // 16))
+        splits = wgrad_tf32x3_splits((N, H, W, C), CO)
+        longest = max(longest, -(-tiles // splits) * 64)
+    return longest
+
+
+@pytest.mark.parametrize("source,k_per_stage,tol", [
+    # the forward and input gradient: 32 channels per stage, K = 27 x 512
+    ("conv3x3_wgmma.cu", 32, 5e-5),
+    # the weight gradient: 64 positions per stage, K = the longest sum of
+    # one block (the splits' partial sums are then added with rounding)
+    ("conv3x3_wgrad_tf32x3.cu", 64, 1e-4),
+])
+def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
+                                                        tol):
     """The tensor cores add each step's products into the f32 accumulator
-    with truncation.  Over the longest K of the main path (27 x 512) that
-    drift is ~1e-4 of the output's range; the kernel therefore adds its
-    accumulator into a second, rounded f32 sum every `kPromote` stages of
-    32 channels (csrc/conv3x3_wgmma.cu).  A model of that: k8 steps of
-    three exact 8-term products, each step's sum truncated to f32, with
-    and without the promotion."""
+    with truncation.  Over the longest K of the main path that drift
+    reaches ~1e-4 of the output's range (forward, K = 27 x 512) or ~3e-4
+    (weight gradient, ~37k positions per block); each kernel therefore adds
+    its accumulator into a second, rounded f32 sum every `kPromote` stages
+    (csrc/conv3x3_wgmma.cu, csrc/conv3x3_wgrad_tf32x3.cu).  A model of
+    that: k8 steps of three exact 8-term products, each step's sum
+    truncated to f32, with and without the promotion; it must stay within
+    half the route's tolerance (chip_smoke KERNEL_RTOL, WGRAD_RTOL)."""
     import re
     from pathlib import Path
 
     src = (Path(__file__).resolve().parents[1] / "dg_tta_tpu_torch"
-           / "kernels" / "csrc" / "conv3x3_wgmma.cu").read_text()
+           / "kernels" / "csrc" / source).read_text()
     promote = int(re.search(r"constexpr int kPromote = (\d+);", src)[1])
-    steps_per_promotion = promote * 32 // 8
+    steps_per_promotion = promote * k_per_stage // 8
     rng = np.random.default_rng(9)
-    M, K = 96, 27 * 512
+    M = 96
+    K = 27 * 512 if k_per_stage == 32 else _longest_wgrad_tf32x3_k()
+    assert K >= 8 * steps_per_promotion
     a = rng.normal(size=(M, K)).astype(np.float32).astype(np.float64)
     b = (rng.normal(size=K) * (2.0 / K) ** 0.5).astype(np.float32) \
         .astype(np.float64)
@@ -281,7 +310,7 @@ def test_3xtf32_promotion_bounds_truncated_accumulation():
         tot = tot + acc.astype(np.float32)
         return np.abs(tot - exact).max() / np.abs(exact).max()
 
-    assert run(steps_per_promotion) <= 5e-5 / 2
+    assert run(steps_per_promotion) <= tol / 2
     assert run(0) > run(steps_per_promotion)
 
 
@@ -364,14 +393,15 @@ def test_expected_launches_route_split(dtype):
     16 -> 16): 5 forward launches, 4 input gradients (not the first), 5
     weight gradients.  The C = 1 conv takes the "c1" route (forward and
     weight gradient) in both types; the other four take "wgmma" in bf16,
-    "wgmma_tf32x3" in f32 (forward and input gradient; their f32 weight
-    gradient stays on "cuda_core").  Plan: 2 epochs x 4 patches, the
+    "wgmma_tf32x3" in f32 (forward, input and weight gradient).  Plan: 2 epochs x 4 patches, the
     second epoch trained: 8 patch forwards + 2 evals = 10 forwards, 4
     trained steps; 3 windows; 2 members.
       conv3x3 = 2 x (10 x 5 + 4 x 4) + 3 x 2 x 5 = 162, of it
         c1 = 2 x 10 + 3 x 2 = 26, the wgmma route of the type 136
-      conv3x3_wgrad = 2 x 4 x 5 = 40, of it c1 8, the rest 32
-      warp = 2 x (8 x 4 + 4 x 2 + 2) = 84
+      conv3x3_wgrad = 2 x 4 x 5 = 40, of it c1 8, the wgmma route of
+        the type 32, none on "cuda_core"
+      warp_affine = 2 x (8 x 4 + 4 x 2 + 2) = 84 (every warp is by an
+        affine), warp (the grid entry) = 0
     """
     from dg_tta_tpu_torch.models.plans import ArchSpec
 
@@ -389,4 +419,5 @@ def test_expected_launches_route_split(dtype):
         conv3x3_wgmma_tf32x3=0 if bf16 else 136, conv3x3_cuda_core=0,
         conv3x3_wgrad=40, conv3x3_wgrad_c1=8,
         conv3x3_wgrad_wgmma=32 if bf16 else 0,
-        conv3x3_wgrad_cuda_core=0 if bf16 else 32, warp=84)
+        conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
+        conv3x3_wgrad_cuda_core=0, warp=0, warp_affine=84)

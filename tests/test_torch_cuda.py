@@ -16,7 +16,8 @@ Tolerances, max |kernel - plain| over max |plain|:
   position, split across blocks, in another order than cuDNN's);
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
   kernel), 2^-7 in bf16 (one rounding of an f32 sum); nearest is exact
-  (both round the same f32 coordinates half to even).
+  (both round the same f32 coordinates half to even); the affine entry
+  equals the grid entry on the card's `affine_grid` exactly.
 The card-vs-CPU runs of the conv's autograd Function and of a small
 `tta_one_volume` state theirs in place.
 """
@@ -30,7 +31,9 @@ from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_op,
                                               conv3x3_route, conv3x3_wgrad,
                                               conv3x3_wgrad_reference,
                                               conv3x3_wgrad_route)
-from dg_tta_tpu_torch.kernels.warp import warp_flat, warp_flat_reference
+from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                           warp_affine_reference, warp_flat,
+                                           warp_flat_reference)
 
 RTOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
 WARP_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
@@ -236,21 +239,23 @@ def test_tta_one_volume_on_card_matches_cpu(cuda_device):
     runs = []
     for dev in ("cpu", cuda_device):
         counts = (conv3x3.launches, conv3x3_wgrad.launches,
-                  warp_flat.launches)
+                  warp_affine_flat.launches, warp_flat.launches)
         nets, losses, dices = tta_one_volume(
             model, plan, net.to(dev), torch.from_numpy(vol).to(dev),
             [[24.0, 28.0, 20.0]], idx, idx, TorchDraws(seed=5),
             labels_padded=torch.from_numpy(lab).to(dev))
         counts = (conv3x3.launches - counts[0],
                   conv3x3_wgrad.launches - counts[1],
-                  warp_flat.launches - counts[2])
+                  warp_affine_flat.launches - counts[2],
+                  warp_flat.launches - counts[3])
         runs.append((nets[0].cpu().state_dict(), losses, dices, counts))
     (ref_p, ref_l, ref_d, cpu_counts), (got_p, got_l, got_d, counts) = runs
-    assert cpu_counts == (0, 0, 0)
+    assert cpu_counts == (0, 0, 0, 0)
     # 2 stride-1 convs per forward; 6 steps forward, 4 of them trained
     # (dgrad of the second conv only), 3 evals; 4 warps per step, 2
-    # adjoints per trained step, 1 label warp per eval
-    assert counts == (6 * 2 + 4 * 1 + 3 * 2, 4 * 2, 6 * 4 + 4 * 2 + 3)
+    # adjoints per trained step, 1 label warp per eval, all through the
+    # warp's affine entry
+    assert counts == (6 * 2 + 4 * 1 + 3 * 2, 4 * 2, 6 * 4 + 4 * 2 + 3, 0)
     np.testing.assert_allclose(got_l, ref_l, rtol=1e-3)
     np.testing.assert_allclose(got_d, ref_d, atol=2e-2)
     decay = (1.0 - plan.lr * 0.01) ** (plan.epochs - plan.start_tta_at_epoch)
@@ -501,3 +506,108 @@ def test_wgrad_c1_matches_plain(cuda_device, dtype, case):
     assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, 1, CO)
     ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
     assert _max_rel_err(got, ref) <= 1e-4
+
+
+# The weight gradient's "wgmma_tf32x3" route (f32, C % 8 == 0, CO % 8 == 0):
+# the TF32X3_CASES shapes (ragged planes, C = 8 / 24 / 48 below one 32-channel
+# halo row, the 7 x 8 level, C = 512, CO = 320, one z-tap) and a longer sum
+# over many splits, each past the accumulator's promotion.
+WGRAD_TF32X3_CASES = dict(TF32X3_CASES,
+                          long_sum_c32=(16, 8, 56, 64, 32, 32, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGRAD_TF32X3_CASES))
+def test_wgrad_tf32x3_matches_plain(cuda_device, case):
+    """f32 weight gradient on the tensor cores at f32's 1e-4."""
+    N, D, H, W, C, CO, kz = WGRAD_TF32X3_CASES[case]
+    assert conv3x3_wgrad_route(C, CO, torch.float32) == "wgmma_tf32x3"
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    x, dy = x.to(cuda_device), dy.to(cuda_device)
+    before = (conv3x3_wgrad.launches, conv3x3_wgrad.tf32x3_launches)
+    got = conv3x3_wgrad(x, dy, depth=D, kz=kz)
+    torch.cuda.synchronize()
+    assert (conv3x3_wgrad.launches, conv3x3_wgrad.tf32x3_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, C, CO)
+    ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
+    assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wgrad_tf32x3_rejects_misaligned_tensors(cuda_device):
+    shape = (4, 6, 8, 16)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=torch.float32, device=cuda_device)
+    x = buf[1:n + 1].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    dy = torch.zeros((4, 6, 8, 32), device=cuda_device)
+    before = conv3x3_wgrad.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_wgrad(x, dy, depth=2)
+    buf2 = torch.zeros(2 * n + 8, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_wgrad(dy[..., :16].contiguous(),
+                      buf2[1:2 * n + 1].view(4, 6, 8, 32), depth=2)
+    assert conv3x3_wgrad.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,padding_mode", [
+    ("trilinear", "zeros"), ("trilinear", "border"), ("nearest", "zeros"),
+    ("nearest", "border")])
+@pytest.mark.parametrize("C,src,out,scaled", [
+    (1, (19, 13, 37), (19, 13, 37), False),   # ragged W: no vector stores
+    (4, (12, 16, 24), (12, 16, 24), True),    # the adjoint's scale
+    (3, (9, 14, 11), (6, 17, 20), False),     # not endomorphic
+])
+def test_warp_affine_matches_grid_entry_and_plain(cuda_device, dtype, mode,
+                                                 padding_mode, C, src, out,
+                                                 scaled):
+    """The affine entry equals the grid entry on the card's `affine_grid`
+    bit for bit (times the scale in flat's type), and its plain version
+    within WARP_RTOL."""
+    from dg_tta_tpu_torch.core.grid import affine_grid
+
+    rng = np.random.default_rng(12)
+    B = 2
+    dt = getattr(torch, dtype)
+    flat = torch.from_numpy(rng.normal(size=(B, C, int(np.prod(src))))
+                            .astype(np.float32)).to(cuda_device, dt)
+    theta = torch.from_numpy((np.eye(3, 4)[None] + 0.1 * rng.normal(
+        size=(B, 3, 4))).astype(np.float32)).to(cuda_device)
+    scale = (torch.from_numpy((1.0 + 0.1 * rng.normal(size=B))
+                              .astype(np.float32)).to(cuda_device)
+             if scaled else None)
+    kw = dict(mode=mode, padding_mode=padding_mode)
+    before = (warp_affine_flat.launches, warp_flat.launches)
+    got = warp_affine_flat(flat, src, theta, out, scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert (warp_affine_flat.launches, warp_flat.launches) == \
+        (before[0] + 1, before[1])
+    assert got.dtype == dt and got.shape == (B, C, int(np.prod(out)))
+    same = warp_flat(flat, src, affine_grid(theta, out), **kw)
+    if scaled:
+        same = same * scale.reshape(-1, 1, 1).to(dt)
+    assert (got.float() - same.float()).abs().max().item() == 0.0
+    ref = warp_affine_reference(flat, src, theta, out, scale=scale, **kw)
+    if mode == "nearest":
+        assert torch.equal(got, ref)
+    else:
+        assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_warp_affine_broadcasts_one_theta(cuda_device):
+    rng = np.random.default_rng(13)
+    flat = torch.from_numpy(rng.normal(size=(3, 2, 8 * 12 * 16))
+                            .astype(np.float32)).to(cuda_device)
+    theta = torch.from_numpy((np.eye(3, 4)[None] + 0.1 * rng.normal(
+        size=(1, 3, 4))).astype(np.float32)).to(cuda_device)
+    got = warp_affine_flat(flat, (8, 12, 16), theta, (8, 12, 16))
+    ref = warp_affine_flat(flat, (8, 12, 16), theta.expand(3, 3, 4)
+                           .contiguous(), (8, 12, 16))
+    assert torch.equal(got, ref)

@@ -31,7 +31,8 @@ from dg_tta_tpu.ops.experimental.warp_pallas_staged import \
 from dg_tta_tpu.tta.engine import _warp_with_inverse as jax_wwi
 from dg_tta_tpu_torch.core import grid as tgrid
 from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
-from dg_tta_tpu_torch.kernels.warp import (warp_flat, warp_flat_reference,
+from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
+                                           warp_flat_reference,
                                            warp_source_voxels)
 from dg_tta_tpu_torch.tta.engine import _warp_with_inverse
 
@@ -161,10 +162,71 @@ def test_grid_sample_flat_matches_pallas_interpret(padding_mode):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=2e-5)
 
 
+# The warp's four call sites in adaptation, as (C, source, output, mode,
+# padding, scaled, batch): the border warp of the C = 1 input, the zeros
+# unwarp of the logits, its adjoint (times 1 / |det|), and the nearest
+# label sampling of a larger volume onto the patch (one volume).
+AFFINE_SITES = {
+    "border_input_c1": (1, (6, 8, 10), (6, 8, 10), "trilinear", "border",
+                        False, 2),
+    "zeros_unwarp_c3": (3, (6, 8, 10), (6, 8, 10), "trilinear", "zeros",
+                        False, 2),
+    "adjoint_scaled_c3": (3, (6, 8, 10), (6, 8, 10), "trilinear", "zeros",
+                          True, 2),
+    "nearest_labels": (1, (13, 17, 22), (6, 8, 9), "nearest", "zeros",
+                       False, 1),
+}
+
+
+@pytest.mark.parametrize("site", sorted(AFFINE_SITES))
+def test_warp_affine_flat_matches_jax_and_warp_flat(rng, site):
+    """`warp_affine_flat` against the JAX `grid_sample_flat` on the JAX
+    `affine_grid(theta)` (times the scale) at 1e-5, and exactly equal to
+    `warp_flat` on the port's `affine_grid(theta)`."""
+    C, src, out, mode, pad, scaled, B = AFFINE_SITES[site]
+    theta = _theta(rng, B)
+    flat = rng.standard_normal((B, C, int(np.prod(src)))).astype(np.float32)
+    if mode == "nearest":
+        flat = np.round(flat * 3)
+    scale = (1.0 + 0.1 * rng.standard_normal(B)).astype(np.float32)
+    ref = np.asarray(jgrid.grid_sample_flat(
+        jnp.asarray(flat), src, jgrid.affine_grid(jnp.asarray(theta), out),
+        mode=mode, padding_mode=pad))
+    if scaled:
+        ref = ref * scale[:, None, None]
+    before = (warp_affine_flat.launches, warp_flat.launches)
+    got = warp_affine_flat(torch.from_numpy(flat), src,
+                           torch.from_numpy(theta), out, mode=mode,
+                           padding_mode=pad,
+                           scale=torch.from_numpy(scale) if scaled else None)
+    assert (warp_affine_flat.launches, warp_flat.launches) == before
+    assert got.shape == (B, C, int(np.prod(out)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    same = warp_flat(torch.from_numpy(flat), src, tgrid.affine_grid(
+        torch.from_numpy(theta), out), mode=mode, padding_mode=pad)
+    if scaled:
+        same = same * torch.from_numpy(scale).reshape(-1, 1, 1)
+    assert torch.equal(got, same)
+
+
+def test_warp_affine_flat_rejects_what_it_does_not_build(rng):
+    flat = torch.zeros((2, 1, 6 * 8 * 10))
+    theta = torch.from_numpy(_theta(rng, 2))
+    with pytest.raises(ValueError, match="align_corners"):
+        warp_affine_flat(flat, (6, 8, 10), theta, (6, 8, 10),
+                         align_corners=True)
+    with pytest.raises(ValueError, match="theta"):
+        warp_affine_flat(flat, (6, 8, 10), theta[:, :2], (6, 8, 10))
+    with pytest.raises(ValueError, match="scale"):
+        warp_affine_flat(flat, (6, 8, 10), theta, (6, 8, 10),
+                         scale=torch.ones(3))
+
+
 def test_warp_adjoint_matches_jax_vjp(rng):
     """The unwarp of the TTA engine: forward by grid_inv, backward by grid
     times |det R(theta)| (engine.py:277-280, 336, 84-90 of the JAX
-    package)."""
+    package); the port takes the two affines and builds their grids in the
+    warp kernel's affine entry."""
     B, C, spatial = 2, 3, (6, 8, 10)
     N = int(np.prod(spatial))
     noise = rng.standard_normal((B, 3, 4)).astype(np.float32)
@@ -176,7 +238,7 @@ def test_warp_adjoint_matches_jax_vjp(rng):
     ct = rng.standard_normal((B, C, N)).astype(np.float32)
 
     xt = torch.from_numpy(x).requires_grad_(True)
-    out = _warp_with_inverse(xt, grid_inv, grid, adj, spatial, "zeros")
+    out = _warp_with_inverse(xt, theta_inv, theta, adj, spatial, "zeros")
     (out * torch.from_numpy(ct)).sum().backward()
 
     def j(a):
