@@ -27,12 +27,17 @@ Phases; any failure raises and the script exits non-zero:
      "wgmma_tf32x3" for f32); the shapes of the "c1" and "wgmma_tf32x3"
      routes also run on the CUDA-core kernel they took before
      (`route="cuda_core"`, marked "forced"), so both are timed in one call;
+     and the stem conv of a MIND model (12 -> 32 channels, zero-padded to
+     16 on the wgmma routes) at its window forward and its step forward,
+     also forced onto the CUDA-core kernel, its bound counting the true
+     C = 12 work;
    * `conv3x3_wgrad` at the same shapes with the batch of a TTA step (two
      patches: both branches), f32 and bf16 (library: cuDNN's weight
      gradient, `torch.nn.grad.conv3d_weight`), with its route ("c1",
      "wgmma" for bf16, "wgmma_tf32x3" for f32), the C = 1 and f32 shapes
      also forced onto the CUDA-core kernel, and the f32 routes' per-step
-     totals on the same shapes side by side;
+     totals on the same shapes side by side; the MIND stem's shape too,
+     likewise;
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
      its adjoint (112 x 112 x 128, times 1 / |det|), and the nearest label
@@ -51,25 +56,33 @@ Phases; any failure raises and the script exits non-zero:
    forward and backward (cuDNN, which the port runs with TF32 off), and
    `predict_volume`, the conv's autograd backward, one adaptation patch
    step's gradient and a short `tta_one_volume` (injected draws, 1 member,
-   3 epochs x 2 patches, two of them trained), each on the card against
-   the same code on the CPU (plain versions);
-5. main path, twice, each in a fresh workspace and under the default
-   flags: f32 (the default), then bf16 (`DGTTA_COMPUTE_DTYPE=bfloat16`):
+   3 epochs x 2 patches, two of them trained), `mind3d` on two
+   112 x 112 x 128 patches and `gin_aug` on one (injected noise and
+   draws; GIN's grouped conv in cuDNN, where TF32 is on by default), and
+   the full-width TS104_GIN_MIND net's forward and one step's gradient on
+   a small patch, each on the card against the same code on the CPU
+   (plain versions);
+5. main path, four times, each in a fresh workspace and under the default
+   flags, f32 (the default), then bf16 (`DGTTA_COMPUTE_DTYPE=bfloat16`),
+   for each of two seeded full-width checkpoints (105 classes): TS104_GIN,
+   then TS104_GIN_MIND (12 input channels: MIND in every forward, with
+   noise; the plan also puts GIN in both branches):
    `prepare_tta` and `run_tta` through the port's CLI on a synthetic CT
-   volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows) and a seeded
-   full-width TS104_GIN checkpoint (105 classes), with no member files:
-   `run_tta` adapts three members (Phase 1), then predicts and evaluates.
-   The plan is the default cut in depth only: epochs=2,
+   volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows), with no member
+   files: `run_tta` adapts three members (Phase 1), then predicts and
+   evaluates.  The plan is the default cut in depth only: epochs=2,
    patches_to_be_accumulated=4, start_tta_at_epoch=1 (one warm-up and one
    trained epoch).  Checks the member files and the segmentation, that
    every kernel launched exactly as often as the plan says it must, on
-   each route (`expected_launches`), and that the CUDA-core `conv3x3` and
-   `conv3x3_wgrad` and the grid entry of the warp launched not at all.
+   each route and on padded channels (`expected_launches`), and that the
+   CUDA-core `conv3x3` and `conv3x3_wgrad` and the grid entry of the warp
+   launched not at all.
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
-shapes they ran before the "c1" and "wgmma_tf32x3" routes took them) and,
-last, one JSON line naming the device.
+shapes they ran before the "c1" and "wgmma_tf32x3" routes took them; the
+MIND stem's rows with the forced CUDA-core times beside them) and, last,
+one JSON line naming the device.
 """
 
 import contextlib
@@ -130,6 +143,14 @@ N_OPT = 4          # background + the 3 labels of the synthetic target
 # The main path's plan, cut in depth only (module docstring).
 SMOKE_PLAN = dict(epochs=2, patches_to_be_accumulated=4,
                   start_tta_at_epoch=1)
+# MIND and GIN on the card vs the CPU, max |diff| / max |CPU|: channel and
+# batch means summed in another order, then exp (MIND); four grouped convs
+# in cuDNN, with TF32 off, a blend and a renormalization (GIN; TF32 would
+# miss by ~1e-3).
+MIND_RTOL = GIN_RTOL = 1e-5
+# The stem conv of a MIND model, 12 descriptor channels -> 32: (depth, H, W,
+# C, CO) at the TS104 patch; the wgmma routes run it zero-padded to 16.
+STEM_SHAPE = (112, 112, 128, 12, 32)
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3"]
@@ -248,6 +269,14 @@ def _conv_cases():
     return cases
 
 
+def _stem_cases():
+    """The MIND stem's conv3x3 shapes, as `_conv_cases`: its window
+    forward and its trained step's forward (no input gradient: MIND's
+    output needs none)."""
+    return [("stem window forward", 1, *STEM_SHAPE, 1, False),
+            ("stem step forward", 2, *STEM_SHAPE, 1, False)]
+
+
 def _ops_ms(ops, name, route):
     peak = PEAK_TF32 / 3 if route == "wgmma_tf32x3" else PEAK_OPS[name]
     return ops / peak * 1e3
@@ -257,7 +286,9 @@ def phase_kernels():
     """conv3x3 at every shape of the main path, on the route it takes
     there; where that is "c1" or "wgmma_tf32x3", also on the CUDA-core
     kernel that ran the shape before (`route="cuda_core"`), so that both
-    are timed in one call."""
+    are timed in one call.  The MIND stem's shapes (C = 12, zero-padded
+    onto the wgmma routes) likewise, in totals of their own
+    ("<type>/stem12/<route>")."""
     import torch
     import torch.nn.functional as F
 
@@ -271,7 +302,9 @@ def phase_kernels():
         name = str(dt).split(".")[-1]
         tot = _new_totals()
         per_use = {}
-        for use, vols, depth, H, W, C, CO, mult, dgrad in _conv_cases():
+        for use, vols, depth, H, W, C, CO, mult, dgrad in \
+                _conv_cases() + _stem_cases():
+            stem = use.startswith("stem")
             N = vols * depth
             x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
             if dgrad:
@@ -296,8 +329,8 @@ def phase_kernels():
                 * x.element_size()
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             main = conv3x3_route(C, CO, dt)
-            routes = [main] + (["cuda_core"] if main in ("c1", "wgmma_tf32x3")
-                               else [])
+            routes = [main] + (["cuda_core"] if stem or main in (
+                "c1", "wgmma_tf32x3") else [])
             for route in routes:
                 got = conv3x3(x, w, depth=depth, route=route)
                 torch.cuda.synchronize()
@@ -320,8 +353,10 @@ def phase_kernels():
                     f"bound_ms={max(ops_ms, bytes_ms):.4f} "
                     f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
                     f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
-                at = [totals.setdefault(f"{name}/{route}", _new_totals())]
-                if route == main:
+                at = [totals.setdefault(
+                    f"{name}/{'stem12/' if stem else ''}{route}",
+                    _new_totals())]
+                if route == main and not stem:
                     at += [tot, per_use.setdefault(use, _new_totals())]
                 for t in at:
                     _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
@@ -345,7 +380,8 @@ def phase_wgrad():
     one TTA step: both branches of one patch, N = 2 x depth planes; the
     C = 1 conv on the "c1" route and the f32 shapes on "wgmma_tf32x3",
     each also, for comparison, on the CUDA-core kernel that ran it
-    before."""
+    before.  The MIND stem's shape (C = 12, zero-padded onto the wgmma
+    routes) too, on both, in totals of its own."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_flops,
@@ -359,7 +395,9 @@ def phase_wgrad():
         name = str(dt).split(".")[-1]
         tot = _new_totals()
         side = {}  # f32: both routes' per-step totals on the tf32x3 shapes
-        for depth, H, W, C, CO, mult in TS104_CONV_SHAPES:
+        for depth, H, W, C, CO, mult, stem in \
+                [(*sh, False) for sh in TS104_CONV_SHAPES] \
+                + [(*STEM_SHAPE, 1, True)]:
             N = 2 * depth
             x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
             dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
@@ -377,7 +415,7 @@ def phase_wgrad():
                 + 27 * C * CO * 4
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             main = conv3x3_wgrad_route(C, CO, dt)
-            for route in [main] + (["cuda_core"] if main in (
+            for route in [main] + (["cuda_core"] if stem or main in (
                     "c1", "wgmma_tf32x3") else []):
                 ops_ms = _ops_ms(ops, name, route)
                 got = conv3x3_wgrad(x, dy, depth=depth, route=route)
@@ -392,17 +430,20 @@ def phase_wgrad():
                                                      route=route))
                 log(f"conv3x3_wgrad {name} N={N} depth={depth} {H}x{W} "
                     f"{C}->{CO} route={route}"
-                    f"{'' if route == main else ' (forced)'}: "
+                    f"{'' if route == main else ' (forced)'}"
+                    f"{' MIND stem' if stem else ''}: "
                     f"max_abs_err={err:.3e} (tol {WGRAD_RTOL * scale:.3e}) "
                     f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"library_ms={l_ms:.4f} "
                     f"bound_ms={max(ops_ms, bytes_ms):.4f} "
                     f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
                     f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
-                if main == "wgmma_tf32x3":
+                if main == "wgmma_tf32x3" and not stem:
                     side[route] = side.get(route, 0.0) + mult * k_ms
-                at = [totals.setdefault(f"{name}/{route}", _new_totals())]
-                if route == main:
+                at = [totals.setdefault(
+                    f"{name}/{'stem12/' if stem else ''}{route}",
+                    _new_totals())]
+                if route == main and not stem:
                     at.append(tot)
                 for t in at:
                     _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
@@ -745,6 +786,87 @@ def phase_reference():
         log(f"reference: conv3x3_op backward {what} {tuple(ref_t.shape)} "
             f"max_abs_err={err_t:.3e} (tol {REF_RTOL * scale_t:.3e})")
     reference_adaptation()
+    reference_mind_gin()
+
+
+def _card_vs_cpu(what, got, ref, rtol):
+    import torch
+
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not (got.shape == ref.shape and torch.isfinite(got).all()
+            and err <= rtol * scale):
+        raise AssertionError(f"{what} card vs CPU under default flags: err "
+                             f"{err} scale {scale} (rtol {rtol})")
+    log(f"reference: {what} {tuple(ref.shape)} under default flags "
+        f"max_abs_err={err:.3e} (tol {rtol * scale:.3e})")
+
+
+def reference_mind_gin():
+    """MIND on a 2-patch batch and GIN on one patch (112 x 112 x 128, with
+    injected noise and draws), then the full-width TS104_GIN_MIND net's
+    forward and one step's gradient on a small patch, card against CPU
+    under PyTorch's default flags: GIN's grouped conv runs in cuDNN, where
+    TF32 is on by default, and must not use it."""
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
+    from dg_tta_tpu_torch.ops.gin import draw_gin, gin_aug
+    from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS, mind3d
+
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.standard_normal((2, *PATCH, 1))
+                           .astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal(
+        (2, *PATCH, MIND_OUT_CHANNELS)).astype(np.float32))
+    _card_vs_cpu("mind3d", mind3d(img.cuda(), noise=noise.cuda()).cpu(),
+                 mind3d(img, noise=noise), MIND_RTOL)
+    draws = draw_gin(torch.Generator().manual_seed(5), 1, 1)
+    _card_vs_cpu("gin_aug", gin_aug(img[:1].cuda(), draws).cpu(),
+                 gin_aug(img[:1], draws), GIN_RTOL)
+    # their times at the main path's shapes: MIND of a trained step's 2B
+    # patches and of one window, GIN of one branch's patch
+    img_c, noise_c = img.cuda(), noise.cuda()
+    log(f"reference: on the card, mind3d 2 x {PATCH} "
+        f"{time_ms(lambda: mind3d(img_c, noise=noise_c)):.3f} ms, 1 x "
+        f"{PATCH} {time_ms(lambda: mind3d(img_c[:1], noise=noise_c[:1])):.3f}"
+        f" ms; gin_aug 1 x {PATCH} "
+        f"{time_ms(lambda: gin_aug(img_c[:1], draws)):.3f} ms (CUDA events, "
+        f"10 calls after 2)")
+
+    model = ts104_model(patch_size=(32, 48, 64),
+                        trainer="nnUNetTrainer_GIN_MIND")
+    x = torch.from_numpy(rng.standard_normal((1, 32, 48, 64, 1))
+                         .astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal(
+        (1, 32, 48, 64, MIND_OUT_CHANNELS)).astype(np.float32))
+    outs, grads = [], []
+    ct = None
+    for dev in ("cpu", "cuda"):
+        net = seeded_net(model, 13, dev)
+        y = model.apply(net, x.to(dev), mind_noise=noise.to(dev))
+        if ct is None:
+            ct = torch.from_numpy(rng.standard_normal(tuple(y.shape))
+                                  .astype(np.float32))
+        (y * ct.to(dev)).sum().backward()
+        outs.append(y.detach().cpu())
+        grads.append({k: p.grad.cpu() for k, p in net.named_parameters()
+                      if p.grad is not None})
+    _card_vs_cpu("TS104_GIN_MIND U-Net f32 forward", outs[1], outs[0],
+                 REF_RTOL)
+    if sorted(grads[0]) != sorted(grads[1]):
+        raise AssertionError("TS104_GIN_MIND gradient: card and CPU differ "
+                             "in which parameters get a gradient")
+    names = sorted(grads[0])
+    flat = [torch.cat([g[k].flatten() for k in names]) for g in grads]
+    g_rel = ((flat[1] - flat[0]).norm() / flat[0].norm()).item()
+    if not (torch.isfinite(flat[1]).all() and g_rel <= GRAD_RTOL):
+        raise AssertionError(f"TS104_GIN_MIND f32 gradient card vs CPU: "
+                             f"{g_rel} of its norm (tol {GRAD_RTOL})")
+    log(f"reference: TS104_GIN_MIND U-Net f32 gradient of one step under "
+        f"default flags, {len(names)} parameters: error {g_rel:.3e} of its "
+        f"norm (tol {GRAD_RTOL:.0e})")
 
 
 def reference_adaptation():
@@ -884,13 +1006,15 @@ def expected_launches(spec, windows, members, plan, dtype="float32"):
     `windows` sliding windows with labels (one eval per epoch), in compute
     type `dtype`: the totals of `conv3x3` and `conv3x3_wgrad`, their
     launches on each route (`conv3x3_<route>`, `conv3x3_wgrad_<route>`, as
-    `conv3x3_route` and `conv3x3_wgrad_route` pick them), and those of the
-    warp's affine entry (`warp_affine`: every warp of adaptation) and grid
-    entry (`warp`: none)."""
+    `conv3x3_route` and `conv3x3_wgrad_route` pick them) and on
+    zero-padded channels (`conv3x3_padded`, `conv3x3_wgrad_padded`: a MIND
+    model's stem), and those of the warp's affine entry (`warp_affine`:
+    every warp of adaptation) and grid entry (`warp`: none)."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
-                                                  conv3x3_wgrad_route)
+                                                  conv3x3_wgrad_route,
+                                                  route_channels)
 
     dt = getattr(torch, dtype)
     acc, epochs = plan["patches_to_be_accumulated"], plan["epochs"]
@@ -898,13 +1022,20 @@ def expected_launches(spec, windows, members, plan, dtype="float32"):
     forwards = acc * epochs + epochs   # patch steps and one eval per epoch
     out = {f"conv3x3_{r}": 0 for r in CONV_ROUTES}
     out.update({f"conv3x3_wgrad_{r}": 0 for r in WGRAD_ROUTES})
+    out["conv3x3_padded"] = out["conv3x3_wgrad_padded"] = 0
+
+    def add(kernel, route, c, n):
+        out[f"{kernel}_{route}"] += n
+        if route_channels(c, route) != c:
+            out[f"{kernel}_padded"] += n
+
     for c, co, dgrad in _stride1_convs(spec):
-        out[f"conv3x3_{conv3x3_route(c, co, dt)}"] += \
-            members * (forwards + windows)
+        add("conv3x3", conv3x3_route(c, co, dt), c,
+            members * (forwards + windows))
         if dgrad:
-            out[f"conv3x3_{conv3x3_route(co, c, dt)}"] += members * trained
-        out[f"conv3x3_wgrad_{conv3x3_wgrad_route(c, co, dt)}"] += \
-            members * trained
+            add("conv3x3", conv3x3_route(co, c, dt), co, members * trained)
+        add("conv3x3_wgrad", conv3x3_wgrad_route(c, co, dt), c,
+            members * trained)
     out["conv3x3"] = sum(out[f"conv3x3_{r}"] for r in CONV_ROUTES)
     out["conv3x3_wgrad"] = sum(out[f"conv3x3_wgrad_{r}"]
                                for r in WGRAD_ROUTES)
@@ -922,6 +1053,8 @@ def _read_counts():
 
     out = {"conv3x3": conv3x3.launches,
            "conv3x3_wgrad": conv3x3_wgrad.launches,
+           "conv3x3_padded": conv3x3.padded_launches,
+           "conv3x3_wgrad_padded": conv3x3_wgrad.padded_launches,
            "warp": warp_flat.launches,
            "warp_affine": warp_affine_flat.launches}
     for fn, prefix in ((conv3x3, "conv3x3"), (conv3x3_wgrad, "conv3x3_wgrad")):
@@ -939,9 +1072,11 @@ def _zero_counts():
     warp_flat.launches = warp_affine_flat.launches = 0
 
 
-def phase_main_path(work: Path, dtype: str):
-    """`run_tta` through the CLI with `DGTTA_COMPUTE_DTYPE=dtype`; returns
-    the kernels' launch counts of that run."""
+def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
+                    **plan_changes):
+    """`run_tta` of a seeded `pretrained` checkpoint through the CLI with
+    `DGTTA_COMPUTE_DTYPE=dtype`, the smoke plan changed by `plan_changes`;
+    returns the kernels' launch counts of that run."""
     import numpy as np
     import torch
 
@@ -952,16 +1087,20 @@ def phase_main_path(work: Path, dtype: str):
     from dg_tta_tpu_torch.models.convert import load_flat_npz
     from dg_tta_tpu_torch.obs.profile_inference import ts104_model
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
-    from dg_tta_tpu_torch.tta.config import get_parameters_save_path
+    from dg_tta_tpu_torch.tta.config import (TS104_ALIASES,
+                                             get_parameters_save_path)
 
-    ws = make_workspace(work, seed=0, shape=VOLUME_SHAPE)
-    model = ts104_model()
-    cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
-    results_dir, plan = edit_plan(**SMOKE_PLAN)
+    trainer = TS104_ALIASES[pretrained]
+    ws = make_workspace(work, seed=0, shape=VOLUME_SHAPE, trainer=trainer)
+    model = ts104_model(trainer=trainer)
+    cli(["prepare_tta", pretrained, ws.dataset_id])
+    results_dir, plan = edit_plan(pretrained, **SMOKE_PLAN, **plan_changes)
     n_members = plan["ensemble_count"]
-    log(f"main path {dtype}: TS104_GIN {ws.n_params} parameters, "
-        f"{N_CLASSES} classes, volume {VOLUME_SHAPE}, {n_members} members "
-        f"adapted from scratch; plan cut in depth to {SMOKE_PLAN}")
+    tag = f"main path {pretrained} {dtype}"
+    log(f"{tag}: {ws.n_params} parameters, {N_CLASSES} classes, "
+        f"{model.spec.num_input_channels} input channels, volume "
+        f"{VOLUME_SHAPE}, {n_members} members adapted from scratch; plan "
+        f"cut in depth to {SMOKE_PLAN}, changed by {plan_changes}")
 
     windows = int(window_origins(padded_shape(VOLUME_SHAPE, model.patch_size),
                                  model.patch_size)[1].sum())
@@ -972,7 +1111,7 @@ def phase_main_path(work: Path, dtype: str):
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         t0 = time.perf_counter()
-        summaries = cli(["run_tta", "TS104_GIN", ws.dataset_id])
+        summaries = cli(["run_tta", pretrained, ws.dataset_id])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
@@ -1012,9 +1151,9 @@ def phase_main_path(work: Path, dtype: str):
         raise AssertionError(f"timings.json: {timings}")
     adapt_s = phases["adaptation"]["total_s"]
     infer_s = phases["inference"]["total_s"]
-    log(f"main path {dtype}: run_tta {wall:.2f} s wall; phases "
+    log(f"{tag}: run_tta {wall:.2f} s wall; phases "
         + ", ".join(f"{k}={v['total_s']:.2f}s" for k, v in phases.items()))
-    log(f"main path {dtype}: adaptation {adapt_s:.3f} s ({n_members} members"
+    log(f"{tag}: adaptation {adapt_s:.3f} s ({n_members} members"
         f" x {plan['epochs']} epochs x {plan['patches_to_be_accumulated']} "
         f"patches, {dtype}), inference {infer_s:.3f} s/volume = "
         f"{60.0 / infer_s:.2f} vol/min ({windows} windows x {n_members} "
@@ -1057,11 +1196,18 @@ def main():
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for dtype in ("float32", "bfloat16"):
-            runs[dtype] = phase_main_path(Path(tmp) / dtype, dtype)
+            runs["TS104_GIN", dtype] = phase_main_path(
+                Path(tmp) / f"gin_{dtype}", dtype)
+        # MIND in every forward, GIN in both branches of every step
+        for dtype in ("float32", "bfloat16"):
+            runs["TS104_GIN_MIND", dtype] = phase_main_path(
+                Path(tmp) / f"gin_mind_{dtype}", dtype, "TS104_GIN_MIND",
+                do_intensity_aug_in="both")
 
-    def both(key):
-        # launches over both main-path runs
-        return sum(r[key] for r in runs.values())
+    def both(key, dtype=None):
+        # launches over the main-path runs (of one type)
+        return sum(r[key] for (_, dt), r in runs.items()
+                   if dtype in (None, dt))
 
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
     w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
@@ -1090,21 +1236,36 @@ def main():
                  "device_ms", "host_us", "library_device_ms",
                  "library_affine_ms")}),
         _row("conv3x3_wgmma", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
-             runs["bfloat16"]["conv3x3_wgmma"], c["bfloat16/wgmma"]),
+             both("conv3x3_wgmma", "bfloat16"), c["bfloat16/wgmma"]),
         _row("conv3x3_wgrad_wgmma", conv3x3.WGRAD_WGMMA_SOURCE,
-             conv3x3.REPLACES, runs["bfloat16"]["conv3x3_wgrad_wgmma"],
+             conv3x3.REPLACES, both("conv3x3_wgrad_wgmma", "bfloat16"),
              wg["bfloat16/wgmma"]),
         _row("conv3x3_wgmma_tf32x3", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
-             runs["float32"]["conv3x3_wgmma_tf32x3"],
+             both("conv3x3_wgmma_tf32x3", "float32"),
              c["float32/wgmma_tf32x3"]),
         _row("conv3x3_wgrad_tf32x3", conv3x3.WGRAD_TF32X3_SOURCE,
-             conv3x3.REPLACES, runs["float32"]["conv3x3_wgrad_wgmma_tf32x3"],
+             conv3x3.REPLACES, both("conv3x3_wgrad_wgmma_tf32x3", "float32"),
              wg["float32/wgmma_tf32x3"]),
         _row("conv3x3_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_c1"), c["float32/c1"], c["bfloat16/c1"], "c1"),
         _row("conv3x3_wgrad_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_c1"), wg["float32/c1"], wg["bfloat16/c1"],
-             "c1")]
+             "c1"),
+        # the MIND stem (C = 12 zero-padded to 16) on the wgmma routes:
+        # f32 on "wgmma_tf32x3", bf16 on "wgmma"; launches on padded
+        # channels over the main-path runs; beside them the same shapes
+        # forced onto the CUDA-core kernels
+        _row("conv3x3_stem12", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
+             both("conv3x3_padded"), c["float32/stem12/wgmma_tf32x3"],
+             c["bfloat16/stem12/wgmma"], "wgmma",
+             cuda_core_ms=c["float32/stem12/cuda_core"]["ms"],
+             bf16_cuda_core_ms=c["bfloat16/stem12/cuda_core"]["ms"]),
+        _row("conv3x3_wgrad_stem12", conv3x3.WGRAD_TF32X3_SOURCE,
+             conv3x3.REPLACES, both("conv3x3_wgrad_padded"),
+             wg["float32/stem12/wgmma_tf32x3"], wg["bfloat16/stem12/wgmma"],
+             "wgmma", bf16_source=conv3x3.WGRAD_WGMMA_SOURCE,
+             cuda_core_ms=wg["float32/stem12/cuda_core"]["ms"],
+             bf16_cuda_core_ms=wg["bfloat16/stem12/cuda_core"]["ms"])]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

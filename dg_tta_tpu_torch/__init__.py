@@ -4,10 +4,12 @@ The JAX package `dg_tta_tpu` stays the reference.  This package imports
 `torch`, numpy and scipy and nothing of JAX or of `dg_tta_tpu`; what it needs
 from that package's host-only modules it keeps as its own copies.
 
-This slice covers `dgtta run_tta`'s inference path: model and checkpoint
-loading, preprocessing, Gaussian sliding-window ensemble inference, export
-and evaluation.  Adaptation (Phase 1), MIND and pretraining come in later
-slices and raise `NotImplementedError` here.
+It covers `dgtta prepare_tta` and `run_tta` for the six TS104 model
+families (GIN, MIND, GIN_MIND and their MultiRes variants): model and
+checkpoint loading, preprocessing, affine TTA (Phase 1, GIN in a branch
+included), Gaussian sliding-window ensemble inference, export and
+evaluation.  Deformable TTA and pretraining come in later slices and raise
+`NotImplementedError` here.
 
 Layout: every public function takes and returns channels-last tensors,
 `(B, D, H, W, C)` for batches and `(D, H, W, C)` for volumes, as the JAX

@@ -12,6 +12,12 @@ runs only the valid window origins: the padded, masked origins that
 grid has n windows costs n x E network forwards.  The members run one
 after another on each window batch; accumulators live on the volume's
 device, in bf16 for bf16 models, and are normalized in f32.
+
+A MIND model computes its descriptor of each window batch with noise on
+(as the reference does at inference): the draws of window w (its index in
+the grid) through member m come from a draw source
+(`tta/draws.TorchDraws.window_mind_noise`), and the descriptor's clip
+bound is a mean over the window batch, as in the JAX package.
 """
 
 import math
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from scipy.ndimage import gaussian_filter
 
 from dg_tta_tpu_torch.core.patches import bucket_shape_for
+from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
 
 
 def compute_gaussian(patch_size, sigma_scale: float = 1.0 / 8,
@@ -88,7 +95,7 @@ def padded_shape(volume_shape, patch_size, bucket_multiple: int = 32):
 def predict_volume(model, members: Sequence[torch.nn.Module],
                    vol: torch.Tensor, modify_input_fn=None,
                    modify_output_fn=None, bucket_multiple: int = 32,
-                   window_batch: int = 1) -> torch.Tensor:
+                   window_batch: int = 1, draws=None) -> torch.Tensor:
     """Ensemble-mean logits of a (D, H, W, C) volume, (D, H, W, C_out) f32
     on the volume's device.
 
@@ -99,11 +106,17 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
     as one batch.  The modifier functions take and return
     (B, D, H, W, C) and run on every window, as the reference's model
     hooks do.  No epsilon in the normalization: every voxel is covered by
-    a window whose floored Gaussian weight is > 0.
+    a window whose floored Gaussian weight is > 0.  `draws`: the source
+    of a MIND model's noise (`window_mind_noise`); required for one.
+    With `window_batch=1` a source that gives JAX's per-window keys
+    reproduces the JAX `predict_volume(..., window_batch=1)`.
     """
     members = list(members)
     if not members:
         raise ValueError("predict_volume needs at least one member")
+    if model.needs_mind_noise and draws is None:
+        raise ValueError("a MIND model's inference needs a draw source for "
+                         "its noise (draws=)")
     wb = int(window_batch)
     if wb < 1:
         raise ValueError(f"window_batch must be >= 1, got {window_batch}")
@@ -127,14 +140,21 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
     wacc = torch.zeros((*volp.shape[:3], 1), dtype=dtype, device=vol.device)
     pd, ph, pw = patch
 
+    noise_shape = (1, *patch, MIND_OUT_CHANNELS)
     for g0 in range(0, len(origins), wb):
         group = origins[g0:g0 + wb]
         patches = torch.stack([volp[z:z + pd, y:y + ph, x:x + pw]
                                for z, y, x in group])
         total = None
-        for net in members:
+        for m, net in enumerate(members):
             x = patches if modify_input_fn is None else modify_input_fn(patches)
-            logits = model.apply(net, x)
+            noise = None
+            if model.needs_mind_noise:
+                noise = torch.cat([
+                    draws.window_mind_noise(g0 + i, m, noise_shape,
+                                            vol.device)
+                    for i in range(len(group))])
+            logits = model.apply(net, x, mind_noise=noise)
             if modify_output_fn is not None:
                 logits = modify_output_fn(logits)
             total = logits.float() if total is None else total + logits.float()

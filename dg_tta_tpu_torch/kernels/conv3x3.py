@@ -15,15 +15,19 @@ Four routes, each a CUDA source with its own C entry, chosen by
 a launch error raises, and a misaligned tensor raises before the launch):
 * "c1" (`csrc/conv3x3_c1.cu`): C == 1, f32 and bf16, the first conv on
   the 1-channel image; a kernel bound by the bytes of its output;
-* "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C % 16 == 0 and
-  CO % 8 == 0, an implicit GEMM on the tensor cores fed by TMA;
+* "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C > 1 and CO % 8 == 0,
+  an implicit GEMM on the tensor cores fed by TMA;
 * "wgmma_tf32x3" (the same source, its f32 instantiation): f32 with
-  C % 8 == 0 and CO % 8 == 0, each product at f32 accuracy from three
-  tf32 products (3xTF32); the weights are split once per call into a
-  tf32 part and its remainder (`tf32_split`);
-* "cuda_core" (`csrc/conv3x3.cu`): the other channel counts; f32 FMAs on
-  the CUDA cores.
-Every TS104 conv and input gradient takes "c1" (the first conv) or a
+  C > 1 and CO % 8 == 0, each product at f32 accuracy from three tf32
+  products (3xTF32); the weights are split once per call into a tf32
+  part and its remainder (`tf32_split`);
+* "cuda_core" (`csrc/conv3x3.cu`): CO % 8 != 0; f32 FMAs on the CUDA
+  cores.
+The wgmma routes step 16 (bf16) or 8 (f32) input channels at a time: a
+C that is not a multiple of the step (the MIND stem's 12) runs on x and w
+zero-padded to the next multiple (`route_channels`, `pad_channels`), and
+the weight gradient drops the padded channels' rows.  Every TS104 conv
+and input gradient takes "c1" (the first conv of a 1-channel model) or a
 wgmma route.  The sources say what bounds each on an H100 and what the
 design does about it.  f32 accumulation, output in the input's type.
 
@@ -32,7 +36,8 @@ design does about it.  f32 accumulation, output in the input's type.
 counts its launches on every route; `conv3x3.wgmma_launches`,
 `conv3x3.tf32x3_launches` and `conv3x3.c1_launches` those on the
 "wgmma", "wgmma_tf32x3" and "c1" routes (`route_launches` gives them all,
-"cuda_core" included).
+"cuda_core" included), and `conv3x3.padded_launches` those that ran on
+zero-padded channels.
 
 The backward, for TTA: `conv3x3_wgrad` is the weight gradient, with the
 same four routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
@@ -40,8 +45,8 @@ same four routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
 "wgmma_tf32x3", `csrc/conv3x3_wgrad_tf32x3.cu`, for f32, 3xTF32 with dy
 split and transposed by a pre-pass; "cuda_core", `csrc/conv3x3_wgrad.cu`,
 for the other channel counts; plain version `conv3x3_wgrad_reference`;
-counts `conv3x3_wgrad.launches`, `.wgmma_launches`, `.tf32x3_launches`
-and `.c1_launches`).  The input gradient needs no
+counts `conv3x3_wgrad.launches`, `.wgmma_launches`, `.tf32x3_launches`,
+`.c1_launches` and `.padded_launches`).  The input gradient needs no
 kernel of its own: it is the same zero-padded conv of dy with the weights
 flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
 `conv3x3` again.  `Conv3x3Function` ties the three together as a
@@ -68,16 +73,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def conv3x3_route(C: int, CO: int, dtype) -> str:
     """The kernel that runs `conv3x3` on CUDA tensors of C input and CO
-    output channels: "c1" for C == 1; "wgmma" for bf16 with C % 16 == 0
-    and CO % 8 == 0 (TMA needs 16-byte rows, bf16 wgmma steps of 16 along
-    K); "wgmma_tf32x3" for f32 with C % 8 == 0 and CO % 8 == 0 (tf32 steps
-    of 8); else "cuda_core"."""
+    output channels: "c1" for C == 1; for C > 1 with CO % 8 == 0 (TMA
+    needs 16-byte rows) the tensor-core route of the type, "wgmma" for bf16
+    and "wgmma_tf32x3" for f32, on x and w zero-padded to a multiple of
+    the route's K step (`route_channels`) where C is not one; else
+    "cuda_core"."""
     if C == 1:
         return "c1"
     if CO % 8 == 0:
-        if dtype == torch.bfloat16 and C % 16 == 0:
+        if dtype == torch.bfloat16:
             return "wgmma"
-        if dtype == torch.float32 and C % 8 == 0:
+        if dtype == torch.float32:
             return "wgmma_tf32x3"
     return "cuda_core"
 
@@ -88,6 +94,26 @@ def conv3x3_wgrad_route(C: int, CO: int, dtype) -> str:
     `csrc/conv3x3_wgrad_tf32x3.cu`, which also steps 8 channels along M and
     needs 16-byte rows)."""
     return conv3x3_route(C, CO, dtype)
+
+
+# input channels per K step of the tensor-core routes: 16 bf16 values (32
+# bytes) per wgmma step, 8 f32 values per tf32 step
+_K_STEP = {"wgmma": 16, "wgmma_tf32x3": 8}
+
+
+def route_channels(C: int, route: str) -> int:
+    """The input channels that `route` runs C on: C rounded up to the
+    route's K step on the tensor-core routes (the MIND stem's C = 12 runs
+    as 16 in either type), C elsewhere."""
+    step = _K_STEP.get(route, 1)
+    return -(-C // step) * step
+
+
+def pad_channels(t: torch.Tensor, C: int, dim: int = -1) -> torch.Tensor:
+    """`t` zero-padded at the end of axis `dim` (negative) to C channels;
+    the tensor itself when it has C already."""
+    extra = C - t.shape[dim]
+    return t if extra == 0 else F.pad(t, (0, 0) * (-dim - 1) + (0, extra))
 
 
 # the launch counter of each route but "cuda_core", per wrapper
@@ -113,7 +139,7 @@ def route_launches(fn) -> dict:
 
 def zero_launches(fn):
     """Sets every launch counter of `conv3x3` or `conv3x3_wgrad` to 0."""
-    fn.launches = 0
+    fn.launches = fn.padded_launches = 0
     for name in _COUNTERS.values():
         if hasattr(fn, name):
             setattr(fn, name, 0)
@@ -264,15 +290,20 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
     N, H, W, C = x.shape
     route = _pick_route(route, conv3x3_route(C, w5.shape[-1], x.dtype))
     if route in ("wgmma", "wgmma_tf32x3"):
+        # zero channels add nothing to the sum
+        x = pad_channels(x, route_channels(C, route))
+        w5 = pad_channels(w5, x.shape[-1], dim=-2)
         _check_aligned(route, x=x)
+    padded = x.shape[-1] != C
     y = torch.empty((N, H, W, w5.shape[-1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         _LAUNCH[route](x, w5, y, depth)
     _count(conv3x3, route)
+    conv3x3.padded_launches += padded
     return y
 
 
-conv3x3.launches = 0
+conv3x3.launches = conv3x3.padded_launches = 0
 conv3x3.wgmma_launches = conv3x3.tf32x3_launches = conv3x3.c1_launches = 0
 
 
@@ -398,6 +429,12 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
     N, H, W, C = x.shape
     CO = dy.shape[-1]
     route = _pick_route(route, conv3x3_wgrad_route(C, CO, x.dtype))
+    if route_channels(C, route) != C:
+        # the gradient of the zero channels is computed and dropped
+        dw = conv3x3_wgrad(pad_channels(x, route_channels(C, route)), dy,
+                           depth, kz, route)
+        conv3x3_wgrad.padded_launches += 1
+        return dw[..., :C, :].contiguous()
     if route == "wgmma_tf32x3":
         return _wgrad_tf32x3(x, dy, depth, kz)
     if route == "wgmma":
@@ -465,7 +502,7 @@ def _wgrad_tf32x3(x, dy, depth, kz):
     return dw
 
 
-conv3x3_wgrad.launches = 0
+conv3x3_wgrad.launches = conv3x3_wgrad.padded_launches = 0
 conv3x3_wgrad.wgmma_launches = conv3x3_wgrad.tf32x3_launches = 0
 conv3x3_wgrad.c1_launches = 0
 

@@ -3,9 +3,10 @@ family (the port of `dg_tta_tpu/models/network.py`).
 
 A trainer name declares whether GIN runs as an internal augmentation
 (pretraining only, off at TTA and inference) and whether the MIND
-descriptor is a permanent part of the model's input transform.  This slice
-runs the families without MIND at inference; MIND and GIN augmentation
-raise `NotImplementedError` until their slices land.
+descriptor is a permanent part of the model's input transform (at TTA and
+inference, with its edge-map noise on, as in the reference).  `apply`
+composes them in the JAX package's order: GIN, then MIND, then the U-Net.
+The random draws of both are arguments (`gin_draws`, `mind_noise`).
 """
 
 import dataclasses
@@ -20,9 +21,9 @@ from dg_tta_tpu_torch.models.plans import (
     patch_size_from_plans,
 )
 from dg_tta_tpu_torch.models.unet import PlainConvUNet, resolve_compute_dtype
+from dg_tta_tpu_torch.ops.gin import gin_aug
+from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS, mind3d
 from dg_tta_tpu_torch.utils.device import resolve_device
-
-MIND_OUT_CHANNELS = 12
 
 # trainer name -> (internal GIN at pretraining, MIND descriptor always)
 TRAINER_REGISTRY = {
@@ -46,6 +47,7 @@ class Model:
     trainer_name: str
     uses_gin_internal: bool
     uses_mind: bool
+    mind_noise_scale: float = 0.05  # the reference keeps it on at inference
     compute_dtype: Optional[str] = None  # None (float32) or "bfloat16"
 
     def __post_init__(self):
@@ -61,18 +63,30 @@ class Model:
             net.load_state_dict(state_dict, strict=True)
         return net.to(device).eval()
 
+    @property
+    def needs_mind_noise(self) -> bool:
+        """Whether `apply` takes MIND noise (the JAX package draws it
+        whenever the model has MIND and a nonzero noise scale)."""
+        return self.uses_mind and bool(self.mind_noise_scale)
+
     def apply(self, net: PlainConvUNet, x: torch.Tensor,
               deep_supervision: bool = False, internal_aug: bool = False,
-              head_channel_idx=None):
+              head_channel_idx=None, gin_draws=None, mind_noise=None):
         """Forward pass including the trainer's input transforms.
 
         x: (B, D, H, W, C_img) channels-last image.  internal_aug is True
-        only during DG pretraining (GIN active).
+        only during DG pretraining: GIN then runs with `gin_draws`
+        (`ops/gin.GinDraws`, required).  A MIND model computes the
+        descriptor of x in x's type, with `mind_noise` (standard normal,
+        (B, D, H, W, 12)) on its edge maps; None adds no noise.
         """
         if internal_aug and self.uses_gin_internal:
-            raise NotImplementedError("GIN is ported in a later slice")
+            if gin_draws is None:
+                raise ValueError("GIN internal augmentation needs gin_draws")
+            x = gin_aug(x, gin_draws)
         if self.uses_mind:
-            raise NotImplementedError("MIND is ported in a later slice")
+            x = mind3d(x, noise=mind_noise,
+                       noise_scale=self.mind_noise_scale)
         return net(x, deep_supervision=deep_supervision,
                    compute_dtype=self.compute_dtype,
                    head_channel_idx=head_channel_idx)

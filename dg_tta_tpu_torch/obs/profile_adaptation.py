@@ -2,11 +2,13 @@
 default plan through the CLI.
 
     python -m dg_tta_tpu_torch.obs.profile_adaptation
-        [--dtype float32|bfloat16] [--trace trace.json]
-        [--no-cli]
+        [--dtype float32|bfloat16] [--pretrained TS104_GIN|TS104_GIN_MIND|...]
+        [--trace trace.json] [--no-cli]
 
-1. Profile: the full-width TS104_GIN U-Net (105 classes, seeded random
-   weights) adapts on a 224 x 224 x 256 volume at patch 112 x 112 x 128.
+1. Profile: the full-width U-Net of `--pretrained` (TS104_GIN by default;
+   a MIND family computes its descriptor in every forward; 105 classes,
+   seeded random weights) adapts on a 224 x 224 x 256 volume at patch
+   112 x 112 x 128.
    One training epoch of `STEPS` accumulated patch steps runs once to
    warm up, then once under `torch.profiler`: prints the wall time per
    step, the device time summed per kernel name (top 15), the device's
@@ -55,7 +57,13 @@ def _route_counts():
             for k, c in _counters().items()}
 
 
-def profile_steps(dtype, trace=None):
+def _trainer(pretrained):
+    from dg_tta_tpu_torch.tta.config import TS104_ALIASES
+
+    return TS104_ALIASES[pretrained]
+
+
+def profile_steps(dtype, trace=None, pretrained="TS104_GIN"):
     from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
     from dg_tta_tpu_torch.obs.synthetic import synthetic_ct
     from dg_tta_tpu_torch.tta.draws import TorchDraws
@@ -67,7 +75,8 @@ def profile_steps(dtype, trace=None):
 
     device = torch.device("cuda")
     model = ts104_model(
-        compute_dtype=None if dtype == "float32" else dtype)
+        compute_dtype=None if dtype == "float32" else dtype,
+        trainer=_trainer(pretrained))
     plan = TTAPlan(patches_to_be_accumulated=STEPS)
     net = seeded_net(model, 0, device)
     opt = make_optimizer(plan, list(net.parameters()))
@@ -101,8 +110,8 @@ def profile_steps(dtype, trace=None):
             counts[evt.name] += 1
     busy = sum(per_name.values())
     launches = {k: c.launches - before[k] for k, c in counters.items()}
-    print(f"profile: device {torch.cuda.get_device_name(0)}; {dtype}; one "
-          f"epoch of {STEPS} patch steps (batch 2 x 112x112x128, both "
+    print(f"profile: device {torch.cuda.get_device_name(0)}; {pretrained}; "
+          f"{dtype}; one epoch of {STEPS} patch steps (batch 2 x 112x112x128, both "
           f"branches) + AdamW; loss {float(loss):.5f}")
     print(f"profile: wall {wall * 1e3:.1f} ms = {wall * 1e3 / STEPS:.1f} "
           f"ms/step (profiled), device busy {busy:.1f} ms, idle share "
@@ -116,14 +125,15 @@ def profile_steps(dtype, trace=None):
         prof.export_chrome_trace(trace)
 
 
-def run_default_plan(dtype="float32"):
+def run_default_plan(dtype="float32", pretrained="TS104_GIN"):
     from dg_tta_tpu_torch.cli.main import main as cli
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
 
     with tempfile.TemporaryDirectory(prefix="profile_adaptation_") as tmp:
-        ws = make_workspace(Path(tmp), seed=0, shape=VOLUME_SHAPE)
-        cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
-        results_dir, plan = edit_plan()
+        ws = make_workspace(Path(tmp), seed=0, shape=VOLUME_SHAPE,
+                            trainer=_trainer(pretrained))
+        cli(["prepare_tta", pretrained, ws.dataset_id])
+        results_dir, plan = edit_plan(pretrained)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = _route_counts()
@@ -131,7 +141,7 @@ def run_default_plan(dtype="float32"):
         os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
         try:
             t0 = time.perf_counter()
-            cli(["run_tta", "TS104_GIN", ws.dataset_id])
+            cli(["run_tta", pretrained, ws.dataset_id])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -149,7 +159,7 @@ def run_default_plan(dtype="float32"):
     phases = timings["phases"]
     adapt = phases["adaptation"]["total_s"]
     infer = phases["inference"]["total_s"]
-    print(f"cli: default plan ({plan['epochs']} epochs x "
+    print(f"cli: {pretrained} default plan ({plan['epochs']} epochs x "
           f"{plan['patches_to_be_accumulated']} patches x "
           f"{plan['ensemble_count']} members, {dtype}) on "
           f"{timings['device']}: "
@@ -163,18 +173,21 @@ def run_default_plan(dtype="float32"):
 
 
 def main(argv=None):
+    from dg_tta_tpu_torch.tta.config import TS104_ALIASES
     from dg_tta_tpu_torch.utils.device import resolve_device
 
     p = argparse.ArgumentParser()
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--pretrained", default="TS104_GIN",
+                   choices=sorted(TS104_ALIASES))
     p.add_argument("--trace", default=None)
     p.add_argument("--no-cli", action="store_true")
     args = p.parse_args(argv)
     resolve_device("cuda")
-    profile_steps(args.dtype, args.trace)
+    profile_steps(args.dtype, args.trace, args.pretrained)
     if not args.no_cli:
-        run_default_plan(args.dtype)
+        run_default_plan(args.dtype, args.pretrained)
 
 
 if __name__ == "__main__":

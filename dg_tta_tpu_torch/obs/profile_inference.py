@@ -27,8 +27,10 @@ N_CLASSES = 105
 MEMBERS = 3
 
 
-def ts104_model(patch_size=None, compute_dtype=None):
-    """The TS104_GIN model (105 classes), optionally with another patch."""
+def ts104_model(patch_size=None, compute_dtype=None,
+                trainer="nnUNetTrainer_GIN"):
+    """The TS104 model of `trainer` (TS104_GIN by default; 105 classes),
+    optionally with another patch."""
     from dg_tta_tpu_torch.models.network import build_model
     from dg_tta_tpu_torch.resources import TS104_3D_FULLRES
 
@@ -38,7 +40,7 @@ def ts104_model(patch_size=None, compute_dtype=None):
     plans = {"configurations": {"3d_fullres": cfg}}
     ds = {"labels": {f"c{i}": i for i in range(N_CLASSES)},
           "channel_names": {"0": "CT"}}
-    model = build_model(plans, ds, "nnUNetTrainer_GIN")
+    model = build_model(plans, ds, trainer)
     return dataclasses.replace(model, compute_dtype=compute_dtype)
 
 

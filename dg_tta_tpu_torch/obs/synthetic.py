@@ -1,9 +1,13 @@
 """A synthetic TS104 workspace for runs of the port on the GPU: a seeded
-full-width TS104_GIN checkpoint and one CT-like target volume with labels,
-laid out as `prepare_tta` / `run_tta` expect.
+full-width TS104 checkpoint (TS104_GIN by default; TS104_GIN_MIND and the
+other families by their trainer) and one CT-like target volume with
+labels, laid out as `prepare_tta` / `run_tta` expect.
 
     ws = make_workspace(Path(tmp), seed=0)
     cli(["prepare_tta", "TS104_GIN", ws.dataset_id])
+
+    ws = make_workspace(Path(tmp), trainer="nnUNetTrainer_GIN_MIND")
+    cli(["prepare_tta", "TS104_GIN_MIND", ws.dataset_id])
 
 `chip_smoke.py` and `obs/profile_adaptation.py` build their runs on it.
 """
@@ -54,12 +58,13 @@ class Workspace:
     dataset_id: str = DATASET_ID
 
 
-def make_workspace(work: Path, seed: int = 0,
-                   shape=VOLUME_SHAPE) -> Workspace:
+def make_workspace(work: Path, seed: int = 0, shape=VOLUME_SHAPE,
+                   trainer: str = "nnUNetTrainer_GIN") -> Workspace:
     """Write the workspace under `work` and point DG_TTA_ROOT, nnUNet_raw
-    and nnUNet_results at it.  The checkpoint holds the full-width TS104_GIN
-    U-Net (105 classes) with weights drawn from `seed`; the target dataset
-    one synthetic CT of `shape` with its labels."""
+    and nnUNet_results at it.  The checkpoint holds the full-width TS104
+    U-Net of `trainer` (105 classes; 12 input channels for a MIND family)
+    with weights drawn from `seed`, under that trainer's directory; the
+    target dataset one synthetic CT of `shape` with its labels."""
     from dg_tta_tpu_torch.data.io import write_image
     from dg_tta_tpu_torch.models.convert import save_flat_npz
     from dg_tta_tpu_torch.obs.profile_inference import (N_CLASSES,
@@ -77,12 +82,12 @@ def make_workspace(work: Path, seed: int = 0,
               "kidney_left": 3, "gallbladder": 4, "liver": 5}
     labels.update({f"class_{i:03d}": i for i in range(6, N_CLASSES)})
     trainer_dir = (root / "_pretrained_weights" /
-                   "nnUNetTrainer_GIN__nnUNetPlans__3d_fullres")
+                   f"{trainer}__nnUNetPlans__3d_fullres")
     (trainer_dir / "fold_0").mkdir(parents=True)
     with open(trainer_dir / "dataset.json", "w") as f:
         json.dump({"labels": labels, "channel_names": {"0": "CT"},
                    "file_ending": ".nii.gz"}, f)
-    net = seeded_net(ts104_model(), seed, "cpu")
+    net = seeded_net(ts104_model(trainer=trainer), seed, "cpu")
     checkpoint = trainer_dir / "fold_0" / "checkpoint_final.npz"
     save_flat_npz(net.state_dict(), checkpoint)
 
@@ -102,14 +107,15 @@ def make_workspace(work: Path, seed: int = 0,
                      n_params=sum(p.numel() for p in net.parameters()))
 
 
-def edit_plan(**changes):
-    """Change keys of the prepared TS104_GIN plan of the synthetic dataset
-    (after `prepare_tta`); returns the run results directory and the plan
-    as a dict."""
-    from dg_tta_tpu_torch.tta.config import get_tta_folders
+def edit_plan(pretrained_config="TS104_GIN", **changes):
+    """Change keys of the prepared plan of `pretrained_config` (a TS104
+    alias) for the synthetic dataset (after `prepare_tta`); returns the
+    run results directory and the plan as a dict."""
+    from dg_tta_tpu_torch.tta.config import TS104_ALIASES, get_tta_folders
 
     _, plan_dir, results_dir, _, _ = get_tta_folders(
-        "TS104_GIN", DATASET_ID, "nnUNetTrainer_GIN", "3d_fullres", "0")
+        pretrained_config, DATASET_ID, TS104_ALIASES[pretrained_config],
+        "3d_fullres", "0")
     path = plan_dir / "tta_plan.json"
     plan = json.loads(path.read_text())
     plan.update(changes)

@@ -294,7 +294,7 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
 
     # ---- Phase 2: inference --------------------------------------------
     prediction_paths = []
-    for sample in samples:
+    for smp_idx, sample in enumerate(samples):
         members = [model.build_network(load_flat_npz(p), device)
                    for p in _member_paths(plan, save_path, sample)]
         vol = torch.from_numpy(
@@ -304,10 +304,12 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
         with timer.phase("inference"):
             # the modifier hooks stay active at inference; the raw-logit
             # output hook applies here, label mapping after export
+            # a MIND model's inference noise, per (window, member)
             logits = predict_volume(
                 model, members, vol,
                 modify_input_fn=modify_input_fn,
-                modify_output_fn=modify_model_output_fn)
+                modify_output_fn=modify_model_output_fn,
+                draws=TorchDraws(seed=0, sample_index=smp_idx))
             logits = logits.cpu().numpy()
         with timer.phase("export"):
             seg = undo_preprocessing_logits(logits, sample.info)

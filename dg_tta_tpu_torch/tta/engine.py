@@ -2,12 +2,14 @@
 of the pretrained network by a two-branch consistency loss (the port of
 `dg_tta_tpu/tta/engine.py`, reference tta.py:157-374 and :480-579).
 
-One patch step: extract a batch of patches, augment each branch by a
-random affine warp of the input (border padding), run both branches
-through ONE network forward (2B batch), unwarp each branch's logits back
-to the patch frame (zeros padding) and take 1 - mean foreground soft Dice
-between them.  `patches_to_be_accumulated` steps sum their gradients; the
-mean gradient takes one AdamW step over the released parameters.  Every
+One patch step: extract a batch of patches, augment each branch (GIN where
+the plan puts it in the branch, then a random affine warp of the input,
+border padding), run both branches through ONE network forward (2B batch;
+a MIND model computes its descriptor of the 2B patches in that forward),
+unwarp each branch's logits back to the patch frame (zeros padding) and
+take 1 - mean foreground soft Dice between them.
+`patches_to_be_accumulated` steps sum their gradients; the mean gradient
+takes one AdamW step over the released parameters.  Every
 warp is the hand-written warp kernel's affine entry
 (`kernels/warp.warp_affine_flat`: the points built from theta in the
 kernel, no grid in memory), every
@@ -28,8 +30,8 @@ Reference quirks kept, as in the JAX package:
 * Epochs before `start_tta_at_epoch` compute the loss but do not update.
 
 Not in this slice; each raises `NotImplementedError` (`check_supported`):
-deformable spatial augmentation, GIN in a branch, MIND models,
-`patch_group > 1`, `remat` and the split engine (ROADMAP A.5, A.7, A.8).
+deformable spatial augmentation, `patch_group > 1`, `remat` and the split
+engine (ROADMAP A.5, A.8).
 The plan's `ensemble_chunk` schedules nothing: members run one after
 another.
 """
@@ -47,6 +49,8 @@ from dg_tta_tpu_torch.core.losses import consistency_loss_flat, dice_coeff
 from dg_tta_tpu_torch.core.patches import extract_batch
 from dg_tta_tpu_torch.kernels.warp import warp_affine_flat
 from dg_tta_tpu_torch.models.network import Model
+from dg_tta_tpu_torch.ops.gin import gin_aug
+from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 
 
@@ -62,11 +66,6 @@ def check_supported(model: Model, plan: TTAPlan):
     if plan.spatial_aug_type == "deformable" \
             and plan.do_spatial_aug_in != "none":
         later.append("deformable spatial augmentation (ROADMAP A.8)")
-    if plan.intensity_aug_function == "GIN" \
-            and plan.do_intensity_aug_in != "none":
-        later.append("GIN in a TTA branch (the MIND/GIN slice, ROADMAP A.7)")
-    if model.uses_mind:
-        later.append("MIND models (the MIND/GIN slice, ROADMAP A.7)")
     if plan.patch_group != 1 or plan.remat or plan.engine == "split":
         later.append("patch_group > 1, remat and the split engine "
                      "(ROADMAP A.5, left out)")
@@ -139,7 +138,7 @@ def make_optimizer(plan: TTAPlan, params) -> torch.optim.AdamW:
 class TTAFunctions:
     """The engine's functions for one (model, plan, label mapping)."""
 
-    branch_aug: Callable     # (noise, imgs, branch_id) -> (x, warp_ctx)
+    branch_aug: Callable     # (draws, imgs, branch_id) -> (x, warp_ctx)
     both_branches: Callable  # (net, draws, imgs) -> (la, lb) flat logits
     patch_loss: Callable     # (net, draws, imgs) -> loss
     draw_and_loss: Callable  # (net, draws, vols, shapes) -> loss
@@ -168,15 +167,30 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
     map_pre = [int(i) for i in np.asarray(map_idxs_pretrain).tolist()]
     n_opt = len(map_pre)
     grads_enabled = plan.have_grad_in in ("branch_a", "both")
+    gin_branches = tuple(
+        b for b in ("branch_a", "branch_b")
+        if plan.intensity_aug_function == "GIN"
+        and _in_branch(plan.do_intensity_aug_in, b))
+    mind_shape = (2 * B, *patch_size, MIND_OUT_CHANNELS)
 
-    def branch_aug(noise, imgs, branch_id):
-        """One branch's input augmentation: the warped input and the
-        (theta, theta_inv, adjoint scale) that undo it, or None."""
+    def patch_draws(draw_source, member, epoch, step, vols):
+        return draw_source.patch(member, epoch, step, vols.shape[0], B,
+                                 gin_branches=gin_branches,
+                                 channels=vols.shape[-1])
+
+    def branch_aug(draws, imgs, branch_id):
+        """One branch's input augmentation: GIN where the plan puts it in
+        this branch, then the warp; returns the augmented input and the
+        (theta, theta_inv, adjoint scale) that undo the warp, or None."""
+        a = branch_id == "branch_a"
+        if branch_id in gin_branches:
+            imgs = gin_aug(imgs, draws.gin_a if a else draws.gin_b)
         if not _in_branch(plan.do_spatial_aug_in, branch_id):
             return imgs, None
         Bi, Cin = imgs.shape[0], imgs.shape[-1]
-        theta, theta_inv = get_rand_affine(
-            torch.tensor(noise, dtype=torch.float32, device=imgs.device))
+        theta, theta_inv = get_rand_affine(torch.tensor(
+            draws.noise_a if a else draws.noise_b, dtype=torch.float32,
+            device=imgs.device))
         # adjoint scale of the inverse warp: 1 / |det theta_inv| = |det R|
         adj_scale = affine_abs_det(theta)
         xf = imgs.movedim(-1, 1).reshape(Bi, Cin, -1).contiguous()
@@ -197,12 +211,15 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
     def both_branches(net, draws, imgs):
         """Both branches through one network forward of batch 2B; returns
         the unwarped channels-first flat (B, n_opt, N) logits of each."""
-        xa, ctx_a = branch_aug(draws.noise_a, imgs, "branch_a")
-        xb, ctx_b = branch_aug(draws.noise_b, imgs, "branch_b")
+        xa, ctx_a = branch_aug(draws, imgs, "branch_a")
+        xb, ctx_b = branch_aug(draws, imgs, "branch_b")
         x = torch.cat([xa, xb], dim=0)
         if modify_input_fn is not None:
             x = modify_input_fn(x)
-        logits = model.apply(net, x, head_channel_idx=map_pre)
+        noise = (draws.mind_noise(mind_shape, x.device)
+                 if model.needs_mind_noise else None)
+        logits = model.apply(net, x, head_channel_idx=map_pre,
+                             mind_noise=noise)
         if modify_output_fn is not None:
             logits = modify_output_fn(logits)
         lf = logits.movedim(-1, 1).reshape(2 * B, n_opt, -1).contiguous()
@@ -226,7 +243,7 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
             p.grad = None
         loss_sum = torch.zeros((), device=vols.device)
         for step in range(n_acc):
-            d = draw_source.patch(member, epoch, step, vols.shape[0], B)
+            d = patch_draws(draw_source, member, epoch, step, vols)
             loss = draw_and_loss(net, d, vols, shapes)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
@@ -246,7 +263,7 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
     def epoch_fwd(net, draw_source, member, epoch, vols, shapes):
         loss_sum = torch.zeros((), device=vols.device)
         for step in range(n_acc):
-            d = draw_source.patch(member, epoch, step, vols.shape[0], B)
+            d = patch_draws(draw_source, member, epoch, step, vols)
             loss_sum = loss_sum + draw_and_loss(net, d, vols, shapes)
         return loss_sum / n_acc
 
@@ -260,7 +277,11 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
                                    labels_padded=labels, fixed=True)
         if modify_input_fn is not None:
             imgs = modify_input_fn(imgs)
-        logits = model.apply(net, imgs, head_channel_idx=map_pre)
+        noise = (draw_source.eval_mind_noise(
+            member, epoch, rep, (B, *patch_size, MIND_OUT_CHANNELS),
+            imgs.device) if model.needs_mind_noise else None)
+        logits = model.apply(net, imgs, head_channel_idx=map_pre,
+                             mind_noise=noise)
         if modify_output_fn is not None:
             logits = modify_output_fn(logits)
         pred = logits.argmax(dim=-1)
@@ -283,8 +304,10 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
             if mask[name]:
                 released.append(p)
         opt = make_optimizer(plan, released)
-        single_vol = vols.shape[0] == 1
-        eval_reps = 1 if single_vol else plan.tta_eval_patches
+        # repeats differ only by the volume draw or the MIND noise; with
+        # neither, one evaluation is their mean
+        deterministic = vols.shape[0] == 1 and not model.needs_mind_noise
+        eval_reps = 1 if deterministic else plan.tta_eval_patches
         losses, dices = [], []
         for ep in range(n_ep):
             if grads_enabled and ep >= start_ep:

@@ -154,7 +154,8 @@ def test_flops_count_skips_z_taps_past_the_volume():
     (1, 32, torch.bfloat16, "c1", "c1"),
     (1, 32, torch.float32, "c1", "c1"),
     (1, 7, torch.float32, "c1", "c1"),
-    (24, 32, torch.bfloat16, "cuda_core", "cuda_core"),  # C % 16 != 0
+    # C % 16 != 0: on x and w zero-padded to 32 channels
+    (24, 32, torch.bfloat16, "wgmma", "wgmma"),
     (32, 12, torch.bfloat16, "cuda_core", "cuda_core"),  # CO % 8 != 0
     # f32 on the tensor cores as 3xTF32, its weight gradient too
     (32, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
@@ -162,9 +163,9 @@ def test_flops_count_skips_z_taps_past_the_volume():
     (512, 256, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
     (8, 8, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
     (32, 12, torch.float32, "cuda_core", "cuda_core"),   # CO % 8 != 0
-    # a 12-channel stem (MIND features): C % 8 != 0
-    (12, 32, torch.float32, "cuda_core", "cuda_core"),
-    (12, 32, torch.bfloat16, "cuda_core", "cuda_core"),
+    # the 12-channel stem of a MIND model, padded to 16 in either type
+    (12, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
+    (12, 32, torch.bfloat16, "wgmma", "wgmma"),
 ])
 def test_routes(C, CO, dtype, route, wgrad_route):
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -172,6 +173,39 @@ def test_routes(C, CO, dtype, route, wgrad_route):
 
     assert conv3x3_route(C, CO, dtype) == route
     assert conv3x3_wgrad_route(C, CO, dtype) == wgrad_route
+
+
+@pytest.mark.parametrize("C,route,padded", [
+    (12, "wgmma", 16), (12, "wgmma_tf32x3", 16), (20, "wgmma", 32),
+    (20, "wgmma_tf32x3", 24), (16, "wgmma", 16), (12, "cuda_core", 12),
+    (1, "c1", 1)])
+def test_padded_channels_leave_conv_and_wgrad_unchanged(C, route, padded):
+    """What the tensor-core routes run for a C that is not a multiple of
+    their K step: x and w zero-padded to `route_channels`, which leaves the
+    conv unchanged and whose weight gradient, cut back to C, is the
+    unpadded one (plain versions, f32; 1e-5 of the range: the same products
+    and zeros, summed in another order)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_wgrad_reference,
+                                                  pad_channels,
+                                                  route_channels)
+
+    assert route_channels(C, route) == padded
+    x, w = _inputs(9, 6, 7, 9, C, 8, "float32", kz=3)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    xp, wp = pad_channels(x, padded), pad_channels(w, padded, dim=-2)
+    assert xp.shape == (6, 7, 9, padded) and wp.shape == (3, 3, 3, padded, 8)
+    assert torch.equal(xp[..., :C], x) and not xp[..., C:].any()
+    assert pad_channels(x, C) is x
+    ref = conv3x3_reference(x, w, depth=3)
+    torch.testing.assert_close(conv3x3_reference(xp, wp, depth=3), ref,
+                               rtol=0, atol=1e-5 * ref.abs().max().item())
+    dy = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(6, 7, 9, 8)).astype(np.float32))
+    dw = conv3x3_wgrad_reference(x, dy, depth=3)
+    dwp = conv3x3_wgrad_reference(xp, dy, depth=3)
+    torch.testing.assert_close(dwp[..., :C, :], dw, rtol=0,
+                               atol=1e-5 * dw.abs().max().item())
+    assert not dwp[..., C:, :].any()
 
 
 def test_tf32_split_is_exact():
@@ -420,4 +454,32 @@ def test_expected_launches_route_split(dtype):
         conv3x3_wgrad=40, conv3x3_wgrad_c1=8,
         conv3x3_wgrad_wgmma=32 if bf16 else 0,
         conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
-        conv3x3_wgrad_cuda_core=0, warp=0, warp_affine=84)
+        conv3x3_wgrad_cuda_core=0, conv3x3_padded=0,
+        conv3x3_wgrad_padded=0, warp=0, warp_affine=84)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expected_launches_mind_stem(dtype):
+    """The same spec with a MIND model's 12 input channels: the stem
+    (12 -> 16, no input gradient) leaves "c1" for the wgmma route of the
+    type, zero-padded to 16 channels in either type: its 2 x 10 + 3 x 2 =
+    26 forwards and 2 x 4 = 8 weight gradients count as padded."""
+    from dg_tta_tpu_torch.models.plans import ArchSpec
+
+    spec = ArchSpec(features_per_stage=(16, 32),
+                    kernel_sizes=((3, 3, 3),) * 2,
+                    strides=((1, 1, 1), (2, 2, 2)),
+                    n_conv_per_stage_encoder=(2, 2),
+                    n_conv_per_stage_decoder=(2,), num_input_channels=12,
+                    num_classes=4)
+    plan = dict(epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1)
+    got = _chip_smoke().expected_launches(spec, 3, 2, plan, dtype)
+    bf16 = dtype == "bfloat16"
+    assert got == dict(
+        conv3x3=162, conv3x3_c1=0, conv3x3_wgmma=162 if bf16 else 0,
+        conv3x3_wgmma_tf32x3=0 if bf16 else 162, conv3x3_cuda_core=0,
+        conv3x3_wgrad=40, conv3x3_wgrad_c1=0,
+        conv3x3_wgrad_wgmma=40 if bf16 else 0,
+        conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 40,
+        conv3x3_wgrad_cuda_core=0, conv3x3_padded=26,
+        conv3x3_wgrad_padded=8, warp=0, warp_affine=84)

@@ -11,15 +11,16 @@ Tolerances, max |kernel - plain| over max |plain|:
   the "wgmma_tf32x3" route each from three tf32 products; TF32 off for the
   plain version) and 2^-7 in bf16 (both round one f32 sum to bf16), on
   every route ("c1" for C = 1, "wgmma" for bf16 and "wgmma_tf32x3" for
-  f32 with C and CO multiples of 16/8, else "cuda_core");
+  f32 with CO a multiple of 8, C zero-padded to a multiple of 16/8, else
+  "cuda_core");
 * conv3x3_wgrad: 1e-4, f32 out from f32 or bf16 in (sums over every
   position, split across blocks, in another order than cuDNN's);
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
   kernel), 2^-7 in bf16 (one rounding of an f32 sum); nearest is exact
   (both round the same f32 coordinates half to even); the affine entry
   equals the grid entry on the card's `affine_grid` exactly.
-The card-vs-CPU runs of the conv's autograd Function and of a small
-`tta_one_volume` state theirs in place.
+The card-vs-CPU runs of the conv's autograd Function, of a small
+`tta_one_volume`, of MIND and of GIN state theirs in place.
 """
 
 import numpy as np
@@ -611,3 +612,86 @@ def test_warp_affine_broadcasts_one_theta(cuda_device):
     ref = warp_affine_flat(flat, (8, 12, 16), theta.expand(3, 3, 4)
                            .contiguous(), (8, 12, 16))
     assert torch.equal(got, ref)
+
+
+# Channel counts that are not a multiple of the wgmma routes' K step (16
+# bf16, 8 f32), zero-padded onto them: the 12-channel stem of a MIND model
+# and a ragged C = 20.  (N, depth, H, W, C, CO)
+PADDED_CASES = {
+    "mind_stem_c12": (8, 4, 19, 37, 12, 32),
+    "ragged_c20": (6, 3, 11, 13, 20, 40),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PADDED_CASES))
+def test_padded_channels_on_wgmma_routes_match_plain(cuda_device, dtype,
+                                                     case):
+    """Forward and weight gradient of a C that the routes pad, each one
+    launch on the type's wgmma route, at the routes' tolerances."""
+    N, D, H, W, C, CO = PADDED_CASES[case]
+    dt = getattr(torch, dtype)
+    route, counter = (("wgmma", "wgmma_launches") if dtype == "bfloat16"
+                      else ("wgmma_tf32x3", "tf32x3_launches"))
+    assert conv3x3_route(C, CO, dt) == conv3x3_wgrad_route(C, CO, dt) == route
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, 3, C, CO))
+                          * (2.0 / (27 * C)) ** 0.5).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    x, w, dy = (t.to(cuda_device, dt) for t in (x, w, dy))
+    before = (conv3x3.launches, getattr(conv3x3, counter),
+              conv3x3.padded_launches)
+    got = conv3x3(x, w, depth=D)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, getattr(conv3x3, counter),
+            conv3x3.padded_launches) == tuple(n + 1 for n in before)
+    assert got.dtype == dt and got.shape == (N, H, W, CO)
+    assert _max_rel_err(got, conv3x3_reference(x, w, depth=D)) <= RTOL[dtype]
+    before = (conv3x3_wgrad.launches, getattr(conv3x3_wgrad, counter),
+              conv3x3_wgrad.padded_launches)
+    dw = conv3x3_wgrad(x, dy, depth=D)
+    torch.cuda.synchronize()
+    assert (conv3x3_wgrad.launches, getattr(conv3x3_wgrad, counter),
+            conv3x3_wgrad.padded_launches) == tuple(n + 1 for n in before)
+    assert dw.dtype == torch.float32 and dw.shape == (3, 3, 3, C, CO)
+    assert dw.is_contiguous()
+    ref = conv3x3_wgrad_reference(x, dy, depth=D)
+    assert _max_rel_err(dw, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gin_aug_on_card_is_full_f32_under_cudnn_tf32(cuda_device,
+                                                      monkeypatch):
+    """GIN's grouped conv runs in cuDNN with TF32 off even where the
+    caller leaves `torch.backends.cudnn.allow_tf32 = True` (PyTorch's
+    default): the card equals the CPU's full f32 to 1e-5 of the range
+    (TF32 would miss by ~1e-3), and the flag is restored afterwards."""
+    from dg_tta_tpu_torch.ops.gin import draw_gin, gin_aug
+
+    x = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(2, 40, 48, 56, 1)).astype(np.float32))
+    draws = draw_gin(torch.Generator().manual_seed(0), 2, 1)
+    ref = gin_aug(x, draws)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    got = gin_aug(x.to(cuda_device), draws).cpu()
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert _max_rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mind3d_on_card_matches_cpu(cuda_device):
+    """MIND with noise on a batch of 2, card against CPU: 1e-5 of the
+    range (channel and batch means summed in another order, then exp)."""
+    from dg_tta_tpu_torch.ops.mind import mind3d
+
+    rng = np.random.default_rng(14)
+    img = torch.from_numpy(rng.normal(size=(2, 40, 48, 56, 1))
+                           .astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(2, 40, 48, 56, 12))
+                             .astype(np.float32))
+    ref = mind3d(img, noise=noise)
+    got = mind3d(img.to(cuda_device), noise=noise.to(cuda_device)).cpu()
+    assert got.shape == ref.shape == (2, 40, 48, 56, 12)
+    assert _max_rel_err(got, ref) <= 1e-5

@@ -2,10 +2,11 @@
 package's, on the tiny model of tests/test_tta_engine.py.
 
 JAX's threefry and torch's generators never give the same bits, so the
-port runs on `JaxDraws`: the patch offsets, volume indices and affine
-noise that the JAX engine draws, derived here from the same key folds and
-splits the JAX package uses (driver.py:186,245; engine.py:503-506,
-459-460, 402, 386-389, 346-348, 247, 259; patches.py:182-187).  The tests
+port runs on `JaxDraws`: the patch offsets, volume indices, affine noise,
+GIN nets and MIND noise that the JAX engine draws, derived here from the
+same key folds and splits the JAX package uses (driver.py:186,245;
+engine.py:503-506, 459-460, 402, 386-389, 346-348, 247-251, 259, 416;
+network.py:131-137; patches.py:182-187).  The tests
 first show that these draws give JAX's own patches, then compare one
 patch step's loss and gradients, and whole `tta_one_volume` trajectories.
 
@@ -52,6 +53,7 @@ from dg_tta_tpu_torch.tta.engine import (make_tta_functions,
                                          params_with_grad_mask,
                                          tta_one_volume)
 from dg_tta_tpu_torch.tta.plan import TTAPlan
+from tests.test_torch_mind import jax_gin_draws
 
 SPEC = dict(features_per_stage=(8, 16), kernel_sizes=((3, 3, 3),) * 2,
             strides=((1, 1, 1), (2, 2, 2)), n_conv_per_stage_encoder=(1, 1),
@@ -62,20 +64,30 @@ VOL_SHAPE = (24, 28, 20)
 IDX3 = np.arange(3, dtype=np.int32)
 
 
-def jax_model():
-    return JaxModel(spec=JaxArchSpec(**SPEC), patch_size=PATCH,
-                    trainer_name="nnUNetTrainer_GIN",
-                    uses_gin_internal=True, uses_mind=False)
+def _family(trainer):
+    """(spec, uses_gin_internal, uses_mind) of a trainer: 12 input
+    channels (the MIND features) for a MIND family."""
+    mind = "MIND" in trainer
+    spec = dict(SPEC, num_input_channels=12 if mind else 1)
+    return spec, "GIN" in trainer, mind
 
 
-def port_model():
-    return Model(spec=ArchSpec(**SPEC), patch_size=PATCH,
-                 trainer_name="nnUNetTrainer_GIN", uses_gin_internal=True,
-                 uses_mind=False)
+def jax_model(trainer="nnUNetTrainer_GIN"):
+    spec, gin, mind = _family(trainer)
+    return JaxModel(spec=JaxArchSpec(**spec), patch_size=PATCH,
+                    trainer_name=trainer, uses_gin_internal=gin,
+                    uses_mind=mind)
 
 
-def port_net(jax_params):
-    net = port_model().build_network(device="cpu")
+def port_model(trainer="nnUNetTrainer_GIN"):
+    spec, gin, mind = _family(trainer)
+    return Model(spec=ArchSpec(**spec), patch_size=PATCH,
+                 trainer_name=trainer, uses_gin_internal=gin,
+                 uses_mind=mind)
+
+
+def port_net(jax_params, trainer="nnUNetTrainer_GIN"):
+    net = port_model(trainer).build_network(device="cpu")
     net.load_state_dict(params_from_jax(
         jax.tree.map(np.asarray, jax_params)))
     return net
@@ -111,25 +123,45 @@ class JaxDraws:
         k_tr = jax.random.fold_in(self._epoch_key(member, epoch), 0)
         return jax.random.split(k_tr, self.n_acc)[step]
 
-    def patch(self, member, epoch, step, n_vols, batch):
+    def patch(self, member, epoch, step, n_vols, batch, gin_branches=(),
+              channels=1):
         k_patch, k_aug = jax.random.split(self.step_key(member, epoch, step))
         k_idx, k_p = jax.random.split(k_patch)
         idx = np.asarray(jax.random.randint(k_idx, (batch,), 0, n_vols))
         uniforms = np.stack([np.asarray(jax.random.uniform(k, (3,)))
                              for k in jax.random.split(k_p, batch)])
-        noise = []
-        for k_branch in jax.random.split(k_aug, 3)[:2]:
-            _, k_sp = jax.random.split(k_branch)
+        ka, kb, k_model = jax.random.split(k_aug, 3)
+        noise, gins = [], []
+        for branch, k_branch in (("branch_a", ka), ("branch_b", kb)):
+            k_int, k_sp = jax.random.split(k_branch)
             k1, _ = jax.random.split(k_sp)
             noise.append(np.asarray(jax.random.normal(k1, (batch, 3, 4))))
+            gins.append(jax_gin_draws(k_int, batch, channels)
+                        if branch in gin_branches else None)
         return PatchDraws(vol_idx=idx, uniforms=uniforms, noise_a=noise[0],
-                          noise_b=noise[1])
+                          noise_b=noise[1], gin_a=gins[0], gin_b=gins[1],
+                          mind_noise=self._mind_noise(k_model))
+
+    @staticmethod
+    def _mind_noise(k_model):
+        """`Model.apply(key=k_model)`'s MIND noise: normal(k_mind, shape),
+        (k_gin, k_mind) = split(k_model)."""
+        _, k_mind = jax.random.split(k_model)
+        return lambda shape, device: torch.from_numpy(np.array(
+            jax.random.normal(k_mind, tuple(shape), jnp.float32))).to(device)
+
+    def _eval_keys(self, member, epoch, rep):
+        k_e = jax.random.fold_in(self._epoch_key(member, epoch), 1 + rep)
+        return jax.random.split(k_e)   # (k_patch, k_model)
 
     def eval_volumes(self, member, epoch, rep, n_vols, batch):
-        k_e = jax.random.fold_in(self._epoch_key(member, epoch), 1 + rep)
-        k_patch, _ = jax.random.split(k_e)
+        k_patch, _ = self._eval_keys(member, epoch, rep)
         k_idx, _ = jax.random.split(k_patch)
         return np.asarray(jax.random.randint(k_idx, (batch,), 0, n_vols))
+
+    def eval_mind_noise(self, member, epoch, rep, shape, device):
+        _, k_model = self._eval_keys(member, epoch, rep)
+        return self._mind_noise(k_model)(shape, device)
 
 
 @pytest.fixture(scope="module")
@@ -212,13 +244,7 @@ def test_one_patch_step_matches_jax_value_and_grad(setup):
 @pytest.fixture(scope="module")
 def trajectories(setup):
     params, vols, shapes, labels = setup
-    # nonzero conv biases (initialized to zero, and unused before
-    # InstanceNorm), so that their weight decay shows
-    rng = np.random.default_rng(7)
-    params = jax.tree_util.tree_map_with_path(
-        lambda path, a: (jnp.asarray(rng.normal(size=a.shape), a.dtype)
-                         if jax.tree_util.keystr(path).endswith(
-                             "['conv']['b']") else a), params)
+    params = _biased(params, 7)
     plan_kw = dict(epochs=3, patches_to_be_accumulated=2, lr=1e-3,
                    ensemble_count=2, start_tta_at_epoch=1)
     key = jax.random.PRNGKey(1)
@@ -242,16 +268,18 @@ def _unused(name):
     return None
 
 
-def test_tta_one_volume_trajectory_matches_jax(trajectories):
-    plan_kw, params, (ref_params, ref_losses, ref_dices), \
-        (nets, losses, dices) = trajectories
-    assert losses.shape == dices.shape == (3, 2)
+def _check_trajectory(plan_kw, params, ref, got, trainer="nnUNetTrainer_GIN"):
+    """The port's trajectory against JAX's at the module's tolerances."""
+    ref_params, ref_losses, ref_dices = ref
+    nets, losses, dices = got
+    shape = (plan_kw["epochs"], plan_kw["ensemble_count"])
+    assert losses.shape == dices.shape == shape
     np.testing.assert_allclose(losses, np.asarray(ref_losses), rtol=1e-3)
     np.testing.assert_allclose(dices, np.asarray(ref_dices), atol=2e-2)
     assert np.all(np.isfinite(dices))
     trained = plan_kw["epochs"] - plan_kw["start_tta_at_epoch"]
     init = {n: p.detach().numpy()
-            for n, p in port_net(params).named_parameters()}
+            for n, p in port_net(params, trainer).named_parameters()}
     decay = (1.0 - plan_kw["lr"] * 0.01) ** trained
     for m, net in enumerate(nets):
         final = {n: p.detach().numpy() for n, p in net.named_parameters()}
@@ -270,6 +298,44 @@ def test_tta_one_volume_trajectory_matches_jax(trajectories):
                     np.testing.assert_allclose(
                         p[sl], decay * p0[sl], rtol=1e-6,
                         err_msg=f"{what} {name}")
+
+
+def test_tta_one_volume_trajectory_matches_jax(trajectories):
+    plan_kw, params, ref, got = trajectories
+    _check_trajectory(plan_kw, params, ref, got)
+
+
+def _biased(params, seed):
+    """params with nonzero conv biases (initialized to zero, and unused
+    before InstanceNorm), so that their weight decay shows."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: (jnp.asarray(rng.normal(size=a.shape), a.dtype)
+                         if jax.tree_util.keystr(path).endswith(
+                             "['conv']['b']") else a), params)
+
+
+@pytest.mark.parametrize("trainer,intensity", [
+    ("nnUNetTrainer_MIND", "none"), ("nnUNetTrainer_GIN_MIND", "both")])
+def test_mind_trajectory_matches_jax(setup, trainer, intensity):
+    """A MIND model on the default plan, and GIN_MIND with GIN in both
+    branches: MIND's noisy descriptor of the 2B patches in every forward,
+    and of each evaluation, on JAX's own draws."""
+    _, vols, shapes, labels = setup
+    params = _biased(jax.jit(jax_model(trainer).init_params)(
+        jax.random.PRNGKey(3)), 9)
+    plan_kw = dict(epochs=2, patches_to_be_accumulated=2, lr=1e-3,
+                   ensemble_count=1, start_tta_at_epoch=1,
+                   do_intensity_aug_in=intensity)
+    key = jax.random.PRNGKey(4)
+    ref = jax_tta_one_volume(jax_model(trainer), JaxPlan(**plan_kw), params,
+                             jnp.asarray(vols), jnp.asarray(shapes), IDX3,
+                             IDX3, key, labels_padded=jnp.asarray(labels))
+    got = tta_one_volume(port_model(trainer), TTAPlan(**plan_kw),
+                         port_net(params, trainer), torch.from_numpy(vols),
+                         shapes, IDX3, IDX3, JaxDraws(key, n_acc=2),
+                         labels_padded=torch.from_numpy(labels))
+    _check_trajectory(plan_kw, params, ref, got, trainer)
 
 
 def test_across_volumes_trajectory_matches_jax():
@@ -384,9 +450,43 @@ def test_member_streams_stable_under_subsets(setup):
     assert _same(full[1], solo[0])
 
 
+def test_gin_and_mind_draws_stable_under_member_subsets(setup):
+    """`TorchDraws` draws each member's GIN nets and MIND noise from that
+    member's own seeds, after (and without moving) its affine draws: member
+    1 alone adapts a GIN_MIND model with GIN in both branches exactly as
+    member 1 of the full ensemble."""
+    trainer = "nnUNetTrainer_GIN_MIND"
+    _, vols, shapes, labels = setup
+    params = jax.jit(jax_model(trainer).init_params)(jax.random.PRNGKey(3))
+    plan = TTAPlan(epochs=2, patches_to_be_accumulated=2, lr=1e-3,
+                   ensemble_count=2, start_tta_at_epoch=0,
+                   do_intensity_aug_in="both")
+    runs = [tta_one_volume(port_model(trainer), plan,
+                           port_net(params, trainer), torch.from_numpy(vols),
+                           shapes, IDX3, IDX3, TorchDraws(seed=3),
+                           labels_padded=torch.from_numpy(labels),
+                           member_indices=ids)
+            for ids in (None, [1])]
+    (full, losses_full, dices_full), (solo, losses_solo, dices_solo) = runs
+    np.testing.assert_array_equal(losses_full[:, 1], losses_solo[:, 0])
+    np.testing.assert_array_equal(dices_full[:, 1], dices_solo[:, 0])
+    assert _same(full[1], solo[0])
+
+    both = ("branch_a", "branch_b")
+    d1, d0 = (TorchDraws(seed=3).patch(m, 0, 0, 1, 1, gin_branches=both)
+              for m in (1, 0))
+    plain = TorchDraws(seed=3).patch(1, 0, 0, 1, 1)
+    assert plain.gin_a is None and plain.gin_b is None
+    np.testing.assert_array_equal(plain.noise_b, d1.noise_b)
+    noise = d1.mind_noise((2, 4, 4, 4, 12), "cpu")
+    assert torch.equal(noise, plain.mind_noise((2, 4, 4, 4, 12), "cpu"))
+    assert not torch.equal(noise, d0.mind_noise((2, 4, 4, 4, 12), "cpu"))
+    assert not torch.equal(d1.gin_a.layers[0][0], d1.gin_b.layers[0][0])
+
+
 @pytest.mark.parametrize("change", [
-    dict(spatial_aug_type="deformable"), dict(do_intensity_aug_in="both"),
-    dict(patch_group=2), dict(remat=True), dict(engine="split")])
+    dict(spatial_aug_type="deformable"), dict(patch_group=2),
+    dict(remat=True), dict(engine="split")])
 def test_features_of_later_slices_raise(setup, change):
     plan = TTAPlan(epochs=1, patches_to_be_accumulated=1, ensemble_count=1,
                    **change)
@@ -429,12 +529,6 @@ def test_bf16_adaptation_tracks_f32(setup):
         out[dt] = losses
     assert np.all(np.isfinite(out["bfloat16"]))
     np.testing.assert_allclose(out["bfloat16"], out[None], rtol=0.05)
-
-
-def test_mind_model_raises(setup):
-    model = dataclasses.replace(port_model(), uses_mind=True)
-    with pytest.raises(NotImplementedError, match="MIND"):
-        make_tta_functions(model, TTAPlan(), IDX3, IDX3)
 
 
 def test_bf16_trajectory_tracks_jax_bf16(setup):

@@ -137,3 +137,53 @@ def test_predict_volume_loads_jax_members(tmp_path):
         assert torch.equal(loaded.state_dict()[k], v), k
     assert params_from_jax(params_to_jax(loaded.state_dict())).keys() == \
         loaded.state_dict().keys()
+
+
+class JaxWindowDraws:
+    """The MIND noise of the JAX `predict_volume(..., key=k_inf,
+    window_batch=1)`: one key per padded window origin,
+    split(k_inf, n_padded); per window, split(k, E)[member] is
+    `Model.apply`'s key, whose (k_gin, k_mind) = split(...) gives
+    normal(k_mind, (1, *patch, 12))."""
+
+    def __init__(self, k_inf, n_padded, members):
+        self.keys = jax.random.split(k_inf, n_padded)
+        self.members = members
+
+    def window_mind_noise(self, window, member, shape, device):
+        k = jax.random.split(self.keys[window], self.members)[member]
+        _, k_mind = jax.random.split(k)
+        return torch.from_numpy(np.array(jax.random.normal(
+            k_mind, tuple(shape), jnp.float32))).to(device)
+
+
+def test_predict_volume_mind_matches_jax():
+    """A MIND model (noise on at inference, as in the reference): the
+    members of the JAX package's ensemble on its own per-window, per-member
+    noise, window batch 1; atol/rtol 1e-4 as above."""
+    from tests.test_tta_engine import tiny_model
+
+    jm = dataclasses.replace(tiny_model(in_ch=12),
+                             trainer_name="nnUNetTrainer_MIND",
+                             uses_gin_internal=False, uses_mind=True)
+    tm = Model(spec=TorchArchSpec(**dataclasses.asdict(jm.spec)),
+               patch_size=jm.patch_size, trainer_name=jm.trainer_name,
+               uses_gin_internal=False, uses_mind=True)
+    nets = [init_unet_(tm.build_network(device="cpu"),
+                       torch.Generator().manual_seed(s)) for s in (6, 7)]
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs),
+                           *[params_to_jax(n.state_dict()) for n in nets])
+    vol = np.random.default_rng(8).normal(size=(26, 19, 22, 1)).astype(
+        np.float32)
+    k_inf = jax.random.PRNGKey(9)
+    ref = np.asarray(jsw.predict_volume(jm, stacked, jnp.asarray(vol),
+                                        key=k_inf, window_batch=1))
+    origins, _ = jsw.window_origins(
+        tsw.padded_shape(vol.shape[:3], jm.patch_size), jm.patch_size,
+        pad_multiple=4)
+    draws = JaxWindowDraws(k_inf, len(origins), len(nets))
+    got = tsw.predict_volume(tm, nets, torch.from_numpy(vol), draws=draws)
+    assert got.shape == (26, 19, 22, 4)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="draw source"):
+        tsw.predict_volume(tm, nets, torch.from_numpy(vol))

@@ -209,13 +209,22 @@ def test_model_families():
         with torch.no_grad():
             net = m.build_network(device="cpu")
             assert m.apply(net, x).shape == (1, 16, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="GIN"):
-        m.apply(m.build_network(device="cpu"), x, internal_aug=True)
+    from dg_tta_tpu_torch.ops.gin import draw_gin
+
+    # GIN as the internal augmentation of pretraining, with its draws
+    gin = draw_gin(torch.Generator().manual_seed(0), 1, 1)
+    with torch.no_grad():
+        y = m.apply(m.build_network(device="cpu"), x + 1.0,
+                    internal_aug=True, gin_draws=gin)
+    assert y.shape == (1, 16, 16, 16, 3) and torch.isfinite(y).all()
+    # MIND: the 1-channel image in, 12 descriptor channels into the U-Net
     for trainer in ("nnUNetTrainer_MIND", "nnUNetTrainer_GIN_MIND"):
         m = build_model(plans, ds, trainer)
         assert m.spec.num_input_channels == 12
-        with pytest.raises(NotImplementedError, match="MIND"):
-            m.apply(m.build_network(device="cpu"),
-                    torch.zeros(1, 16, 16, 16, 12))
+        with torch.no_grad():
+            y = m.apply(m.build_network(device="cpu"), x,
+                        mind_noise=torch.randn(1, 16, 16, 16, 12),
+                        internal_aug=True, gin_draws=gin)
+        assert y.shape == (1, 16, 16, 16, 3) and torch.isfinite(y).all()
     with pytest.raises(ValueError):
         dataclasses.replace(m, compute_dtype="float16")
