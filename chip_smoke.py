@@ -50,6 +50,16 @@ Phases; any failure raises and the script exits non-zero:
      from a CUDA graph) and, for the affine entry, in host microseconds
      per call (library: `F.grid_sample` on a precomputed grid, and
      `F.affine_grid` + `F.grid_sample`);
+   * `warp`'s grid entry at a deformable branch's sites
+     (`phase_warp_deformable`): the field warps (C = 3, f32,
+     align_corners=True, border and zeros, on identity plus a full-size
+     field from `get_disp_field`), the input warp, the unwarp and its fast
+     adjoint (f32 and bf16), each against its plain version and timed
+     eagerly and on the device against `F.grid_sample`; and the exact
+     adjoint kernel (`warp_flat_adjoint`, f32 and bf16) at the logit site
+     on an affine and a deformable grid, against its plain version (twice:
+     its atomics sum in a varying order) and timed against autograd of
+     `F.grid_sample` with respect to its input;
 4. reference, under PyTorch's default precision flags (asserted), as a
    user's run finds them: the full-width TS104_GIN U-Net on a small patch,
    its forward and one step's gradient, a stride-2 stage-entry conv
@@ -60,13 +70,17 @@ Phases; any failure raises and the script exits non-zero:
    112 x 112 x 128 patches and `gin_aug` on one (injected noise and
    draws; GIN's grouped conv in cuDNN, where TF32 is on by default), and
    the full-width TS104_GIN_MIND net's forward and one step's gradient on
-   a small patch, each on the card against the same code on the CPU
-   (plain versions);
-5. main path, four times, each in a fresh workspace and under the default
+   a small patch, a deformable branch's displacement fields at the patch
+   size from one noise tensor, and one deformable trained step's gradient
+   of the full-width TS104_GIN net on a small patch, each on the card
+   against the same code on the CPU (plain versions);
+5. main path, six times, each in a fresh workspace and under the default
    flags, f32 (the default), then bf16 (`DGTTA_COMPUTE_DTYPE=bfloat16`),
    for each of two seeded full-width checkpoints (105 classes): TS104_GIN,
    then TS104_GIN_MIND (12 input channels: MIND in every forward, with
-   noise; the plan also puts GIN in both branches):
+   noise; the plan also puts GIN in both branches); then TS104_GIN with a
+   deformable plan (`spatial_aug_type: "deformable"`), in f32 with the
+   fast adjoint and in bf16 with `DGTTA_EXACT_WARP_GRAD=1`:
    `prepare_tta` and `run_tta` through the port's CLI on a synthetic CT
    volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows), with no member
    files: `run_tta` adapts three members (Phase 1), then predicts and
@@ -74,15 +88,17 @@ Phases; any failure raises and the script exits non-zero:
    patches_to_be_accumulated=4, start_tta_at_epoch=1 (one warm-up and one
    trained epoch).  Checks the member files and the segmentation, that
    every kernel launched exactly as often as the plan says it must, on
-   each route and on padded channels (`expected_launches`), and that the
-   CUDA-core `conv3x3` and `conv3x3_wgrad` and the grid entry of the warp
-   launched not at all.
+   each route and on padded channels (`expected_launches`), that the
+   CUDA-core `conv3x3` and `conv3x3_wgrad` launched not at all, and that
+   the warp's grid entry and its exact adjoint launched where the plan
+   and the flag put them (the affine runs: neither).
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
 shapes they ran before the "c1" and "wgmma_tf32x3" routes took them; the
-MIND stem's rows with the forced CUDA-core times beside them) and, last,
-one JSON line naming the device.
+MIND stem's rows with the forced CUDA-core times beside them; the warp's
+grid entry per deformable branch of a trained step, and its exact adjoint
+on a deformable grid) and, last, one JSON line naming the device.
 """
 
 import contextlib
@@ -151,6 +167,16 @@ MIND_RTOL = GIN_RTOL = 1e-5
 # The stem conv of a MIND model, 12 descriptor channels -> 32: (depth, H, W,
 # C, CO) at the TS104 patch; the wgmma routes run it zero-padded to 16.
 STEM_SHAPE = (112, 112, 128, 12, 32)
+# The warp's exact adjoint vs its plain version, max |diff| / max |plain|:
+# the same products added into each source voxel by atomics, in an order
+# that varies from run to run (f32); one rounding of the f32 sum (bf16).
+ADJOINT_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# A deformable branch's displacement fields at the patch size, card vs CPU,
+# max |diff| / max |CPU|: ten warps and the smoothing summed in another
+# order, amplified ~100x by the field's normalization (its std after the
+# smoothing is ~1e-2; tests/test_torch_fields.py holds the CPU to the JAX
+# package at the same bound).
+FIELD_RTOL = 1e-4
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3"]
@@ -649,6 +675,243 @@ def phase_warp():
     return totals
 
 
+def _deformable_sites(gen):
+    """A deformable branch's warps at the patch size on the card, from one
+    seeded field noise: (name, C, grid, padding, align_corners, launches per
+    branch of a trained step, the field itself for the field sites).  The
+    field sites sample the loop's scaled displacement at identity + itself
+    (align_corners=True): border in the main path's loop, zeros in the
+    loop without inverse consistency, which the main path does not run."""
+    import torch
+
+    from dg_tta_tpu_torch.core.fields import deformable_grids, get_disp_field
+    from dg_tta_tpu_torch.core.grid import identity_grid
+
+    noise = torch.randn((1, *(s // 5 for s in PATCH), 3),
+                        generator=gen).cuda()
+    disp, _ = get_disp_field(noise, PATCH, factor=0.5, interpolation_factor=5)
+    # the first iteration's field: disp / (D, H, W) / 2^5 / 5
+    ds = torch.stack([d / float(n) / 32 * 0.2
+                      for d, n in zip(disp, PATCH)], dim=1)
+    pos = tuple(i + d for i, d in zip(identity_grid(PATCH, True, "cuda"),
+                                      ds.unbind(1)))
+    grid, grid_inv = deformable_grids(noise, PATCH)
+    field = ds.reshape(1, 3, -1).contiguous()
+    return [("field warp", 3, pos, "border", True, 10, field),
+            ("field warp zeros", 3, pos, "zeros", True, 0, field),
+            ("deformable input warp", 1, grid, "border", False, 1, None),
+            ("deformable unwarp", N_OPT, grid_inv, "zeros", False, 1, None),
+            ("deformable fast adjoint", N_OPT, grid, "zeros", False, 1,
+             None)]
+
+
+def phase_warp_deformable():
+    """The warp's grid entry at a deformable branch's call sites (the
+    field warps, C = 3 f32, and the input warp, the unwarp and its fast
+    adjoint, f32 and bf16), held against its plain version and timed
+    against `F.grid_sample`; then the exact adjoint kernel at the logit
+    site (C = n_opt) on an affine and a deformable grid, f32 and bf16,
+    against its plain version and timed against autograd of
+    `F.grid_sample` with respect to its input (ATen's own scatter).
+    Totals: per branch of a trained step (10 border field warps, the input
+    warp, the unwarp and the fast adjoint), and the adjoint on the
+    deformable grid."""
+    import torch
+    import torch.nn.functional as F
+
+    from dg_tta_tpu_torch.core.fields import get_rand_affine
+    from dg_tta_tpu_torch.core.grid import affine_grid, pack_grid
+    from dg_tta_tpu_torch.kernels.warp import (warp_adjoint_bytes,
+                                               warp_bytes, warp_flat,
+                                               warp_flat_adjoint,
+                                               warp_flat_adjoint_reference,
+                                               warp_flat_reference,
+                                               warp_flops,
+                                               warp_source_voxels)
+
+    gen = torch.Generator().manual_seed(4)
+    n = PATCH[0] * PATCH[1] * PATCH[2]
+    sites = _deformable_sites(gen)
+    _, theta_inv = get_rand_affine(torch.randn((1, 3, 4), generator=gen)
+                                   .cuda())
+    adjoint_grids = [("affine grid", affine_grid(theta_inv, PATCH)),
+                     ("deformable grid", sites[3][2])]
+    totals = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        tot = _new_totals()
+        tot.update(device_ms=0.0, library_device_ms=0.0)
+        for site, C, grid, pad, align, mult, field in sites:
+            # the fields are f32 in either compute type
+            src_dt = torch.float32 if field is not None else dt
+            flat = (field if field is not None else torch.randn(
+                (1, C, n), generator=gen)).to(src_dt).cuda()
+            kw = dict(padding_mode=pad, align_corners=align)
+
+            def kernel():
+                return warp_flat(flat, PATCH, grid, **kw)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = warp_flat_reference(flat, PATCH, grid, **kw)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = WARP_RTOL[str(src_dt).split(".")[-1]] \
+                * ref.float().abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"warp {name} {site}: max abs err "
+                                     f"{err} > {tol}")
+            vol5 = flat.view(1, C, *PATCH)
+            packed = pack_grid(grid).to(src_dt)
+
+            def library():
+                return F.grid_sample(vol5, packed, mode="bilinear",
+                                     padding_mode=pad, align_corners=align)
+
+            k_ms, k_dev = time_ms(kernel), device_ms(kernel)
+            p_ms = time_ms(lambda: warp_flat_reference(flat, PATCH, grid,
+                                                       **kw))
+            l_ms, l_dev = time_ms(library), device_ms(library)
+            n_need = warp_source_voxels(PATCH, grid, 1, "trilinear", pad,
+                                        align)
+            ops_ms = warp_flops(flat.shape, n) / PEAK_OPS["float32"] * 1e3
+            bytes_ms = warp_bytes(flat.shape, n_need, n, flat.element_size(),
+                                  12 * n) / PEAK_BYTES * 1e3
+            log(f"warp {name} {site} C={C} {str(src_dt).split('.')[-1]} "
+                f"{pad} align_corners={align} (x{mult} per branch of a "
+                f"trained step): grid entry max_abs_err={err:.3e} (tol "
+                f"{tol:.3e}) kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
+                f"bound_ms={max(ops_ms, bytes_ms):.4f}; plain_ms="
+                f"{p_ms:.4f}; library F.grid_sample library_ms={l_ms:.4f} "
+                f"device_ms={l_dev:.4f}; source voxels needed {n_need} of "
+                f"{n}")
+            _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
+            tot["device_ms"] += mult * k_dev
+            tot["library_device_ms"] += mult * l_dev
+        log(f"warp {name} grid entry per deformable branch of a trained "
+            f"step (13 launches): kernel_ms={tot['ms']:.4f} "
+            f"device_ms={tot['device_ms']:.4f} "
+            f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.4f}; "
+            f"plain_ms={tot['plain_ms']:.4f}; library F.grid_sample "
+            f"library_ms={tot['library_ms']:.4f} "
+            f"device_ms={tot['library_device_ms']:.4f}")
+        totals[name] = tot
+
+        for site, grid in adjoint_grids:
+            g = torch.randn((1, N_OPT, n), generator=gen).to(dt).cuda()
+
+            def adjoint():
+                return warp_flat_adjoint(g, PATCH, grid)
+
+            got, again = adjoint(), adjoint()
+            torch.cuda.synchronize()
+            ref = warp_flat_adjoint_reference(g, PATCH, grid)
+            scale = ref.float().abs().max().item()
+            err = max((t.float() - ref.float()).abs().max().item()
+                      for t in (got, again))
+            tol = ADJOINT_RTOL[name] * scale
+            if not err <= tol:
+                raise AssertionError(f"warp adjoint {name} {site}: max abs "
+                                     f"err {err} > {tol}")
+            vol5 = torch.zeros((1, N_OPT, *PATCH), dtype=dt, device="cuda",
+                               requires_grad=True)
+            out5 = F.grid_sample(vol5, pack_grid(grid).to(dt),
+                                 mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+            g5 = g.view(1, N_OPT, *PATCH)
+            k_ms, k_dev = time_ms(adjoint), device_ms(adjoint)
+            p_ms = time_ms(lambda: warp_flat_adjoint_reference(g, PATCH,
+                                                               grid))
+            l_ms = time_ms(lambda: torch.autograd.grad(
+                out5, vol5, g5, retain_graph=True))
+            ops_ms = warp_flops(g.shape, n) / PEAK_OPS["float32"] * 1e3
+            bytes_ms = warp_adjoint_bytes(g.shape, n, g.element_size()) \
+                / PEAK_BYTES * 1e3
+            log(f"warp adjoint {name} {site} C={N_OPT} zeros: "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}, two runs) "
+                f"kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
+                f"bound_ms={max(ops_ms, bytes_ms):.4f} "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
+                f"plain_ms={p_ms:.4f}; library autograd of F.grid_sample "
+                f"library_ms={l_ms:.4f}")
+            t = _new_totals()
+            _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms)
+            t["device_ms"] = k_dev
+            totals[f"{name}/adjoint/{site}"] = t
+    return totals
+
+
+def reference_deformable():
+    """A deformable branch's fields at the patch size from one noise
+    tensor, then one deformable trained step's gradient of the full-width
+    TS104_GIN net on a small patch (the same injected draws), card against
+    CPU under PyTorch's default flags: the fields within FIELD_RTOL, the
+    gradient within GRAD_RTOL of its norm, as the network's own."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.core.fields import get_disp_field
+    from dg_tta_tpu_torch.core.patches import extract_batch
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import make_tta_functions
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    rng = np.random.default_rng(6)
+    noise = torch.from_numpy(rng.standard_normal(
+        (1, *(s // 5 for s in PATCH), 3)).astype(np.float32))
+    ref = get_disp_field(noise, PATCH, factor=0.5, interpolation_factor=5)
+    got = get_disp_field(noise.cuda(), PATCH, factor=0.5,
+                         interpolation_factor=5)
+    for what, got_f, ref_f in zip(("disp", "inverse disp"), got, ref):
+        for axis, a, b in zip("xyz", got_f, ref_f):
+            _card_vs_cpu(f"get_disp_field {what} {axis}", a.cpu(), b,
+                         FIELD_RTOL)
+
+    model = ts104_model(patch_size=(32, 48, 64))
+    shape = (40, 56, 70)
+    vol = rng.normal(0.0, 0.3, size=(1, *shape, 1)).astype(np.float32)
+    vol[0, 10:25, 15:40, 20:50] += 2.0
+    idx = np.arange(N_OPT)
+    fns = make_tta_functions(model, TTAPlan(spatial_aug_type="deformable"),
+                             idx, idx)
+    fields = {k: torch.from_numpy(rng.standard_normal(
+        (1, 6, 9, 12, 3)).astype(np.float32)) for k in ("field_a", "field_b")}
+    draws = dataclasses.replace(
+        TorchDraws(seed=8).patch(0, 1, 0, 1, 1),
+        **{k: (lambda shape, device, f=f: f.to(device))
+           for k, f in fields.items()})
+    net0 = seeded_net(model, 11, "cpu")
+    grads, losses = [], []
+    for dev in ("cpu", "cuda"):
+        net = copy.deepcopy(net0).to(dev)
+        imgs, _ = extract_batch(draws.vol_idx, draws.uniforms,
+                                torch.from_numpy(vol).to(dev), [shape],
+                                model.patch_size, 1)
+        loss = fns.patch_loss(net, draws, imgs)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({k: p.grad.cpu() for k, p in net.named_parameters()
+                      if p.grad is not None})
+    if sorted(grads[0]) != sorted(grads[1]):
+        raise AssertionError("deformable step: card and CPU differ in which "
+                             "parameters get a gradient")
+    names = sorted(grads[0])
+    flat = [torch.cat([g[k].flatten() for k in names]) for g in grads]
+    g_rel = ((flat[1] - flat[0]).norm() / flat[0].norm()).item()
+    l_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    if not (torch.isfinite(flat[1]).all() and g_rel <= GRAD_RTOL
+            and l_rel <= 1e-3 and losses[0] > 0):
+        raise AssertionError(f"deformable step card vs CPU: loss "
+                             f"{losses[1]} vs {losses[0]}, gradient "
+                             f"{g_rel} of its norm (tol {GRAD_RTOL})")
+    log(f"reference: deformable TTA step, TS104 patch {model.patch_size}: "
+        f"loss {losses[1]:.6f} vs CPU {losses[0]:.6f} (rel {l_rel:.2e}, tol "
+        f"1e-3); gradient of {len(names)} parameters {g_rel:.3e} of its "
+        f"norm (tol {GRAD_RTOL:.0e})")
+
+
 def phase_reference():
     """Full-width network and predict_volume on the card against the CPU."""
     import numpy as np
@@ -787,6 +1050,7 @@ def phase_reference():
             f"max_abs_err={err_t:.3e} (tol {REF_RTOL * scale_t:.3e})")
     reference_adaptation()
     reference_mind_gin()
+    reference_deformable()
 
 
 def _card_vs_cpu(what, got, ref, rtol):
@@ -1001,15 +1265,23 @@ CONV_ROUTES = ("c1", "wgmma", "wgmma_tf32x3", "cuda_core")
 WGRAD_ROUTES = ("c1", "wgmma", "wgmma_tf32x3", "cuda_core")
 
 
-def expected_launches(spec, windows, members, plan, dtype="float32"):
+def expected_launches(spec, windows, members, plan, dtype="float32",
+                      exact=False):
     """Kernel launches that `run_tta` must make for `plan` on a volume of
     `windows` sliding windows with labels (one eval per epoch), in compute
-    type `dtype`: the totals of `conv3x3` and `conv3x3_wgrad`, their
-    launches on each route (`conv3x3_<route>`, `conv3x3_wgrad_<route>`, as
-    `conv3x3_route` and `conv3x3_wgrad_route` pick them) and on
-    zero-padded channels (`conv3x3_padded`, `conv3x3_wgrad_padded`: a MIND
-    model's stem), and those of the warp's affine entry (`warp_affine`:
-    every warp of adaptation) and grid entry (`warp`: none)."""
+    type `dtype`, with `DGTTA_EXACT_WARP_GRAD` set if `exact`: the totals
+    of `conv3x3` and `conv3x3_wgrad`, their launches on each route
+    (`conv3x3_<route>`, `conv3x3_wgrad_<route>`, as `conv3x3_route` and
+    `conv3x3_wgrad_route` pick them) and on zero-padded channels
+    (`conv3x3_padded`, `conv3x3_wgrad_padded`: a MIND model's stem), and
+    those of the warp's affine entry (`warp_affine`), grid entry (`warp`)
+    and exact adjoint (`warp_adjoint`).  Per patch step, each branch the
+    plan warps makes one input warp and one unwarp, and each trained step
+    one adjoint of each unwarp: an affine plan's on the affine entry (with
+    `exact`, its unwarp on the grid entry at the inverse affine's grid and
+    its adjoint exact); a deformable plan's on the grid entry, after the
+    10 field warps of its branch's displacement field (5 iterations, 2
+    warps each); each eval samples its labels on the affine entry."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -1039,24 +1311,35 @@ def expected_launches(spec, windows, members, plan, dtype="float32"):
     out["conv3x3"] = sum(out[f"conv3x3_{r}"] for r in CONV_ROUTES)
     out["conv3x3_wgrad"] = sum(out[f"conv3x3_wgrad_{r}"]
                                for r in WGRAD_ROUTES)
-    # two input warps and two unwarps per step, two adjoints per trained
-    # step, one label sampling per eval, all by an affine
-    out["warp_affine"] = members * (acc * epochs * 4 + trained * 2 + epochs)
-    out["warp"] = 0
+    branches = {"both": 2, "none": 0}.get(
+        plan.get("do_spatial_aug_in", "both"), 1)
+    steps = acc * epochs * branches        # branch warps of patch steps
+    adjoints = trained * branches
+    fast = 0 if exact else adjoints
+    if plan.get("spatial_aug_type", "affine") == "deformable":
+        out["warp"] = members * (steps * 12 + fast)
+        out["warp_affine"] = members * epochs
+    else:
+        out["warp"] = members * steps if exact else 0
+        out["warp_affine"] = members * (steps * (1 if exact else 2) + fast
+                                        + epochs)
+    out["warp_adjoint"] = members * adjoints if exact else 0
     return out
 
 
 def _read_counts():
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
                                                   route_launches)
-    from dg_tta_tpu_torch.kernels.warp import warp_affine_flat, warp_flat
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
+                                               warp_flat_adjoint)
 
     out = {"conv3x3": conv3x3.launches,
            "conv3x3_wgrad": conv3x3_wgrad.launches,
            "conv3x3_padded": conv3x3.padded_launches,
            "conv3x3_wgrad_padded": conv3x3_wgrad.padded_launches,
            "warp": warp_flat.launches,
-           "warp_affine": warp_affine_flat.launches}
+           "warp_affine": warp_affine_flat.launches,
+           "warp_adjoint": warp_flat_adjoint.launches}
     for fn, prefix in ((conv3x3, "conv3x3"), (conv3x3_wgrad, "conv3x3_wgrad")):
         out.update({f"{prefix}_{r}": n for r, n in route_launches(fn).items()})
     return out
@@ -1065,18 +1348,21 @@ def _read_counts():
 def _zero_counts():
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
                                                   zero_launches)
-    from dg_tta_tpu_torch.kernels.warp import warp_affine_flat, warp_flat
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
+                                               warp_flat_adjoint)
 
     zero_launches(conv3x3)
     zero_launches(conv3x3_wgrad)
     warp_flat.launches = warp_affine_flat.launches = 0
+    warp_flat_adjoint.launches = 0
 
 
 def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
-                    **plan_changes):
+                    exact: bool = False, **plan_changes):
     """`run_tta` of a seeded `pretrained` checkpoint through the CLI with
-    `DGTTA_COMPUTE_DTYPE=dtype`, the smoke plan changed by `plan_changes`;
-    returns the kernels' launch counts of that run."""
+    `DGTTA_COMPUTE_DTYPE=dtype` (and `DGTTA_EXACT_WARP_GRAD=1` if `exact`),
+    the smoke plan changed by `plan_changes`; returns the kernels' launch
+    counts of that run."""
     import numpy as np
     import torch
 
@@ -1096,7 +1382,8 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     cli(["prepare_tta", pretrained, ws.dataset_id])
     results_dir, plan = edit_plan(pretrained, **SMOKE_PLAN, **plan_changes)
     n_members = plan["ensemble_count"]
-    tag = f"main path {pretrained} {dtype}"
+    tag = (f"main path {pretrained} {plan['spatial_aug_type']} {dtype}"
+           f"{' exact warp gradient' if exact else ''}")
     log(f"{tag}: {ws.n_params} parameters, {N_CLASSES} classes, "
         f"{model.spec.num_input_channels} input channels, volume "
         f"{VOLUME_SHAPE}, {n_members} members adapted from scratch; plan "
@@ -1104,8 +1391,11 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
 
     windows = int(window_origins(padded_shape(VOLUME_SHAPE, model.patch_size),
                                  model.patch_size)[1].sum())
-    expected = expected_launches(model.spec, windows, n_members, plan, dtype)
+    expected = expected_launches(model.spec, windows, n_members, plan, dtype,
+                                 exact)
     os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
+    if exact:
+        os.environ["DGTTA_EXACT_WARP_GRAD"] = "1"
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1117,15 +1407,24 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
         launches = _read_counts()
     finally:
         del os.environ["DGTTA_COMPUTE_DTYPE"]
+        os.environ.pop("DGTTA_EXACT_WARP_GRAD", None)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{expected} from the plan")
-    for key in ("conv3x3_cuda_core", "conv3x3_wgrad_cuda_core", "warp"):
+    for key in ("conv3x3_cuda_core", "conv3x3_wgrad_cuda_core"):
         if launches[key]:
             raise AssertionError(f"the main path launched {key} "
                                  f"{launches[key]} times")
+    # the grid entry carries a deformable plan's warps and an exact
+    # unwarp, and nothing of an affine plan's otherwise
+    deformable = plan["spatial_aug_type"] == "deformable"
+    if (launches["warp"] > 0) != (deformable or exact) \
+            or (launches["warp_adjoint"] > 0) != exact:
+        raise AssertionError(f"the main path launched the grid entry "
+                             f"{launches['warp']} and the exact adjoint "
+                             f"{launches['warp_adjoint']} times")
     (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
     pretrained = load_flat_npz(ws.checkpoint)
     for i in range(n_members):
@@ -1191,7 +1490,7 @@ def main():
 
     phase_build()
     totals = {"conv3x3": phase_kernels(), "conv3x3_wgrad": phase_wgrad(),
-              "warp": phase_warp()}
+              "warp": phase_warp(), "warp_grid": phase_warp_deformable()}
     phase_reference()
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1203,6 +1502,13 @@ def main():
             runs["TS104_GIN_MIND", dtype] = phase_main_path(
                 Path(tmp) / f"gin_mind_{dtype}", dtype, "TS104_GIN_MIND",
                 do_intensity_aug_in="both")
+        # deformable TTA: f32 with the fast adjoint, bf16 with the exact one
+        runs["TS104_GIN deformable", "float32"] = phase_main_path(
+            Path(tmp) / "deformable_float32", "float32",
+            spatial_aug_type="deformable")
+        runs["TS104_GIN deformable exact", "bfloat16"] = phase_main_path(
+            Path(tmp) / "deformable_exact_bfloat16", "bfloat16", exact=True,
+            spatial_aug_type="deformable")
 
     def both(key, dtype=None):
         # launches over the main-path runs (of one type)
@@ -1211,6 +1517,10 @@ def main():
 
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
     w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
+    wg32, wg16 = totals["warp_grid"]["float32"], totals["warp_grid"]["bfloat16"]
+    adj, adj_aff = ({k: totals["warp_grid"][f"{k}/adjoint/{site} grid"]
+                     for k in ("float32", "bfloat16")}
+                    for site in ("deformable", "affine"))
     rows = [
         # the CUDA-core kernels, timed on the shapes they ran before the
         # later routes took them (f32: every conv; bf16: C = 1)
@@ -1220,13 +1530,27 @@ def main():
         _row("conv3x3_wgrad", conv3x3.WGRAD_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_cuda_core"), wg["float32/cuda_core"],
              wg["bfloat16/cuda_core"], "cuda_core"),
-        # the warp's grid entry (timed on the card's affine_grid; no
-        # launch on the main path since its affine entry took every site)
-        # and its affine entry
-        _row("warp", warp.SOURCE, warp.REPLACES, both("warp"),
-             w32["grid"], w16["grid"], "cuda",
-             device_ms=w32["affine"]["grid_device_ms"],
-             bf16_device_ms=w16["affine"]["grid_device_ms"]),
+        # the warp's grid entry at its main-path sites, a deformable
+        # branch of a trained step (10 field warps, the input warp, the
+        # unwarp and its fast adjoint), with its times on the card's
+        # affine_grid at the affine sites beside them; and its affine entry
+        _row("warp", warp.SOURCE, warp.REPLACES, both("warp"), wg32, wg16,
+             "cuda", device_ms=wg32["device_ms"],
+             library_device_ms=wg32["library_device_ms"],
+             bf16_device_ms=wg16["device_ms"],
+             bf16_library_device_ms=wg16["library_device_ms"],
+             affine_sites_ms=w32["grid"]["ms"],
+             affine_sites_device_ms=w32["affine"]["grid_device_ms"],
+             bf16_affine_sites_ms=w16["grid"]["ms"],
+             bf16_affine_sites_device_ms=w16["affine"]["grid_device_ms"]),
+        # the exact adjoint at the logit site on a deformable grid, its
+        # times on an affine grid beside them
+        _row("warp_adjoint", warp.SOURCE, warp.REPLACES,
+             both("warp_adjoint"), adj["float32"], adj["bfloat16"], "cuda",
+             device_ms=adj["float32"]["device_ms"],
+             bf16_device_ms=adj["bfloat16"]["device_ms"],
+             affine_grid_ms=adj_aff["float32"]["ms"],
+             bf16_affine_grid_ms=adj_aff["bfloat16"]["ms"]),
         _row("warp_affine", warp.SOURCE, warp.REPLACES, both("warp_affine"),
              w32["affine"], w16["affine"], "cuda",
              **{k: w32["affine"][k] for k in (

@@ -9,10 +9,11 @@ Conventions, as in the JAX package:
   * `align_corners` follows torch.
 
 `grid_sample_flat` is the wrapper of the hand-written warp kernel
-(`kernels/warp.py`) for a grid in memory; warps by an affine call the
-kernel's affine entry (`kernels/warp.warp_affine_flat`), which builds the
-points of `affine_grid` itself.  Every resample of the port goes through
-one of the two.
+(`kernels/warp.py`) for a grid in memory (the deformable fields and their
+warps); warps by an affine call the kernel's affine entry
+(`kernels/warp.warp_affine_flat`), which builds the points of
+`affine_grid` itself.  Every resample of the port goes through one of the
+two.
 """
 
 import torch
@@ -92,3 +93,18 @@ def grid_sample(vol, grid, mode: str = "trilinear",
                            padding_mode=padding_mode,
                            align_corners=align_corners)
     return out.reshape(B, C, *out_spatial).movedim(1, -1)
+
+
+def warp(vol, disp_grid, **kw):
+    """Sample `vol` at `disp_grid`, an (identity + displacement) grid: the
+    JAX package's convenience name for `grid_sample`."""
+    return grid_sample(vol, disp_grid, **kw)
+
+
+def affine_inside_mask_flat(theta, spatial_size, align_corners: bool = False):
+    """(B, 1, N) f32 mask: 1 where the (B, 3, 4) affine `theta` maps the
+    output voxel inside the normalized cube [-1, 1]^3 (the zero band a
+    zeros-padded resample by theta stamps, without a resample)."""
+    gx, gy, gz = affine_grid(theta, spatial_size, align_corners)
+    inside = (gx.abs() <= 1.0) & (gy.abs() <= 1.0) & (gz.abs() <= 1.0)
+    return inside.float().reshape(inside.shape[0], 1, -1)

@@ -25,14 +25,34 @@
 // lines per corner.
 //
 // Two entries.  dgtta_warp takes the grid as three f32 arrays (any map:
-// grid_sample, the deformable slice).  dgtta_warp_affine takes the 12
+// grid_sample, a deformable plan's fields and warps).  dgtta_warp_affine
+// takes the 12
 // numbers of an affine theta per batch entry and builds each point in the
 // kernel with the operations of core/grid.py::affine_grid, so it reads no
 // grid (12 bytes per output voxel fewer, more than a C = 1 warp's own source
 // and output bytes) and its output is bit for bit that of dgtta_warp on
-// affine_grid(theta); every call site of adaptation warps by an affine.
+// affine_grid(theta); every warp of an affine plan's adaptation takes it.
 // It also takes an optional per-batch factor (the adjoint's 1 / |det|),
 // applied in the store.
+//
+// A third entry, dgtta_warp_adjoint, is the exact adjoint of the grid entry's
+// trilinear warp: the gradient of sum(out * g) with respect to src,
+//
+//   dx[b, c, lin_k(o)] += weight_k(o) * g[b, c, o]
+//
+// over the 8 corners of every output o, the weights and corners of the
+// forward kernel (zeros padding drops the outside corners; border padding
+// adds their weight to the clamped edge voxel).  It is what the JAX package's
+// autodiff of its gather computes, a scatter-add; the TTA engine runs it for
+// DGTTA_EXACT_WARP_GRAD.  It keeps the forward's thread layout: one thread
+// per output voxel computes its corners and weights once, then loops over
+// the channels, reading g[b, c, o] (coalesced across the warp) and adding
+// eight products into an f32 buffer with atomicAdd.  What bounds it: the
+// atomics; the TTA warps are near the identity, so the 32 threads of a warp
+// add into a few neighbouring cache lines per corner, which L2 serves.  The
+// sum's order varies from run to run, so its result does too, in the last
+// bits of f32.  A bf16 result is the f32 buffer cast by one pass (the
+// wrapper's).
 //
 // What the design does about it: one thread per output voxel (grid entry)
 // or per two output voxels a block apart (affine entry: every load and
@@ -326,6 +346,72 @@ void launch(const void* src, const float* gx, const float* gy,
   }
 }
 
+// The exact adjoint of warp_kernel (trilinear): dx (f32, zeroed by the
+// caller) += weight * g at each corner, by atomicAdd.  One thread per output
+// voxel, the corners and weights of warp_kernel computed once, a loop over
+// the channels.
+template <typename T, bool BORDER>
+__global__ void __launch_bounds__(kThreads)
+warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ gx,
+                    const float* __restrict__ gy,
+                    const float* __restrict__ gz, float* __restrict__ dx,
+                    int C, int D, int H, int W, long long n_out, int align) {
+  const long long o = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (o >= n_out) return;
+  const int b = blockIdx.y;
+  const long long n_src = static_cast<long long>(D) * H * W;
+  const size_t gi = static_cast<size_t>(b) * n_out + o;
+  const float x = unnormalize(gx[gi], W, align);
+  const float y = unnormalize(gy[gi], H, align);
+  const float z = unnormalize(gz[gi], D, align);
+  const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
+  const float tx = x - x0f, ty = y - y0f, tz = z - z0f;
+  const int x0 = to_index(x0f, W), y0 = to_index(y0f, H),
+            z0 = to_index(z0f, D);
+  int lin[8];
+  float wt[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dz = k >> 2, dy = (k >> 1) & 1, dx_ = k & 1;
+    bool inside = true;
+    const int zi = corner(z0 + dz, D, &inside);
+    const int yi = corner(y0 + dy, H, &inside);
+    const int xi = corner(x0 + dx_, W, &inside);
+    lin[k] = (zi * H + yi) * W + xi;
+    const float w = __fmul_rn(__fmul_rn(dz ? tz : 1.0f - tz,
+                                        dy ? ty : 1.0f - ty),
+                              dx_ ? tx : 1.0f - tx);
+    wt[k] = (BORDER || inside) ? w : 0.0f;
+  }
+  const T* gb = g + static_cast<size_t>(b) * C * n_out + o;
+  float* db = dx + static_cast<size_t>(b) * C * n_src;
+  for (int c = 0; c < C; ++c) {
+    const float gv = to_f32(gb[static_cast<size_t>(c) * n_out]);
+    if (gv == 0.0f) continue;
+    float* dc = db + static_cast<size_t>(c) * n_src;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (wt[k] != 0.0f) atomicAdd(dc + lin[k], __fmul_rn(wt[k], gv));
+  }
+}
+
+template <typename T>
+void launch_adjoint(const void* g, const float* gx, const float* gy,
+                    const float* gz, float* dx, int B, int C, int D, int H,
+                    int W, long long n_out, int border, int align,
+                    cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
+                  B);
+  const T* gt = static_cast<const T*>(g);
+  if (border)
+    warp_adjoint_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        gt, gx, gy, gz, dx, C, D, H, W, n_out, align);
+  else
+    warp_adjoint_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        gt, gx, gy, gz, dx, C, D, H, W, n_out, align);
+}
+
 }  // namespace
 
 // src (B, C, D*H*W), gx/gy/gz (B, n_out) f32, out (B, C, n_out); all
@@ -387,5 +473,35 @@ extern "C" int dgtta_warp_affine(const void* src, const void* theta,
     launch_affine<__nv_bfloat16>(src, t, theta_stride, sc, scale_stride, out,
                                  B, C, D, H, W, Do, Ho, Wo, nearest, border,
                                  s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exact adjoint of dgtta_warp (trilinear): dx (B, C, D*H*W) f32, zeroed
+// by the caller, += the scatter of g (B, C, n_out) through the corners and
+// weights of the points gx/gy/gz (B, n_out) f32; border: 0 = zeros, 1 =
+// border; dtype of g: 0 = float32, 1 = bfloat16.  All contiguous.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
+// the kernel does not take).
+extern "C" int dgtta_warp_adjoint(const void* g, const void* gx,
+                                  const void* gy, const void* gz, void* dx,
+                                  int B, int C, int D, int H, int W,
+                                  long long n_out, int border, int align,
+                                  int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || C <= 0 || D <= 0 || H <= 0 || W <= 0 ||
+      static_cast<long long>(D) * H * W > 2147483647LL || n_out <= 0 ||
+      (n_out + kThreads - 1) / kThreads > 2147483647LL ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(gx);
+  const float* y = static_cast<const float*>(gy);
+  const float* z = static_cast<const float*>(gz);
+  float* d = static_cast<float*>(dx);
+  if (dtype == 0)
+    launch_adjoint<float>(g, x, y, z, d, B, C, D, H, W, n_out, border, align,
+                          s);
+  else
+    launch_adjoint<__nv_bfloat16>(g, x, y, z, d, B, C, D, H, W, n_out,
+                                  border, align, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,16 +11,23 @@ and output shapes.  f32 or bf16 in, f32 sums, output in the input's type.
 
 Two entries into the kernel (`csrc/warp.cu`, which says what bounds it on
 an H100 and what its design does about that):
-* `warp_flat` samples at a grid, an (x, y, z) tuple of coordinate arrays;
+* `warp_flat` samples at a grid, an (x, y, z) tuple of coordinate arrays:
+  a deformable plan's fields and warps take it;
 * `warp_affine_flat` samples at the grid `core/grid.affine_grid(theta,
   out_spatial)` would make, built in the kernel from theta's 12 numbers per
   batch entry (no grid in memory, bit for bit the same points), with an
-  optional per-batch factor on the output; every warp of adaptation takes
-  it.
+  optional per-batch factor on the output; every warp of an affine plan's
+  adaptation takes it.
+A third entry is the exact adjoint of the grid entry's trilinear warp,
+the scatter-add that autodiff of the JAX package's gather computes:
+* `warp_flat_adjoint` gives the gradient with respect to `flat` of
+  `sum(warp_flat(flat, ...) * g)`; `warp_flat_op` is the grid entry as an
+  autograd Function whose backward it is.
 Each launches the kernel for CUDA tensors, or raises; it runs its plain
-version (`warp_flat_reference`, `warp_affine_reference`) only for tensors
-on the CPU.  `warp_flat.launches` and `warp_affine_flat.launches` count
-the kernel's launches through each.
+version (`warp_flat_reference`, `warp_affine_reference`,
+`warp_flat_adjoint_reference`) only for tensors on the CPU.
+`warp_flat.launches`, `warp_affine_flat.launches` and
+`warp_flat_adjoint.launches` count the kernel's launches through each.
 """
 
 import ctypes
@@ -162,6 +169,112 @@ def warp_flat(flat, src_spatial, grid, mode: str = "trilinear",
 
 
 warp_flat.launches = 0
+
+
+def warp_flat_adjoint_reference(g, src_spatial, grid,
+                                padding_mode: str = "zeros",
+                                align_corners: bool = False):
+    """Plain PyTorch version of `warp_flat_adjoint`: autograd of
+    `warp_flat_reference` (trilinear) with respect to its f32 input, cast
+    to g's type."""
+    D, H, W = (int(s) for s in src_spatial)
+    x = torch.zeros((g.shape[0], g.shape[1], D * H * W), device=g.device,
+                    requires_grad=True)
+    with torch.enable_grad():
+        out = warp_flat_reference(x, (D, H, W), tuple(c.detach() for c in grid),
+                                  "trilinear", padding_mode, align_corners)
+        (dx,) = torch.autograd.grad(out, x, g.float())
+    return dx.to(g.dtype)
+
+
+_ADJOINT_FN = []  # the C entry, resolved at the first launch
+
+
+def warp_flat_adjoint(g, src_spatial, grid, padding_mode: str = "zeros",
+                      align_corners: bool = False):
+    """The exact adjoint of the trilinear `warp_flat(flat, src_spatial,
+    grid, padding_mode=..., align_corners=...)`: for `g` (B, C, Do*Ho*Wo)
+    at `grid` (an (x, y, z) tuple of (B or 1, Do, Ho, Wo) coordinates),
+    returns the gradient of `sum(warp_flat(flat, ...) * g)` with respect to
+    `flat`, (B, C, D*H*W) in g's type.  CPU tensors take the plain version;
+    CUDA tensors the kernel (an f32 scatter-add by atomics, cast to bf16 by
+    one pass for a bf16 g)."""
+    if padding_mode not in PADDINGS:
+        raise ValueError(f"padding_mode must be one of {PADDINGS}, got "
+                         f"{padding_mode!r}")
+    if g.dim() != 3 or g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"g must be a float32 or bfloat16 (B, C, N') "
+                         f"tensor, got {tuple(g.shape)} {g.dtype}")
+    D, H, W = (int(s) for s in src_spatial)
+    if len(grid) != 3:
+        raise ValueError("grid must be an (x, y, z) tuple")
+    out_spatial = tuple(grid[0].shape[-3:])
+    B, C, n_out = g.shape
+    for c in grid:
+        if c.dim() != 4 or tuple(c.shape[-3:]) != out_spatial \
+                or c.shape[0] not in (1, B):
+            raise ValueError(f"grid arrays must be (B, Do, Ho, Wo), got "
+                             f"{[tuple(a.shape) for a in grid]}")
+    if n_out != out_spatial[0] * out_spatial[1] * out_spatial[2]:
+        raise ValueError(f"g {tuple(g.shape)} does not hold the grid's "
+                         f"{out_spatial} outputs")
+    devices = {g.device, *(c.device for c in grid)}
+    if devices == {torch.device("cpu")}:
+        return warp_flat_adjoint_reference(g, (D, H, W), grid, padding_mode,
+                                           align_corners)
+    if g.device.type != "cuda" or len(devices) != 1:
+        raise ValueError(f"g and grid must lie on one CUDA device or all on "
+                         f"the CPU, got {sorted(map(str, devices))}")
+    if not g.is_contiguous():
+        raise ValueError("warp_flat_adjoint needs a contiguous g")
+    if not _ADJOINT_FN:
+        _ADJOINT_FN.append(build.function(
+            "warp", "dgtta_warp_adjoint",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]))
+    gx, gy, gz = (c.to(torch.float32).expand(B, *out_spatial).contiguous()
+                  for c in grid)
+    dx = torch.zeros((B, C, D * H * W), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        err = _ADJOINT_FN[0](
+            g.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
+            dx.data_ptr(), B, C, D, H, W, n_out,
+            int(padding_mode == "border"), int(align_corners),
+            _DTYPE_CODES[g.dtype],
+            torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp adjoint kernel launch failed with CUDA "
+                           f"error {err} for g {tuple(g.shape)} {g.dtype}, "
+                           f"source {(D, H, W)}")
+    warp_flat_adjoint.launches += 1
+    return dx if g.dtype == torch.float32 else dx.to(g.dtype)
+
+
+warp_flat_adjoint.launches = 0
+
+
+class _WarpFlatExact(torch.autograd.Function):
+    """The trilinear `warp_flat` whose backward is its exact adjoint
+    (`warp_flat_adjoint`); no gradient for the grid."""
+
+    @staticmethod
+    def forward(ctx, flat, src_spatial, grid, padding_mode, align_corners):
+        ctx.args = (src_spatial, grid, padding_mode, align_corners)
+        return warp_flat(flat, src_spatial, grid, "trilinear", padding_mode,
+                         align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        return warp_flat_adjoint(g.contiguous(), *ctx.args), None, None, \
+            None, None
+
+
+def warp_flat_op(flat, src_spatial, grid, padding_mode: str = "zeros",
+                 align_corners: bool = False):
+    """The trilinear `warp_flat` through autograd: its gradient with
+    respect to `flat` is the exact adjoint (`warp_flat_adjoint`)."""
+    return _WarpFlatExact.apply(flat, tuple(int(s) for s in src_spatial),
+                                tuple(grid), padding_mode, align_corners)
 
 
 def _check_affine(flat, src_spatial, theta, out_spatial, mode, padding_mode,
@@ -320,6 +433,14 @@ def warp_bytes(flat_shape, n_source: int, n_out: int, element_size: int,
     entry for `warp_affine_flat`."""
     B, C, _ = flat_shape
     return (C * n_source + B * C * n_out) * element_size + grid_bytes
+
+
+def warp_adjoint_bytes(g_shape, n_source: int, element_size: int) -> int:
+    """Bytes one `warp_flat_adjoint` call must move: g read once, the
+    (B, C, n_source) gradient written once in g's type, and three f32
+    coordinates per output voxel."""
+    B, C, n_out = g_shape
+    return (B * C * n_out + B * C * n_source) * element_size + 12 * B * n_out
 
 
 def warp_flops(flat_shape, n_out: int, mode: str = "trilinear") -> int:

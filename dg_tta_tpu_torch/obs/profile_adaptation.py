@@ -3,7 +3,14 @@ default plan through the CLI.
 
     python -m dg_tta_tpu_torch.obs.profile_adaptation
         [--dtype float32|bfloat16] [--pretrained TS104_GIN|TS104_GIN_MIND|...]
+        [--spatial-aug affine|deformable ...] [--exact-warp-grad]
         [--trace trace.json] [--no-cli]
+
+Each plan of `--spatial-aug` (default: affine; `--spatial-aug affine
+deformable` profiles both back to back, for the deformable premium per
+step and per volume from one call) runs both parts;
+`--exact-warp-grad` gives the unwarps their exact adjoint
+(`DGTTA_EXACT_WARP_GRAD`) in both:
 
 1. Profile: the full-width U-Net of `--pretrained` (TS104_GIN by default;
    a MIND family computes its descriptor in every forward; 105 classes,
@@ -19,7 +26,8 @@ default plan through the CLI.
 2. CLI (unless --no-cli): `prepare_tta` and `run_tta` of the default
    TEMPLATE_PLAN (12 epochs x 16 patches x 3 members) on the synthetic
    workspace of `obs/synthetic.py`, with no member files, in `--dtype`
-   (`DGTTA_COMPUTE_DTYPE` is set for the call and restored after it);
+   (`DGTTA_COMPUTE_DTYPE`, and `DGTTA_EXACT_WARP_GRAD` with
+   `--exact-warp-grad`, are set for the call and restored after it);
    prints the phases of `timings.json`, tta_sec_per_volume (adaptation +
    inference), the peak device memory, the members' final losses and the
    kernels' launches per route.
@@ -42,10 +50,12 @@ STEPS = 4
 
 def _counters():
     from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
-    from dg_tta_tpu_torch.kernels.warp import warp_affine_flat, warp_flat
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
+                                               warp_flat_adjoint)
 
     return {"conv3x3": conv3x3, "conv3x3_wgrad": conv3x3_wgrad,
-            "warp": warp_flat, "warp_affine": warp_affine_flat}
+            "warp": warp_flat, "warp_affine": warp_affine_flat,
+            "warp_adjoint": warp_flat_adjoint}
 
 
 def _route_counts():
@@ -63,7 +73,8 @@ def _trainer(pretrained):
     return TS104_ALIASES[pretrained]
 
 
-def profile_steps(dtype, trace=None, pretrained="TS104_GIN"):
+def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
+                  spatial_aug="affine", exact=False):
     from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
     from dg_tta_tpu_torch.obs.synthetic import synthetic_ct
     from dg_tta_tpu_torch.tta.draws import TorchDraws
@@ -77,7 +88,8 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN"):
     model = ts104_model(
         compute_dtype=None if dtype == "float32" else dtype,
         trainer=_trainer(pretrained))
-    plan = TTAPlan(patches_to_be_accumulated=STEPS)
+    plan = TTAPlan(patches_to_be_accumulated=STEPS,
+                   spatial_aug_type=spatial_aug)
     net = seeded_net(model, 0, device)
     opt = make_optimizer(plan, list(net.parameters()))
     vol, _ = synthetic_ct(np.random.default_rng(0), VOLUME_SHAPE)
@@ -86,7 +98,7 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN"):
     vols = vols.to(device)
     shapes = [list(map(float, VOLUME_SHAPE))]
     idx = np.arange(4)
-    fns = make_tta_functions(model, plan, idx, idx)
+    fns = make_tta_functions(model, plan, idx, idx, exact_warp_grad=exact)
     draws = TorchDraws(seed=0)
 
     fns.epoch_train(net, opt, draws, 0, 0, vols, shapes)
@@ -111,6 +123,7 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN"):
     busy = sum(per_name.values())
     launches = {k: c.launches - before[k] for k, c in counters.items()}
     print(f"profile: device {torch.cuda.get_device_name(0)}; {pretrained}; "
+          f"{spatial_aug}{' exact warp gradient' if exact else ''}; "
           f"{dtype}; one epoch of {STEPS} patch steps (batch 2 x 112x112x128, both "
           f"branches) + AdamW; loss {float(loss):.5f}")
     print(f"profile: wall {wall * 1e3:.1f} ms = {wall * 1e3 / STEPS:.1f} "
@@ -125,7 +138,8 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN"):
         prof.export_chrome_trace(trace)
 
 
-def run_default_plan(dtype="float32", pretrained="TS104_GIN"):
+def run_default_plan(dtype="float32", pretrained="TS104_GIN",
+                     spatial_aug="affine", exact=False):
     from dg_tta_tpu_torch.cli.main import main as cli
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
 
@@ -133,22 +147,26 @@ def run_default_plan(dtype="float32", pretrained="TS104_GIN"):
         ws = make_workspace(Path(tmp), seed=0, shape=VOLUME_SHAPE,
                             trainer=_trainer(pretrained))
         cli(["prepare_tta", pretrained, ws.dataset_id])
-        results_dir, plan = edit_plan(pretrained)
+        results_dir, plan = edit_plan(pretrained,
+                                      spatial_aug_type=spatial_aug)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = _route_counts()
-        saved = os.environ.get("DGTTA_COMPUTE_DTYPE")
+        saved = {k: os.environ.pop(k, None) for k in (
+            "DGTTA_COMPUTE_DTYPE", "DGTTA_EXACT_WARP_GRAD")}
         os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
+        if exact:
+            os.environ["DGTTA_EXACT_WARP_GRAD"] = "1"
         try:
             t0 = time.perf_counter()
             cli(["run_tta", pretrained, ws.dataset_id])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            if saved is None:
-                del os.environ["DGTTA_COMPUTE_DTYPE"]
-            else:
-                os.environ["DGTTA_COMPUTE_DTYPE"] = saved
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = {k: {r: n - before[k][r] for r, n in routes.items()}
                     for k, routes in _route_counts().items()}
@@ -159,7 +177,9 @@ def run_default_plan(dtype="float32", pretrained="TS104_GIN"):
     phases = timings["phases"]
     adapt = phases["adaptation"]["total_s"]
     infer = phases["inference"]["total_s"]
-    print(f"cli: {pretrained} default plan ({plan['epochs']} epochs x "
+    print(f"cli: {pretrained} default plan, {spatial_aug}"
+          f"{' exact warp gradient' if exact else ''} "
+          f"({plan['epochs']} epochs x "
           f"{plan['patches_to_be_accumulated']} patches x "
           f"{plan['ensemble_count']} members, {dtype}) on "
           f"{timings['device']}: "
@@ -181,13 +201,19 @@ def main(argv=None):
                    choices=["float32", "bfloat16"])
     p.add_argument("--pretrained", default="TS104_GIN",
                    choices=sorted(TS104_ALIASES))
+    p.add_argument("--spatial-aug", nargs="+", default=["affine"],
+                   choices=["affine", "deformable"])
+    p.add_argument("--exact-warp-grad", action="store_true")
     p.add_argument("--trace", default=None)
     p.add_argument("--no-cli", action="store_true")
     args = p.parse_args(argv)
     resolve_device("cuda")
-    profile_steps(args.dtype, args.trace, args.pretrained)
-    if not args.no_cli:
-        run_default_plan(args.dtype, args.pretrained)
+    for aug in args.spatial_aug:
+        profile_steps(args.dtype, args.trace, args.pretrained, aug,
+                      args.exact_warp_grad)
+        if not args.no_cli:
+            run_default_plan(args.dtype, args.pretrained, aug,
+                             args.exact_warp_grad)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,9 @@ accumulation step `step`, a `PatchDraws`:
     (`ops/gin.GinDraws`, for the B patches), else None;
   * `mind_noise(shape, device)`: the standard-normal MIND noise of the
     step's one forward of both branches (2B patches), on `device`;
+  * `field_a(shape, device)`, `field_b(shape, device)`: the standard-normal
+    noise of each branch's deformable field, (B, D//5, H//5, W//5, 3) at
+    the default plan (`core/fields.get_disp_field`), on `device`;
 for the evaluation repeat `rep` of an epoch, the volume indices of the
 centre patches (`eval_volumes`) and their MIND noise (`eval_mind_noise`);
 and for sliding-window inference the MIND noise of window `window` (its
@@ -28,6 +31,7 @@ draws.
 """
 
 import dataclasses
+import functools
 import hashlib
 from typing import Callable, Optional
 
@@ -47,6 +51,8 @@ class PatchDraws:
     gin_b: Optional[GinDraws] = None
     # (shape, device) -> standard-normal tensor
     mind_noise: Optional[Callable] = None
+    field_a: Optional[Callable] = None
+    field_b: Optional[Callable] = None
 
 
 class TorchDraws:
@@ -55,9 +61,11 @@ class TorchDraws:
     sample index, member id, ...): the small draws come from a CPU
     `torch.Generator` of that seed, in a fixed order (GIN's nets after the
     affine noise, a only where branch a runs GIN), and the MIND noise
-    (2 x 112 x 112 x 128 x 12 f32 per full-size step) from a generator on
-    the device that needs it, seeded from the same hash with "mind"
-    appended.  A member's draws therefore do not depend on which other
+    (2 x 112 x 112 x 128 x 12 f32 per full-size step) and each branch's
+    deformable field noise from a generator on the device that needs it,
+    seeded from the same hash with "mind", or "field" and the branch,
+    appended: drawn only when asked for, so they move no other draw.  A
+    member's draws therefore do not depend on which other
     members run, or in which order: a resumed run that adapts only the
     missing members redraws exactly what a full run would have drawn for
     them."""
@@ -92,9 +100,12 @@ class TorchDraws:
         for branch, key in (("branch_a", "gin_a"), ("branch_b", "gin_b")):
             if branch in gin_branches:
                 out[key] = draw_gin(g, batch, channels)
-        seed = self._seed(*parts, "mind")
-        return PatchDraws(**out, mind_noise=lambda shape, device:
-                          self._normal(seed, shape, device))
+        seeds = {k: self._seed(*parts, *tail) for k, tail in (
+            ("mind_noise", ("mind",)), ("field_a", ("field", "branch_a")),
+            ("field_b", ("field", "branch_b")))}
+        return PatchDraws(**out, **{
+            k: functools.partial(self._normal, seed)
+            for k, seed in seeds.items()})
 
     def eval_volumes(self, member: int, epoch: int, rep: int, n_vols: int,
                      batch: int) -> np.ndarray:

@@ -16,11 +16,13 @@ At the end the run directory gets `timings.json`: the device and the
 wall-clock seconds of every phase (`obs/timers.PhaseTimer`): "adaptation",
 "inference" and the rest.
 
+`DGTTA_EXACT_WARP_GRAD` (any non-empty value, as in the JAX driver) gives
+the unwarp its exact adjoint (`tta/engine.make_tta_functions`).
+
 Not in this slice, and raising `NotImplementedError`: wandb logging, the
 loss plots (`obs/plots.py`; ROADMAP A.6), the JAX driver's environment
-overrides DGTTA_EXACT_WARP_GRAD, DGTTA_PATCH_GROUP, DGTTA_REMAT and
-DGTTA_ENGINE, and the adaptation features that
-`tta/engine.check_supported` names.
+overrides DGTTA_PATCH_GROUP, DGTTA_REMAT and DGTTA_ENGINE, and the
+adaptation features that `tta/engine.check_supported` names.
 """
 
 import dataclasses
@@ -175,9 +177,6 @@ def _check_driver_supported(plan: TTAPlan):
     if plan.wandb_mode != "disabled":
         later.append(f"wandb logging (wandb_mode={plan.wandb_mode!r}; "
                      "ROADMAP A.6)")
-    if os.environ.get("DGTTA_EXACT_WARP_GRAD"):
-        later.append("DGTTA_EXACT_WARP_GRAD, the exact warp adjoint "
-                     "(ROADMAP A.5, left out)")
     for env in ("DGTTA_PATCH_GROUP", "DGTTA_REMAT", "DGTTA_ENGINE"):
         if os.environ.get(env):
             later.append(f"{env} (ROADMAP A.5, left out)")
@@ -242,7 +241,8 @@ def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
                 modify_output_fn=modify_output_fn,
                 modify_after_mapping_fn=modify_after_mapping_fn,
                 log_fn=log_fn if verbose else None, member_indices=missing,
-                save_member_fn=save_member)
+                save_member_fn=save_member,
+                exact_warp_grad=bool(os.environ.get("DGTTA_EXACT_WARP_GRAD")))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
 

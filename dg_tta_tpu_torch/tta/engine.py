@@ -3,23 +3,28 @@ of the pretrained network by a two-branch consistency loss (the port of
 `dg_tta_tpu/tta/engine.py`, reference tta.py:157-374 and :480-579).
 
 One patch step: extract a batch of patches, augment each branch (GIN where
-the plan puts it in the branch, then a random affine warp of the input,
-border padding), run both branches through ONE network forward (2B batch;
-a MIND model computes its descriptor of the 2B patches in that forward),
-unwarp each branch's logits back to the patch frame (zeros padding) and
-take 1 - mean foreground soft Dice between them.
+the plan puts it in the branch, then a random spatial warp of the input,
+border padding: an affine, or a deformable plan's diffeomorphic field),
+run both branches through ONE network forward (2B batch; a MIND model
+computes its descriptor of the 2B patches in that forward), unwarp each
+branch's logits back to the patch frame (zeros padding) and take
+1 - mean foreground soft Dice between them.
 `patches_to_be_accumulated` steps sum their gradients; the mean gradient
-takes one AdamW step over the released parameters.  Every
-warp is the hand-written warp kernel's affine entry
+takes one AdamW step over the released parameters.  Every affine warp is
+the hand-written warp kernel's affine entry
 (`kernels/warp.warp_affine_flat`: the points built from theta in the
-kernel, no grid in memory), every
+kernel, no grid in memory); the deformable fields (`core/fields.py`) and
+their warps take its grid entry (`kernels/warp.warp_flat`); every
 stride-1 conv of the forward and backward the conv kernels
 (`kernels/conv3x3.py`).
 
 The math is the JAX package's CPU default: the exact trilinear warp, the
-original-frame loss and the plain z-tap U-Net, with the approximate
-inverse-map adjoint of the unwarp (`_WarpWithInverse`).  The random draws
-come from a draw source (`tta/draws.py`).  Members run one after another.
+original-frame loss, full-resolution fields and the plain z-tap U-Net,
+with the approximate inverse-map adjoint of the unwarp
+(`_WarpWithInverse`, `_GridWarpWithInverse`), or with
+`exact_warp_grad` the exact one (the warp kernel's scatter-add adjoint,
+`kernels/warp.warp_flat_op`).  The random draws come from a draw source
+(`tta/draws.py`).  Members run one after another.
 
 Reference quirks kept, as in the JAX package:
 * `have_grad_in` gates on the plan value only, never the branch:
@@ -30,8 +35,7 @@ Reference quirks kept, as in the JAX package:
 * Epochs before `start_tta_at_epoch` compute the loss but do not update.
 
 Not in this slice; each raises `NotImplementedError` (`check_supported`):
-deformable spatial augmentation, `patch_group > 1`, `remat` and the split
-engine (ROADMAP A.5, A.8).
+`patch_group > 1`, `remat` and the split engine (ROADMAP A.5).
 The plan's `ensemble_chunk` schedules nothing: members run one after
 another.
 """
@@ -43,11 +47,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
+from dg_tta_tpu_torch.core.fields import (affine_abs_det, deformable_grids,
+                                          get_rand_affine)
+from dg_tta_tpu_torch.core.grid import affine_grid
 from dg_tta_tpu_torch.core.labels import map_label_argmaxed
 from dg_tta_tpu_torch.core.losses import consistency_loss_flat, dice_coeff
 from dg_tta_tpu_torch.core.patches import extract_batch
-from dg_tta_tpu_torch.kernels.warp import warp_affine_flat
+from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
+                                           warp_flat_op)
 from dg_tta_tpu_torch.models.network import Model
 from dg_tta_tpu_torch.ops.gin import gin_aug
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
@@ -62,16 +69,10 @@ def check_supported(model: Model, plan: TTAPlan):
     """Raise `NotImplementedError`, naming the slice that brings it, for
     every adaptation feature of the plan or model this slice does not
     run."""
-    later = []
-    if plan.spatial_aug_type == "deformable" \
-            and plan.do_spatial_aug_in != "none":
-        later.append("deformable spatial augmentation (ROADMAP A.8)")
     if plan.patch_group != 1 or plan.remat or plan.engine == "split":
-        later.append("patch_group > 1, remat and the split engine "
-                     "(ROADMAP A.5, left out)")
-    if later:
         raise NotImplementedError(
-            "not ported to dg_tta_tpu_torch yet: " + "; ".join(later))
+            "not ported to dg_tta_tpu_torch yet: patch_group > 1, remat and "
+            "the split engine (ROADMAP A.5, left out)")
 
 
 class _WarpWithInverse(torch.autograd.Function):
@@ -108,6 +109,25 @@ class _WarpWithInverse(torch.autograd.Function):
 def _warp_with_inverse(x, theta, theta_inv, inv_det, spatial, padding_mode):
     return _WarpWithInverse.apply(x, theta, theta_inv, inv_det,
                                   tuple(spatial), padding_mode)
+
+
+class _GridWarpWithInverse(torch.autograd.Function):
+    """The warp of `x` at `grid` (`warp_flat`) whose backward resamples the
+    incoming gradient at `grid_inv` (zeros padding): `_WarpWithInverse`
+    for a deformable branch, whose inverse-consistent field is near the
+    identity, so |det| ~ 1 and the JAX package's factor of 1 is left out
+    (`_wwi_fwd`/`_wwi_bwd` there)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, grid_inv, spatial, padding_mode):
+        ctx.spatial, ctx.grid_inv = spatial, grid_inv
+        return warp_flat(x, spatial, grid, padding_mode=padding_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = warp_flat(g.contiguous(), ctx.spatial, ctx.grid_inv,
+                       padding_mode="zeros")
+        return dx, None, None, None, None
 
 
 def params_with_grad_mask(net: torch.nn.Module, mode: str) -> dict:
@@ -154,12 +174,13 @@ class TTAFunctions:
 def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
                        map_idxs_tta,
                        modify_input_fn: Optional[Callable] = None,
-                       modify_output_fn: Optional[Callable] = None
-                       ) -> TTAFunctions:
+                       modify_output_fn: Optional[Callable] = None,
+                       exact_warp_grad: bool = False) -> TTAFunctions:
     """The engine's functions.  modify_input_fn runs after the branch
     augmentation, before the model; modify_output_fn on the mapped logits
     (the user's modifier functions, config_log_utils.py:44-69 of the
-    reference)."""
+    reference).  exact_warp_grad: the unwarp's backward is the exact
+    adjoint of its warp (a scatter-add), not the inverse-map resample."""
     check_supported(model, plan)
     patch_size = tuple(model.patch_size)
     B = plan.batch_size
@@ -178,33 +199,60 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
                                  gin_branches=gin_branches,
                                  channels=vols.shape[-1])
 
+    deformable = plan.spatial_aug_type == "deformable"
+    # the deformable fields' interpolation factor (JAX engine.py:281-285)
+    # and the noise it takes per branch, (B, D//f, H//f, W//f, 3)
+    field_factor = 5
+    field_shape = (B, *(s // field_factor for s in patch_size), 3)
+
     def branch_aug(draws, imgs, branch_id):
         """One branch's input augmentation: GIN where the plan puts it in
-        this branch, then the warp; returns the augmented input and the
-        (theta, theta_inv, adjoint scale) that undo the warp, or None."""
+        this branch, then the warp; returns the augmented input and what
+        undoes the warp, or None: ("affine", theta, theta_inv, adjoint
+        scale) or ("grid", grid, grid_inv)."""
         a = branch_id == "branch_a"
         if branch_id in gin_branches:
             imgs = gin_aug(imgs, draws.gin_a if a else draws.gin_b)
         if not _in_branch(plan.do_spatial_aug_in, branch_id):
             return imgs, None
         Bi, Cin = imgs.shape[0], imgs.shape[-1]
-        theta, theta_inv = get_rand_affine(torch.tensor(
-            draws.noise_a if a else draws.noise_b, dtype=torch.float32,
-            device=imgs.device))
-        # adjoint scale of the inverse warp: 1 / |det theta_inv| = |det R|
-        adj_scale = affine_abs_det(theta)
         xf = imgs.movedim(-1, 1).reshape(Bi, Cin, -1).contiguous()
-        xf = warp_affine_flat(xf, patch_size, theta, patch_size,
-                              padding_mode="border")
-        x = xf.reshape(Bi, Cin, *patch_size).movedim(1, -1)
-        return x, (theta, theta_inv, adj_scale)
+        if deformable:
+            noise = (draws.field_a if a else draws.field_b)(field_shape,
+                                                           imgs.device)
+            grid, grid_inv = deformable_grids(
+                noise, patch_size, factor=0.5,
+                interpolation_factor=field_factor)
+            xf = warp_flat(xf, patch_size, grid, padding_mode="border")
+            ctx = ("grid", grid, grid_inv)
+        else:
+            theta, theta_inv = get_rand_affine(torch.tensor(
+                draws.noise_a if a else draws.noise_b, dtype=torch.float32,
+                device=imgs.device))
+            # adjoint scale of the inverse warp: 1 / |det theta_inv| = |det R|
+            adj_scale = affine_abs_det(theta)
+            xf = warp_affine_flat(xf, patch_size, theta, patch_size,
+                                  padding_mode="border")
+            ctx = ("affine", theta, theta_inv, adj_scale)
+        return xf.reshape(Bi, Cin, *patch_size).movedim(1, -1), ctx
 
     def branch_unwarp_flat(logits_flat, warp_ctx):
         """Undo a branch's warp on channels-first flat (B, C, N) logits; the
-        backward resamples by the forward affine (`_WarpWithInverse`)."""
+        backward resamples by the forward warp (`_WarpWithInverse`,
+        `_GridWarpWithInverse`), or with exact_warp_grad is the unwarp's
+        exact adjoint (`warp_flat_op`, on the inverse affine's grid for an
+        affine branch)."""
         if warp_ctx is None:
             return logits_flat
-        theta, theta_inv, adj_scale = warp_ctx
+        if exact_warp_grad:
+            grid_inv = (warp_ctx[2] if warp_ctx[0] == "grid"
+                        else affine_grid(warp_ctx[2], patch_size))
+            return warp_flat_op(logits_flat, patch_size, grid_inv)
+        if warp_ctx[0] == "grid":
+            _, grid, grid_inv = warp_ctx
+            return _GridWarpWithInverse.apply(logits_flat, grid_inv, grid,
+                                              patch_size, "zeros")
+        _, theta, theta_inv, adj_scale = warp_ctx
         return _warp_with_inverse(logits_flat, theta_inv, theta, adj_scale,
                                   patch_size, "zeros")
 
@@ -344,7 +392,8 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
                    modify_output_fn: Optional[Callable] = None,
                    modify_after_mapping_fn: Optional[Callable] = None,
                    log_fn: Optional[Callable] = None, member_indices=None,
-                   save_member_fn: Optional[Callable] = None):
+                   save_member_fn: Optional[Callable] = None,
+                   exact_warp_grad: bool = False):
     """Adapt the ensemble members of one volume (or, with
     tta_across_all_samples, of a stack of volumes), one after another on
     the volumes' device.
@@ -355,6 +404,7 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
     member's draws depend on its id only (`draw_source`), so a resume
     subset redraws what the full run would have.  save_member_fn(member,
     net, losses, dices) runs as soon as a member finishes.
+    exact_warp_grad: the unwarp's exact adjoint (`make_tta_functions`).
 
     Returns (adapted networks in member_indices order, losses (epochs, M),
     dices (epochs, M)).
@@ -368,7 +418,8 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
                   else modify_after_mapping_fn)
     fns = make_tta_functions(model, plan, map_idxs_pretrain, map_idxs_tta,
                              modify_input_fn=modify_input_fn,
-                             modify_output_fn=out_fn)
+                             modify_output_fn=out_fn,
+                             exact_warp_grad=exact_warp_grad)
     members = (list(range(plan.ensemble_count)) if member_indices is None
                else list(member_indices))
     nets, losses, dices = [], [], []

@@ -435,7 +435,7 @@ def test_expected_launches_route_split(dtype):
       conv3x3_wgrad = 2 x 4 x 5 = 40, of it c1 8, the wgmma route of
         the type 32, none on "cuda_core"
       warp_affine = 2 x (8 x 4 + 4 x 2 + 2) = 84 (every warp is by an
-        affine), warp (the grid entry) = 0
+        affine), warp (the grid entry) = 0, warp_adjoint (exact) = 0
     """
     from dg_tta_tpu_torch.models.plans import ArchSpec
 
@@ -455,7 +455,7 @@ def test_expected_launches_route_split(dtype):
         conv3x3_wgrad_wgmma=32 if bf16 else 0,
         conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
         conv3x3_wgrad_cuda_core=0, conv3x3_padded=0,
-        conv3x3_wgrad_padded=0, warp=0, warp_affine=84)
+        conv3x3_wgrad_padded=0, warp=0, warp_affine=84, warp_adjoint=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -482,4 +482,43 @@ def test_expected_launches_mind_stem(dtype):
         conv3x3_wgrad_wgmma=40 if bf16 else 0,
         conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 40,
         conv3x3_wgrad_cuda_core=0, conv3x3_padded=26,
-        conv3x3_wgrad_padded=8, warp=0, warp_affine=84)
+        conv3x3_wgrad_padded=8, warp=0, warp_affine=84, warp_adjoint=0)
+
+
+@pytest.mark.parametrize("spatial,exact,warps", [
+    ("deformable", False, (400, 4, 0)),
+    ("deformable", True, (384, 4, 16)),
+    ("affine", True, (32, 36, 16)),
+    ("affine", False, (0, 84, 0)),
+])
+def test_expected_launches_warp_entries(spatial, exact, warps):
+    """The warp's three entries at the plan of
+    test_expected_launches_route_split (2 members, 8 patch steps of which
+    4 trained, 2 evals, both branches warped), worked out by hand as
+    (grid entry, affine entry, exact adjoint):
+      deformable: per step and branch 10 field warps, the input warp and
+        the unwarp, 2 x 8 x 2 x 12 = 384, plus the fast adjoints on the
+        grid entry, 2 x 4 x 2 = 16, or the exact ones; the affine entry
+        samples the evals' labels only, 2 x 2 = 4;
+      affine, exact: the unwarps on the grid entry (2 x 8 x 2 = 32), the
+        input warps and label samplings on the affine entry (32 + 4), the
+        exact adjoints 16.
+    The conv counts do not depend on the warps."""
+    from dg_tta_tpu_torch.models.plans import ArchSpec
+
+    spec = ArchSpec(features_per_stage=(16, 32),
+                    kernel_sizes=((3, 3, 3),) * 2,
+                    strides=((1, 1, 1), (2, 2, 2)),
+                    n_conv_per_stage_encoder=(2, 2),
+                    n_conv_per_stage_decoder=(2,), num_input_channels=1,
+                    num_classes=4)
+    plan = dict(epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1,
+                spatial_aug_type=spatial, do_spatial_aug_in="both")
+    mod = _chip_smoke()
+    got = mod.expected_launches(spec, 3, 2, plan, "float32", exact)
+    assert (got["warp"], got["warp_affine"], got["warp_adjoint"]) == warps
+    base = mod.expected_launches(spec, 3, 2, dict(
+        epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1),
+        "float32")
+    assert {k: v for k, v in got.items() if k.startswith("conv")} == \
+        {k: v for k, v in base.items() if k.startswith("conv")}

@@ -18,10 +18,18 @@ Tolerances, max |kernel - plain| over max |plain|:
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
   kernel), 2^-7 in bf16 (one rounding of an f32 sum); nearest is exact
   (both round the same f32 coordinates half to even); the affine entry
-  equals the grid entry on the card's `affine_grid` exactly.
+  equals the grid entry on the card's `affine_grid` exactly;
+* the warp's adjoint: 1e-5 in f32 (the same products, added into each
+  source voxel by atomics in an order that varies from run to run), 2^-7
+  in bf16 (one rounding of the f32 sum);
+* the deformable fields, card against CPU: 1e-4 of their largest value
+  (ten warps and the smoothing summed in another order; the field's
+  normalization amplifies that ~100x, as against the JAX package).
 The card-vs-CPU runs of the conv's autograd Function, of a small
 `tta_one_volume`, of MIND and of GIN state theirs in place.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -34,6 +42,9 @@ from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_op,
                                               conv3x3_wgrad_route)
 from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
                                            warp_affine_reference, warp_flat,
+                                           warp_flat_adjoint,
+                                           warp_flat_adjoint_reference,
+                                           warp_flat_op,
                                            warp_flat_reference)
 
 RTOL = {"float32": 5e-5, "bfloat16": 2.0 ** -7}
@@ -695,3 +706,154 @@ def test_mind3d_on_card_matches_cpu(cuda_device):
     got = mind3d(img.to(cuda_device), noise=noise.to(cuda_device)).cpu()
     assert got.shape == ref.shape == (2, 40, 48, 56, 12)
     assert _max_rel_err(got, ref) <= 1e-5
+
+
+def _near_identity_grid(rng, B, out_spatial, align_corners, device):
+    """identity + a random displacement (independent per voxel, std 0.075,
+    shifted by 0.05), reaching past the edges."""
+    from dg_tta_tpu_torch.core.grid import identity_grid
+
+    ident = identity_grid(out_spatial, align_corners)
+    return tuple((i[None] + torch.from_numpy(
+        0.15 * rng.normal(size=(B, *out_spatial)).astype(np.float32))
+        * 0.5 + 0.05).to(device) for i in ident)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("C,src,out", [
+    (1, (19, 13, 37), (19, 13, 37)),    # ragged, endomorphic
+    (4, (9, 14, 11), (6, 17, 23)),      # not endomorphic
+])
+def test_warp_adjoint_kernel_matches_plain(cuda_device, dtype, padding_mode,
+                                           align_corners, C, src, out):
+    rng = np.random.default_rng(30)
+    B = 2
+    dt = getattr(torch, dtype)
+    g = torch.from_numpy(rng.normal(size=(B, C, int(np.prod(out))))
+                         .astype(np.float32)).to(cuda_device, dt)
+    grid = _near_identity_grid(rng, B, out, align_corners, cuda_device)
+    before = warp_flat_adjoint.launches
+    got = warp_flat_adjoint(g, src, grid, padding_mode, align_corners)
+    torch.cuda.synchronize()
+    assert warp_flat_adjoint.launches == before + 1
+    ref = warp_flat_adjoint_reference(g, src, grid, padding_mode,
+                                      align_corners)
+    assert got.dtype == dt and got.shape == (B, C, int(np.prod(src)))
+    assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_warp_flat_op_backward_on_card_matches_cpu(cuda_device):
+    """The grid entry through autograd: the forward on the grid entry, the
+    backward on the adjoint kernel, against the same Function on the CPU
+    (plain versions)."""
+    rng = np.random.default_rng(31)
+    src = (12, 16, 20)
+    n = int(np.prod(src))
+    x = torch.from_numpy(rng.normal(size=(1, 4, n)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(1, 4, n)).astype(np.float32))
+    grid = _near_identity_grid(rng, 1, src, False, "cpu")
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xd = x.detach().to(dev).requires_grad_(True)
+        counts = (warp_flat.launches, warp_flat_adjoint.launches)
+        y = warp_flat_op(xd, src, tuple(c.to(dev) for c in grid))
+        (y * ct.to(dev)).sum().backward()
+        outs.append((y.detach().cpu(), xd.grad.cpu(),
+                     (warp_flat.launches - counts[0],
+                      warp_flat_adjoint.launches - counts[1])))
+    (y0, g0, c0), (y1, g1, c1) = outs
+    assert c0 == (0, 0) and c1 == (1, 1)
+    assert _max_rel_err(y1, y0) <= 1e-5
+    assert _max_rel_err(g1, g0) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_disp_field_on_card_matches_cpu(cuda_device):
+    """`get_disp_field` at the engine's settings on a 30 x 40 x 50 patch
+    from one noise tensor: its ten field warps on the grid entry, card
+    against CPU."""
+    from dg_tta_tpu_torch.core.fields import get_disp_field
+
+    size = (30, 40, 50)
+    noise = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(1, 6, 8, 10, 3)).astype(np.float32))
+    ref = get_disp_field(noise, size, factor=0.5, interpolation_factor=5)
+    before = warp_flat.launches
+    got = get_disp_field(noise.to(cuda_device), size, factor=0.5,
+                         interpolation_factor=5)
+    torch.cuda.synchronize()
+    assert warp_flat.launches == before + 10
+    for got_f, ref_f in zip(got, ref):
+        for a, b in zip(got_f, ref_f):
+            assert a.is_cuda and a.shape == (1, *size)
+            assert _max_rel_err(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+def test_deformable_patch_step_on_card_matches_cpu(cuda_device, exact):
+    """One deformable patch step of a tiny U-Net on a 30^3 patch, the
+    same injected field noise on both devices, card against CPU: loss
+    1e-4 relative and each gradient 1e-3 of its largest entry (f32
+    rounding in another order through the fields, the warps and the
+    network), and the kernels launched as counted: 12 grid-entry warps per
+    branch, then the fast adjoints on the grid entry, or the exact ones."""
+    import dataclasses
+
+    from dg_tta_tpu_torch.core.patches import extract_batch
+    from dg_tta_tpu_torch.models.network import Model
+    from dg_tta_tpu_torch.models.plans import ArchSpec
+    from dg_tta_tpu_torch.models.unet import init_unet_
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import make_tta_functions
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    spec = ArchSpec(features_per_stage=(8, 16), kernel_sizes=((3, 3, 3),) * 2,
+                    strides=((1, 1, 1), (2, 2, 2)),
+                    n_conv_per_stage_encoder=(1, 1),
+                    n_conv_per_stage_decoder=(1,), num_input_channels=1,
+                    num_classes=4)
+    patch = (30, 30, 30)
+    model = Model(spec=spec, patch_size=patch,
+                  trainer_name="nnUNetTrainer_GIN", uses_gin_internal=True,
+                  uses_mind=False)
+    net0 = init_unet_(model.build_network(device="cpu"),
+                      torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(33)
+    vol = rng.normal(size=(1, 40, 44, 36, 1)).astype(np.float32) * 0.1
+    vol[0, 10:25, 12:30, 8:24] += 2.0
+    d = TorchDraws(seed=6).patch(0, 0, 0, 1, 1)
+    noise = {k: torch.from_numpy(rng.normal(size=(1, 6, 6, 6, 3))
+                                 .astype(np.float32))
+             for k in ("field_a", "field_b")}
+    d = dataclasses.replace(d, **{
+        k: (lambda shape, device, n=n: n.to(device))
+        for k, n in noise.items()})
+    fns = make_tta_functions(model, TTAPlan(spatial_aug_type="deformable"),
+                             np.arange(3), np.arange(3),
+                             exact_warp_grad=exact)
+    out = []
+    for dev in ("cpu", cuda_device):
+        net = copy.deepcopy(net0).to(dev)
+        imgs, _ = extract_batch(d.vol_idx, d.uniforms,
+                                torch.from_numpy(vol).to(dev),
+                                [[40.0, 44.0, 36.0]], patch, 1)
+        counts = (warp_flat.launches, warp_flat_adjoint.launches)
+        loss = fns.patch_loss(net, d, imgs)
+        loss.backward()
+        out.append((loss.item(), {n: p.grad.cpu() for n, p in
+                                  net.named_parameters()
+                                  if p.grad is not None},
+                    (warp_flat.launches - counts[0],
+                     warp_flat_adjoint.launches - counts[1])))
+    (l0, g0, c0), (l1, g1, c1) = out
+    assert c0 == (0, 0)
+    assert c1 == ((24, 2) if exact else (26, 0))
+    assert l0 > 1e-3 and abs(l1 - l0) <= 1e-4 * l0
+    assert sorted(g0) == sorted(g1)
+    for name, ref in g0.items():
+        assert _max_rel_err(g1[name], ref) <= 1e-3, name

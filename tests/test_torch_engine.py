@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 
 from dg_tta_tpu.core import grid as jgrid
+from dg_tta_tpu.core.fields import get_disp_field as jax_disp_field
 from dg_tta_tpu.core.fields import get_rand_affine as jax_rand_affine
 from dg_tta_tpu.core.losses import consistency_loss_flat as jax_loss_flat
 from dg_tta_tpu.core.patches import extract_batch as jax_extract_batch
@@ -72,16 +73,16 @@ def _family(trainer):
     return spec, "GIN" in trainer, mind
 
 
-def jax_model(trainer="nnUNetTrainer_GIN"):
+def jax_model(trainer="nnUNetTrainer_GIN", patch=PATCH):
     spec, gin, mind = _family(trainer)
-    return JaxModel(spec=JaxArchSpec(**spec), patch_size=PATCH,
+    return JaxModel(spec=JaxArchSpec(**spec), patch_size=patch,
                     trainer_name=trainer, uses_gin_internal=gin,
                     uses_mind=mind)
 
 
-def port_model(trainer="nnUNetTrainer_GIN"):
+def port_model(trainer="nnUNetTrainer_GIN", patch=PATCH):
     spec, gin, mind = _family(trainer)
-    return Model(spec=ArchSpec(**spec), patch_size=PATCH,
+    return Model(spec=ArchSpec(**spec), patch_size=patch,
                  trainer_name=trainer, uses_gin_internal=gin,
                  uses_mind=mind)
 
@@ -131,24 +132,32 @@ class JaxDraws:
         uniforms = np.stack([np.asarray(jax.random.uniform(k, (3,)))
                              for k in jax.random.split(k_p, batch)])
         ka, kb, k_model = jax.random.split(k_aug, 3)
-        noise, gins = [], []
+        noise, gins, fields = [], [], []
         for branch, k_branch in (("branch_a", ka), ("branch_b", kb)):
             k_int, k_sp = jax.random.split(k_branch)
             k1, _ = jax.random.split(k_sp)
             noise.append(np.asarray(jax.random.normal(k1, (batch, 3, 4))))
             gins.append(jax_gin_draws(k_int, batch, channels)
                         if branch in gin_branches else None)
+            fields.append(self._normal(k_sp))
         return PatchDraws(vol_idx=idx, uniforms=uniforms, noise_a=noise[0],
                           noise_b=noise[1], gin_a=gins[0], gin_b=gins[1],
-                          mind_noise=self._mind_noise(k_model))
+                          mind_noise=self._mind_noise(k_model),
+                          field_a=fields[0], field_b=fields[1])
 
     @staticmethod
-    def _mind_noise(k_model):
+    def _normal(key):
+        """(shape, device) -> normal(key, shape): the deformable field noise
+        of a branch is normal(k_sp, ...) (`get_rf_field`), k_sp the key the
+        affine path splits again."""
+        return lambda shape, device: torch.from_numpy(np.array(
+            jax.random.normal(key, tuple(shape), jnp.float32))).to(device)
+
+    @classmethod
+    def _mind_noise(cls, k_model):
         """`Model.apply(key=k_model)`'s MIND noise: normal(k_mind, shape),
         (k_gin, k_mind) = split(k_model)."""
-        _, k_mind = jax.random.split(k_model)
-        return lambda shape, device: torch.from_numpy(np.array(
-            jax.random.normal(k_mind, tuple(shape), jnp.float32))).to(device)
+        return cls._normal(jax.random.split(k_model)[1])
 
     def _eval_keys(self, member, epoch, rep):
         k_e = jax.random.fold_in(self._epoch_key(member, epoch), 1 + rep)
@@ -485,8 +494,7 @@ def test_gin_and_mind_draws_stable_under_member_subsets(setup):
 
 
 @pytest.mark.parametrize("change", [
-    dict(spatial_aug_type="deformable"), dict(patch_group=2),
-    dict(remat=True), dict(engine="split")])
+    dict(patch_group=2), dict(remat=True), dict(engine="split")])
 def test_features_of_later_slices_raise(setup, change):
     plan = TTAPlan(epochs=1, patches_to_be_accumulated=1, ensemble_count=1,
                    **change)
@@ -494,7 +502,7 @@ def test_features_of_later_slices_raise(setup, change):
         _run(plan, setup)
 
 
-@pytest.mark.parametrize("env", ["DGTTA_EXACT_WARP_GRAD", "DGTTA_REMAT"])
+@pytest.mark.parametrize("env", ["DGTTA_REMAT"])
 def test_driver_knobs_of_later_slices_raise(tmp_path, monkeypatch, env):
     from dg_tta_tpu_torch.obs.plots import plot_run_results
     from dg_tta_tpu_torch.tta.driver import tta_main
@@ -552,3 +560,182 @@ def test_bf16_trajectory_tracks_jax_bf16(setup):
     assert all(p.dtype == torch.float32 for p in nets[0].parameters())
     assert losses.shape == (2, 1) and np.all(np.isfinite(losses))
     np.testing.assert_allclose(losses, np.asarray(ref_losses), rtol=0.05)
+
+
+# A deformable plan's field noise is drawn at patch // 5 and smoothed three
+# times by a 5^3 window: on the 16^3 patch (3^3 noise) every window spans
+# the whole axis, the field comes out nearly constant and the warps nearly
+# the identity, so the deformable tests run at 30^3 (6^3 noise) on a volume
+# that holds it.
+DPATCH = (30, 30, 30)
+DVOL_SHAPE = (40, 44, 36)
+
+
+@pytest.fixture(scope="module")
+def dsetup(setup):
+    rng = np.random.default_rng(21)
+    vols = synth_volume(rng, DVOL_SHAPE)[None]
+    shapes = np.asarray([DVOL_SHAPE], np.float32)
+    return setup[0], vols, shapes, synth_labels(DVOL_SHAPE)[None]
+
+
+def _jax_patch_loss_grid(model, params, imgs, k_aug, deformable, exact):
+    """The JAX engine's patch loss (engine.py:244-389) from its public
+    pieces, with the branch warps as grids: a deformable plan's fields
+    (engine.py:281-306) or the affine ones, and the unwarp's fast adjoint
+    (`_warp_with_inverse`) or, with `exact`, autodiff of the exact
+    resample (engine.py:330-333)."""
+    B, patch = imgs.shape[0], model.patch_size
+    ka, kb, _ = jax.random.split(k_aug, 3)
+    ident = jgrid.identity_grid(patch, align_corners=False)
+    xs, ctxs = [], []
+    for k in (ka, kb):
+        _, k_sp = jax.random.split(k)
+        if deformable:
+            disp, disp_inv = jax_disp_field(k_sp, B, patch, factor=0.5,
+                                            interpolation_factor=5)
+            grid = tuple(i[None] + d for i, d in zip(ident, disp))
+            grid_inv = tuple(i[None] + d for i, d in zip(ident, disp_inv))
+            adj = jnp.ones((B,))
+        else:
+            theta, theta_inv = jax_rand_affine(k_sp, B)
+            grid = jgrid.affine_grid(theta, patch)
+            grid_inv = jgrid.affine_grid(theta_inv, patch)
+            R = theta[:, :, :3]
+            adj = jnp.abs(jnp.einsum("bi,bi->b", R[:, :, 0],
+                                     jnp.cross(R[:, :, 1], R[:, :, 2])))
+        xf = jnp.moveaxis(imgs, -1, 1).reshape(B, 1, -1)
+        xf = jgrid.grid_sample_flat(xf, patch, grid, padding_mode="border")
+        xs.append(jnp.moveaxis(xf.reshape(B, 1, *patch), 1, -1))
+        ctxs.append((grid, grid_inv, adj))
+    logits = model.apply(params, jnp.concatenate(xs), head_channel_idx=IDX3)
+    lf = jnp.moveaxis(logits, -1, 1).reshape(2 * B, 3, -1)
+    outs = []
+    for i, (g, gi, adj) in enumerate(ctxs):
+        part = lf[i * B:(i + 1) * B]
+        outs.append(jgrid.grid_sample_flat(part, patch, gi,
+                                           padding_mode="zeros")
+                    if exact else jax_wwi(part, gi, g, adj, patch, "zeros"))
+    return jax_loss_flat(*outs, start_class=1)
+
+
+def _port_grads(net):
+    return params_to_jax({n: (p.grad if p.grad is not None
+                              else torch.zeros_like(p))
+                          for n, p in net.named_parameters()})
+
+
+@pytest.mark.parametrize("spatial,exact", [
+    ("deformable", False), ("deformable", True), ("affine", True)])
+def test_one_patch_step_matches_jax_grid_warps(setup, dsetup, spatial,
+                                               exact):
+    """One patch step of a deformable plan (the fields from JAX's own
+    noise, their warps, the unwarp by the inverse field with the fast
+    adjoint), and of the exact warp gradient (DGTTA_EXACT_WARP_GRAD: the
+    scatter-add adjoint) on either plan, against JAX's value and gradient
+    at the module's one-step tolerances."""
+    deformable = spatial == "deformable"
+    patch = DPATCH if deformable else PATCH
+    params, vols, shapes, _ = dsetup if deformable else setup
+    draws = JaxDraws(jax.random.PRNGKey(1), n_acc=2)
+    k_patch, k_aug = jax.random.split(draws.step_key(0, 1, 1))
+    imgs, _ = jax_extract_batch(k_patch, jnp.asarray(vols),
+                                jnp.asarray(shapes), patch, 1)
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(
+        lambda p, x: _jax_patch_loss_grid(jax_model(patch=patch), p, x,
+                                          k_aug, deformable, exact)))(
+        params, imgs)
+
+    net = port_net(params)
+    fns = make_tta_functions(port_model(patch=patch),
+                             TTAPlan(spatial_aug_type=spatial), IDX3, IDX3,
+                             exact_warp_grad=exact)
+    loss = fns.patch_loss(net, draws.patch(0, 1, 1, 1, 1),
+                          torch.from_numpy(np.array(imgs)))
+    loss.backward()
+    assert float(ref_loss) > 1e-3
+    assert abs(loss.item() - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    for (path, r), g in zip(jax.tree_util.tree_flatten_with_path(ref_grads)[0],
+                            jax.tree.leaves(_port_grads(net))):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max() + 1e-7,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_deformable_trajectory_matches_jax(dsetup):
+    """A deformable plan's `tta_one_volume` against JAX's, at the module's
+    trajectory tolerances: fields, warps and unwarps from JAX's own
+    draws, one warm-up and one trained epoch."""
+    params, vols, shapes, labels = dsetup
+    params = _biased(params, 7)
+    plan_kw = dict(epochs=2, patches_to_be_accumulated=2, lr=1e-3,
+                   ensemble_count=1, start_tta_at_epoch=1,
+                   spatial_aug_type="deformable")
+    key = jax.random.PRNGKey(1)
+    ref = jax_tta_one_volume(jax_model(patch=DPATCH), JaxPlan(**plan_kw),
+                             params, jnp.asarray(vols), jnp.asarray(shapes),
+                             IDX3, IDX3, key,
+                             labels_padded=jnp.asarray(labels))
+    got = tta_one_volume(port_model(patch=DPATCH), TTAPlan(**plan_kw),
+                         port_net(params), torch.from_numpy(vols), shapes,
+                         IDX3, IDX3, JaxDraws(key, n_acc=2),
+                         labels_padded=torch.from_numpy(labels))
+    assert np.all(got[1] > 1e-3)
+    _check_trajectory(plan_kw, params, ref, got)
+
+
+def test_fast_warp_adjoint_close_to_exact_deformable(dsetup):
+    """The inverse-field adjoint of a deformable unwarp (no |det| factor)
+    against the exact scatter-add adjoint: the gradients of one patch step
+    on the same draws point the same way (cosine > 0.95, the bound of
+    tests/test_tta_engine.py::test_fast_warp_adjoint_close_to_exact), but
+    are not the same; the loss is (the forward does not change)."""
+    params, vols, shapes, _ = dsetup
+    plan = TTAPlan(spatial_aug_type="deformable")
+    d = TorchDraws(seed=5).patch(0, 0, 0, 1, 1)
+    imgs, _ = extract_batch(d.vol_idx, d.uniforms, torch.from_numpy(vols),
+                            shapes, DPATCH, 1)
+    out = {}
+    for exact in (False, True):
+        net = port_net(params)
+        fns = make_tta_functions(port_model(patch=DPATCH), plan, IDX3, IDX3,
+                                 exact_warp_grad=exact)
+        loss = fns.patch_loss(net, d, imgs)
+        loss.backward()
+        out[exact] = (loss.item(), np.concatenate(
+            [np.ravel(g) for g in jax.tree.leaves(_port_grads(net))]))
+    assert out[True][0] == out[False][0] > 1e-3
+    e, f = out[True][1], out[False][1]
+    cos = float(e @ f / (np.linalg.norm(e) * np.linalg.norm(f)))
+    assert cos > 0.95, cos
+    assert not np.array_equal(e, f)
+
+
+def test_affine_draws_unchanged_by_the_field_noise():
+    """The field noise is drawn on demand from seeds of its own: an affine
+    plan's draws are still those of the step generator, in their order
+    (volume, offsets, affine noise of a, of b, then GIN's nets), and the
+    MIND noise keeps its seed.  Each branch's field noise is its own."""
+    src = TorchDraws(seed=3, sample_index=1)
+    d = src.patch(2, 1, 0, 2, 1, gin_branches=("branch_b",))
+    g = torch.Generator().manual_seed(src._seed(2, 1, "step", 0))
+    assert np.array_equal(d.vol_idx,
+                          torch.randint(0, 2, (1,), generator=g).numpy())
+    assert np.array_equal(d.uniforms, torch.rand((1, 3), generator=g).numpy())
+    for noise in (d.noise_a, d.noise_b):
+        assert np.array_equal(noise, torch.randn((1, 3, 4), generator=g)
+                              .numpy())
+    from dg_tta_tpu_torch.ops.gin import draw_gin
+    ref_gin = draw_gin(g, 1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree.leaves(d.gin_b.layers), jax.tree.leaves(ref_gin.layers)))
+    assert torch.equal(d.gin_b.alphas, ref_gin.alphas)
+    mind = d.mind_noise((1, 4, 4, 4, 12), "cpu")
+    shape = (1, 3, 3, 3, 3)
+    fa, fb = d.field_a(shape, "cpu"), d.field_b(shape, "cpu")
+    assert torch.equal(mind, src._normal(src._seed(2, 1, "step", 0, "mind"),
+                                         (1, 4, 4, 4, 12), "cpu"))
+    assert torch.equal(fa, d.field_a(shape, "cpu"))
+    assert not torch.equal(fa, fb)
+    assert not torch.equal(fa, mind.flatten()[:81].reshape(shape))

@@ -269,3 +269,83 @@ def test_rand_affine_matches_jax_on_the_same_noise():
     np.testing.assert_allclose(
         compose_affine(got_inv, got).numpy(),
         np.asarray(jcompose(ref_inv, ref)), atol=1e-6)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_warp_and_affine_inside_mask_match_jax(rng, align_corners):
+    """`warp` (grid_sample at identity + displacement) and the analytic
+    inside-mask of an affine, against the JAX functions."""
+    B, C, size = 2, 3, (5, 6, 7)
+    vol = rng.standard_normal((B, *size, C)).astype(np.float32)
+    ident = jgrid.identity_grid(size, align_corners)
+    disp = [0.2 * rng.standard_normal((B, *size)).astype(np.float32)
+            for _ in range(3)]
+    grid = tuple(np.asarray(i[None] + d) for i, d in zip(ident, disp))
+    ref = np.asarray(jax.jit(lambda v, g: jgrid.warp(
+        v, g, padding_mode="border", align_corners=align_corners))(
+            vol, grid))
+    got = tgrid.warp(torch.from_numpy(vol), _t(grid), padding_mode="border",
+                     align_corners=align_corners)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    theta = _theta(rng, B) * np.float32(1.3)   # some voxels map outside
+    ref_m = np.asarray(jgrid.affine_inside_mask_flat(
+        jnp.asarray(theta), size, align_corners))
+    got_m = tgrid.affine_inside_mask_flat(torch.from_numpy(theta), size,
+                                          align_corners)
+    assert got_m.dtype == torch.float32 and got_m.shape == (B, 1, 210)
+    assert 0 < ref_m.sum() < ref_m.size
+    np.testing.assert_array_equal(got_m.numpy(), ref_m)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_warp_adjoint_plain_matches_jax_vjp(rng, padding_mode,
+                                            align_corners, C):
+    """`warp_flat_adjoint`'s plain version against `jax.vjp` of the JAX
+    `grid_sample_flat` (autodiff of its gather: the exact scatter-add), at
+    1e-5: the same products, each summed into its source voxel in another
+    order.  The grid reaches outside the source, so both paddings show."""
+    from dg_tta_tpu_torch.kernels.warp import (warp_flat_adjoint,
+                                               warp_flat_op)
+
+    B, src, out = 2, (6, 5, 7), (4, 5, 6)
+    flat = rng.standard_normal((B, C, int(np.prod(src)))).astype(np.float32)
+    g = rng.standard_normal((B, C, int(np.prod(out)))).astype(np.float32)
+    grid = _grid_np(_theta(rng, B) * np.float32(1.2), out, align_corners)
+    _, vjp = jax.vjp(lambda v: jgrid.grid_sample_flat(
+        v, src, tuple(map(jnp.asarray, grid)), padding_mode=padding_mode,
+        align_corners=align_corners), jnp.asarray(flat))
+    (ref,) = vjp(jnp.asarray(g))
+    before = warp_flat_adjoint.launches
+    got = warp_flat_adjoint(torch.from_numpy(g), src, _t(grid),
+                            padding_mode=padding_mode,
+                            align_corners=align_corners)
+    assert warp_flat_adjoint.launches == before  # the plain version
+    assert got.shape == flat.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    # through autograd: the grid entry forward, this adjoint backward
+    xt = torch.from_numpy(flat).requires_grad_(True)
+    y = warp_flat_op(xt, src, _t(grid), padding_mode=padding_mode,
+                     align_corners=align_corners)
+    (y * torch.from_numpy(g)).sum().backward()
+    assert torch.equal(xt.grad, got)
+
+
+def test_warp_adjoint_bf16_and_rejects(rng):
+    """A bf16 gradient gives a bf16 adjoint, the f32 one rounded once; the
+    wrapper refuses a shape that does not fit the grid."""
+    from dg_tta_tpu_torch.kernels.warp import warp_flat_adjoint
+
+    src = (6, 8, 10)
+    grid = _t(_grid_np(_theta(rng, 1), src, False))
+    g = torch.from_numpy(rng.standard_normal((1, 4, 480)).astype(np.float32))
+    g16 = g.to(torch.bfloat16)
+    got = warp_flat_adjoint(g16, src, grid)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, warp_flat_adjoint(g16.float(), src, grid)
+                       .to(torch.bfloat16))
+    with pytest.raises(ValueError, match="outputs"):
+        warp_flat_adjoint(g[:, :, :100], src, grid)
+    with pytest.raises(ValueError, match="padding_mode"):
+        warp_flat_adjoint(g, src, grid, padding_mode="reflect")

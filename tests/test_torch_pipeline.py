@@ -188,3 +188,42 @@ def test_port_run_tta_adapts_then_resumes(workspace):  # noqa: F811
     assert "inference" in timings["phases"]
     for path, data in members.items():
         assert path.read_bytes() == data
+
+
+def test_port_run_tta_deformable_with_exact_warp_grad(workspace,  # noqa: F811
+                                                      monkeypatch):
+    """A deformable plan with DGTTA_EXACT_WARP_GRAD=1 runs through the
+    port's CLI unchanged: `tta/driver.py` hands the flag to the engine,
+    whose unwarps then take the exact adjoint (`warp_flat_op`), and the run
+    writes its members and its phases as any other."""
+    from dg_tta_tpu_torch.cli.main import main as port_cli
+    from dg_tta_tpu_torch.tta import engine
+
+    root, _, _ = workspace
+    port_cli(["prepare_tta", *ARGS])
+    plan_path = root / PLAN_DIR / "tta_plan.json"
+    plan = json.loads(plan_path.read_text())
+    plan.update(epochs=2, patches_to_be_accumulated=1, ensemble_count=1,
+                spatial_aug_type="deformable")
+    plan_path.write_text(json.dumps(plan))
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[2])
+        return warp_flat_op(*args, **kw)
+
+    warp_flat_op = engine.warp_flat_op
+    monkeypatch.setattr(engine, "warp_flat_op", counted)
+    monkeypatch.setenv("DGTTA_EXACT_WARP_GRAD", "1")
+    summaries = port_cli(["run_tta", *ARGS, "--device", "cpu"])
+    (run_dir,) = list((root / RESULTS_DIR).iterdir())
+    timings = json.loads((run_dir / "timings.json").read_text())
+    assert {"adaptation", "inference"} <= set(timings["phases"])
+    assert "Ts" in summaries
+    # two cases x two epochs x one patch x two branches
+    assert len(calls) == 8
+    assert all(isinstance(g, tuple) and len(g) == 3 for g in calls)
+    for case in ("caseA", "caseB"):
+        res = json.loads((run_dir / "tta_outputTs" / f"{case}__ensemble_idx_"
+                          "0_tta_results.json").read_text())
+        assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
