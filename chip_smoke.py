@@ -8,11 +8,14 @@ Phases; any failure raises and the script exits non-zero:
    power limit as `nvidia-smi` reports them;
 2. build: compiles every CUDA kernel of the main path from the checkout's
    sources (`conv3x3`, `conv3x3_wgrad`, `warp`, `conv3x3_wgmma`,
-   `conv3x3_wgrad_wgmma`, `conv3x3_c1`, `conv3x3_wgrad_tf32x3`: one `nvcc`
-   per source, all started together), and asserts that the SASS of the
-   wgmma kernels (bf16 and f32 3xTF32 instantiations of `conv3x3_wgmma`,
-   `conv3x3_wgrad_wgmma` and the f32 `conv3x3_wgrad_tf32x3`) holds
-   tensor-core (`HGMMA`) and TMA (`UTMALDG`) instructions;
+   `conv3x3_wgrad_wgmma`, `conv3x3_c1`, `conv3x3_wgrad_tf32x3`,
+   `conv3x3_few`: one `nvcc` per source, all started together), and
+   asserts that the SASS of the wgmma kernels (bf16 and f32 3xTF32
+   instantiations of `conv3x3_wgmma`, `conv3x3_wgrad_wgmma` and the f32
+   `conv3x3_wgrad_tf32x3`) holds tensor-core (`HGMMA`) and TMA
+   (`UTMALDG`) instructions, and that of `conv3x3_few`'s four kernels
+   (forward and weight gradient, bf16 and f32) `HGMMA` and their halo
+   loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`);
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -27,17 +30,18 @@ Phases; any failure raises and the script exits non-zero:
      "wgmma_tf32x3" for f32); the shapes of the "c1" and "wgmma_tf32x3"
      routes also run on the CUDA-core kernel they took before
      (`route="cuda_core"`, marked "forced"), so both are timed in one call;
-     and the stem conv of a MIND model (12 -> 32 channels, zero-padded to
-     16 on the wgmma routes) at its window forward and its step forward,
-     also forced onto the CUDA-core kernel, its bound counting the true
-     C = 12 work;
+     and the stem conv of a MIND model (12 -> 32 channels, route "few")
+     at its window forward and its step forward, also forced onto the
+     type's wgmma route (zero-padded to 16 channels: the route it took
+     before) and the CUDA-core kernel, its bound counting the true C = 12
+     work;
    * `conv3x3_wgrad` at the same shapes with the batch of a TTA step (two
      patches: both branches), f32 and bf16 (library: cuDNN's weight
      gradient, `torch.nn.grad.conv3d_weight`), with its route ("c1",
      "wgmma" for bf16, "wgmma_tf32x3" for f32), the C = 1 and f32 shapes
      also forced onto the CUDA-core kernel, and the f32 routes' per-step
-     totals on the same shapes side by side; the MIND stem's shape too,
-     likewise;
+     totals on the same shapes side by side; the MIND stem's shape too, on
+     "few", forced onto the padded wgmma route and the CUDA-core kernel;
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
      its adjoint (112 x 112 x 128, times 1 / |det|), and the nearest label
@@ -89,14 +93,17 @@ Phases; any failure raises and the script exits non-zero:
    trained epoch).  Checks the member files and the segmentation, that
    every kernel launched exactly as often as the plan says it must, on
    each route and on padded channels (`expected_launches`), that the
-   CUDA-core `conv3x3` and `conv3x3_wgrad` launched not at all, and that
+   CUDA-core `conv3x3` and `conv3x3_wgrad` launched not at all, that no
+   launch ran on padded channels (a MIND model's stem runs on "few"), and
+   that
    the warp's grid entry and its exact adjoint launched where the plan
    and the flag put them (the affine runs: neither).
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
 shapes they ran before the "c1" and "wgmma_tf32x3" routes took them; the
-MIND stem's rows with the forced CUDA-core times beside them; the warp's
+MIND stem's rows on "few" with the forced padded-route and CUDA-core
+times beside them; the warp's
 grid entry per deformable branch of a trained step, and its exact adjoint
 on a deformable grid) and, last, one JSON line naming the device.
 """
@@ -165,7 +172,8 @@ SMOKE_PLAN = dict(epochs=2, patches_to_be_accumulated=4,
 # miss by ~1e-3).
 MIND_RTOL = GIN_RTOL = 1e-5
 # The stem conv of a MIND model, 12 descriptor channels -> 32: (depth, H, W,
-# C, CO) at the TS104 patch; the wgmma routes run it zero-padded to 16.
+# C, CO) at the TS104 patch; route "few" (the wgmma routes, forced, run it
+# zero-padded to 16).
 STEM_SHAPE = (112, 112, 128, 12, 32)
 # The warp's exact adjoint vs its plain version, max |diff| / max |plain|:
 # the same products added into each source voxel by atomics, in an order
@@ -179,7 +187,8 @@ ADJOINT_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 FIELD_RTOL = 1e-4
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
-           "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3"]
+           "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3",
+           "conv3x3_few"]
 
 
 def log(*a):
@@ -245,15 +254,21 @@ def phase_build():
                 log(f"  {name}: {line.strip()}")
     # the wgmma routes run on the tensor cores, fed by TMA: the bf16 and
     # the f32 (3xTF32) instantiations of conv3x3_wgmma, and wgrad's bf16
-    # and f32 kernels
-    for name, marker in (("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_"),
-                         ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf"),
-                         ("conv3x3_wgrad_wgmma", "wgrad_wgmma_kernel"),
-                         ("conv3x3_wgrad_tf32x3", "wgrad_tf32x3_kernel")):
+    # and f32 kernels; the "few" route's four kernels on the tensor cores,
+    # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA
+    tma, cp_async = ("HGMMA", "UTMALDG"), ("HGMMA", "LDGSTS")
+    for name, marker, ops in (
+            ("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_", tma),
+            ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf", tma),
+            ("conv3x3_wgrad_wgmma", "wgrad_wgmma_kernel", tma),
+            ("conv3x3_wgrad_tf32x3", "wgrad_tf32x3_kernel", tma),
+            ("conv3x3_few", "few_forward_bf16_kernel", cp_async),
+            ("conv3x3_few", "few_forward_f32_kernel", tma),
+            ("conv3x3_few", "few_wgrad_bf16_kernel", cp_async),
+            ("conv3x3_few", "few_wgrad_f32_kernel", tma)):
         funcs = [f for f in build.sass(name).split("Function : ")[1:]
                  if marker in f.split("\n", 1)[0]]
-        counts = {op: sum(f.count(op) for f in funcs)
-                  for op in ("HGMMA", "UTMALDG")}
+        counts = {op: sum(f.count(op) for f in funcs) for op in ops}
         if not funcs or not all(counts.values()):
             raise AssertionError(f"{name} {marker}: {len(funcs)} functions, "
                                  f"SASS instruction counts {counts}")
@@ -298,22 +313,37 @@ def _conv_cases():
 def _stem_cases():
     """The MIND stem's conv3x3 shapes, as `_conv_cases`: its window
     forward and its trained step's forward (no input gradient: MIND's
-    output needs none)."""
+    output needs none); route "few"."""
     return [("stem window forward", 1, *STEM_SHAPE, 1, False),
             ("stem step forward", 2, *STEM_SHAPE, 1, False)]
 
 
 def _ops_ms(ops, name, route):
-    peak = PEAK_TF32 / 3 if route == "wgmma_tf32x3" else PEAK_OPS[name]
-    return ops / peak * 1e3
+    # f32 on the tensor cores (3xTF32): "wgmma_tf32x3", and "few" in f32
+    tf32x3 = route == "wgmma_tf32x3" or (route == "few"
+                                         and name == "float32")
+    return ops / (PEAK_TF32 / 3 if tf32x3 else PEAK_OPS[name]) * 1e3
+
+
+def _side_routes(main, stem, dtype):
+    """The routes timed beside the main path's on one shape: the MIND
+    stem's (on "few") also on the type's wgmma route, which runs it
+    zero-padded to 16 channels, and on the CUDA-core kernel; the "c1" and
+    "wgmma_tf32x3" shapes on the CUDA-core kernel that ran them before."""
+    import torch
+
+    if stem:
+        return [{torch.float32: "wgmma_tf32x3",
+                 torch.bfloat16: "wgmma"}[dtype], "cuda_core"]
+    return ["cuda_core"] if main in ("c1", "wgmma_tf32x3") else []
 
 
 def phase_kernels():
     """conv3x3 at every shape of the main path, on the route it takes
     there; where that is "c1" or "wgmma_tf32x3", also on the CUDA-core
     kernel that ran the shape before (`route="cuda_core"`), so that both
-    are timed in one call.  The MIND stem's shapes (C = 12, zero-padded
-    onto the wgmma routes) likewise, in totals of their own
+    are timed in one call.  The MIND stem's shapes (C = 12, "few") also on
+    the padded wgmma route and the CUDA-core kernel, in totals of their own
     ("<type>/stem12/<route>")."""
     import torch
     import torch.nn.functional as F
@@ -355,9 +385,7 @@ def phase_kernels():
                 * x.element_size()
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             main = conv3x3_route(C, CO, dt)
-            routes = [main] + (["cuda_core"] if stem or main in (
-                "c1", "wgmma_tf32x3") else [])
-            for route in routes:
+            for route in [main] + _side_routes(main, stem, dt):
                 got = conv3x3(x, w, depth=depth, route=route)
                 torch.cuda.synchronize()
                 err = (got.float() - ref.float()).abs().max().item()
@@ -406,8 +434,8 @@ def phase_wgrad():
     one TTA step: both branches of one patch, N = 2 x depth planes; the
     C = 1 conv on the "c1" route and the f32 shapes on "wgmma_tf32x3",
     each also, for comparison, on the CUDA-core kernel that ran it
-    before.  The MIND stem's shape (C = 12, zero-padded onto the wgmma
-    routes) too, on both, in totals of its own."""
+    before.  The MIND stem's shape (C = 12, "few") too, also on the padded
+    wgmma route and the CUDA-core kernel, in totals of its own."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_flops,
@@ -441,8 +469,7 @@ def phase_wgrad():
                 + 27 * C * CO * 4
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             main = conv3x3_wgrad_route(C, CO, dt)
-            for route in [main] + (["cuda_core"] if stem or main in (
-                    "c1", "wgmma_tf32x3") else []):
+            for route in [main] + _side_routes(main, stem, dt):
                 ops_ms = _ops_ms(ops, name, route)
                 got = conv3x3_wgrad(x, dy, depth=depth, route=route)
                 torch.cuda.synchronize()
@@ -1261,8 +1288,8 @@ def _stride1_convs(spec):
     return convs
 
 
-CONV_ROUTES = ("c1", "wgmma", "wgmma_tf32x3", "cuda_core")
-WGRAD_ROUTES = ("c1", "wgmma", "wgmma_tf32x3", "cuda_core")
+CONV_ROUTES = ("c1", "few", "wgmma", "wgmma_tf32x3", "cuda_core")
+WGRAD_ROUTES = ("c1", "few", "wgmma", "wgmma_tf32x3", "cuda_core")
 
 
 def expected_launches(spec, windows, members, plan, dtype="float32",
@@ -1413,10 +1440,16 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{expected} from the plan")
-    for key in ("conv3x3_cuda_core", "conv3x3_wgrad_cuda_core"):
+    for key in ("conv3x3_cuda_core", "conv3x3_wgrad_cuda_core",
+                "conv3x3_padded", "conv3x3_wgrad_padded"):
         if launches[key]:
             raise AssertionError(f"the main path launched {key} "
                                  f"{launches[key]} times")
+    # a MIND model's stem runs on "few", every forward and weight gradient
+    if model.spec.num_input_channels > 1 and not (
+            launches["conv3x3_few"] and launches["conv3x3_wgrad_few"]):
+        raise AssertionError(f"the stem of a {model.spec.num_input_channels}"
+                             f"-channel model launched no \"few\" kernel")
     # the grid entry carries a deformable plan's warps and an exact
     # unwarp, and nothing of an affine plan's otherwise
     deformable = plan["spatial_aug_type"] == "deformable"
@@ -1575,19 +1608,22 @@ def main():
         _row("conv3x3_wgrad_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_c1"), wg["float32/c1"], wg["bfloat16/c1"],
              "c1"),
-        # the MIND stem (C = 12 zero-padded to 16) on the wgmma routes:
-        # f32 on "wgmma_tf32x3", bf16 on "wgmma"; launches on padded
-        # channels over the main-path runs; beside them the same shapes
-        # forced onto the CUDA-core kernels
-        _row("conv3x3_stem12", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
-             both("conv3x3_padded"), c["float32/stem12/wgmma_tf32x3"],
-             c["bfloat16/stem12/wgmma"], "wgmma",
+        # the MIND stem (C = 12) on "few" in both types, its launches over
+        # the main-path runs; beside them the same shapes forced onto the
+        # wgmma route of the type, zero-padded to 16 channels (the route
+        # that ran them before), and onto the CUDA-core kernels
+        _row("conv3x3_stem12", conv3x3.FEW_SOURCE, conv3x3.REPLACES,
+             both("conv3x3_few"), c["float32/stem12/few"],
+             c["bfloat16/stem12/few"], "few",
+             padded_ms=c["float32/stem12/wgmma_tf32x3"]["ms"],
+             bf16_padded_ms=c["bfloat16/stem12/wgmma"]["ms"],
              cuda_core_ms=c["float32/stem12/cuda_core"]["ms"],
              bf16_cuda_core_ms=c["bfloat16/stem12/cuda_core"]["ms"]),
-        _row("conv3x3_wgrad_stem12", conv3x3.WGRAD_TF32X3_SOURCE,
-             conv3x3.REPLACES, both("conv3x3_wgrad_padded"),
-             wg["float32/stem12/wgmma_tf32x3"], wg["bfloat16/stem12/wgmma"],
-             "wgmma", bf16_source=conv3x3.WGRAD_WGMMA_SOURCE,
+        _row("conv3x3_wgrad_stem12", conv3x3.FEW_SOURCE, conv3x3.REPLACES,
+             both("conv3x3_wgrad_few"), wg["float32/stem12/few"],
+             wg["bfloat16/stem12/few"], "few",
+             padded_ms=wg["float32/stem12/wgmma_tf32x3"]["ms"],
+             bf16_padded_ms=wg["bfloat16/stem12/wgmma"]["ms"],
              cuda_core_ms=wg["float32/stem12/cuda_core"]["ms"],
              bf16_cuda_core_ms=wg["bfloat16/stem12/cuda_core"]["ms"])]
     print(json.dumps({"kernels": rows}))

@@ -10,43 +10,52 @@ for every stride-1 3x3x3 conv: `x` is then a (B*depth, H, W, C) view of a
 of the same volume (zeros past its ends).  One launch per 3D conv keeps
 the z-tap partial sums in registers instead of three output passes.
 
-Four routes, each a CUDA source with its own C entry, chosen by
+Five routes, each a CUDA source with its own C entry, chosen by
 `conv3x3_route(C, CO, dtype)` from the call's shapes alone (no fallback:
 a launch error raises, and a misaligned tensor raises before the launch):
 * "c1" (`csrc/conv3x3_c1.cu`): C == 1, f32 and bf16, the first conv on
   the 1-channel image; a kernel bound by the bytes of its output;
-* "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C > 1 and CO % 8 == 0,
+* "few" (`csrc/conv3x3_few.cu`): 1 < C < 16 with CO % 8 == 0, f32
+  (3xTF32) and bf16, the stem of a MIND model (C = 12): x read at its own
+  C into a halo in shared memory, the taps in the GEMM's K axis, the
+  weights packed once per call into that order (`pack_few_weights`);
+* "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C >= 16 and CO % 8 == 0,
   an implicit GEMM on the tensor cores fed by TMA;
 * "wgmma_tf32x3" (the same source, its f32 instantiation): f32 with
-  C > 1 and CO % 8 == 0, each product at f32 accuracy from three tf32
+  C >= 16 and CO % 8 == 0, each product at f32 accuracy from three tf32
   products (3xTF32); the weights are split once per call into a tf32
   part and its remainder (`tf32_split`);
 * "cuda_core" (`csrc/conv3x3.cu`): CO % 8 != 0; f32 FMAs on the CUDA
   cores.
 The wgmma routes step 16 (bf16) or 8 (f32) input channels at a time: a
-C that is not a multiple of the step (the MIND stem's 12) runs on x and w
+C that is not a multiple of the step (C = 20, say) runs on x and w
 zero-padded to the next multiple (`route_channels`, `pad_channels`), and
-the weight gradient drops the padded channels' rows.  Every TS104 conv
-and input gradient takes "c1" (the first conv of a 1-channel model) or a
-wgmma route.  The sources say what bounds each on an H100 and what the
-design does about it.  f32 accumulation, output in the input's type.
+the weight gradient drops the padded channels' rows.  A caller may force
+the type's wgmma route onto a shape that chooses "few" (`route=`, to time
+the two on one shape); the main path never does.  Every TS104 conv and
+input gradient takes "c1" (the first conv of a 1-channel model), "few"
+(the stem of a MIND model) or a wgmma route.  The sources say what bounds
+each on an H100 and what the design does about it.  f32 accumulation,
+output in the input's type.
 
 `conv3x3` launches a kernel for CUDA tensors, or raises; it runs
 `conv3x3_reference` only for tensors on the CPU.  `conv3x3.launches`
 counts its launches on every route; `conv3x3.wgmma_launches`,
-`conv3x3.tf32x3_launches` and `conv3x3.c1_launches` those on the
-"wgmma", "wgmma_tf32x3" and "c1" routes (`route_launches` gives them all,
-"cuda_core" included), and `conv3x3.padded_launches` those that ran on
-zero-padded channels.
+`conv3x3.tf32x3_launches`, `conv3x3.c1_launches` and
+`conv3x3.few_launches` those on the "wgmma", "wgmma_tf32x3", "c1" and
+"few" routes (`route_launches` gives them all, "cuda_core" included), and
+`conv3x3.padded_launches` those that ran on zero-padded channels.
 
 The backward, for TTA: `conv3x3_wgrad` is the weight gradient, with the
-same four routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
-`csrc/conv3x3_c1.cu`; "wgmma", `csrc/conv3x3_wgrad_wgmma.cu`, for bf16;
-"wgmma_tf32x3", `csrc/conv3x3_wgrad_tf32x3.cu`, for f32, 3xTF32 with dy
-split and transposed by a pre-pass; "cuda_core", `csrc/conv3x3_wgrad.cu`,
-for the other channel counts; plain version `conv3x3_wgrad_reference`;
-counts `conv3x3_wgrad.launches`, `.wgmma_launches`, `.tf32x3_launches`,
-`.c1_launches` and `.padded_launches`).  The input gradient needs no
+same five routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
+`csrc/conv3x3_c1.cu`; "few", `csrc/conv3x3_few.cu`, dy transposed and
+split in shared memory in f32; "wgmma", `csrc/conv3x3_wgrad_wgmma.cu`,
+for bf16; "wgmma_tf32x3", `csrc/conv3x3_wgrad_tf32x3.cu`, for f32,
+3xTF32 with dy split and transposed by a pre-pass; "cuda_core",
+`csrc/conv3x3_wgrad.cu`, for the other channel counts; plain version
+`conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches`,
+`.wgmma_launches`, `.tf32x3_launches`, `.c1_launches`, `.few_launches`
+and `.padded_launches`).  The input gradient needs no
 kernel of its own: it is the same zero-padded conv of dy with the weights
 flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
 `conv3x3` again.  `Conv3x3Function` ties the three together as a
@@ -67,24 +76,26 @@ WGRAD_WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_wgmma.cu"
 WGRAD_TF32X3_SOURCE = \
     "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_tf32x3.cu"
 C1_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_c1.cu"
+FEW_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_few.cu"
 REPLACES = "dg_tta_tpu/ops/conv2d_pallas.py:99"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the tensor-core route of each type for C >= 16
+_WGMMA_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "wgmma_tf32x3"}
+
+
 def conv3x3_route(C: int, CO: int, dtype) -> str:
     """The kernel that runs `conv3x3` on CUDA tensors of C input and CO
-    output channels: "c1" for C == 1; for C > 1 with CO % 8 == 0 (TMA
-    needs 16-byte rows) the tensor-core route of the type, "wgmma" for bf16
-    and "wgmma_tf32x3" for f32, on x and w zero-padded to a multiple of
-    the route's K step (`route_channels`) where C is not one; else
-    "cuda_core"."""
+    output channels: "c1" for C == 1; with CO % 8 == 0 (16-byte rows of y
+    and dy), "few" for 1 < C < 16 and for C >= 16 the tensor-core route of
+    the type, "wgmma" for bf16 and "wgmma_tf32x3" for f32, on x and w
+    zero-padded to a multiple of the route's K step (`route_channels`)
+    where C is not one; else "cuda_core"."""
     if C == 1:
         return "c1"
-    if CO % 8 == 0:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        if dtype == torch.float32:
-            return "wgmma_tf32x3"
+    if CO % 8 == 0 and dtype in _WGMMA_ROUTE:
+        return "few" if C < 16 else _WGMMA_ROUTE[dtype]
     return "cuda_core"
 
 
@@ -92,7 +103,8 @@ def conv3x3_wgrad_route(C: int, CO: int, dtype) -> str:
     """The kernel that runs `conv3x3_wgrad`: the route `conv3x3_route`
     picks for the same shapes ("wgmma_tf32x3" is then
     `csrc/conv3x3_wgrad_tf32x3.cu`, which also steps 8 channels along M and
-    needs 16-byte rows)."""
+    needs 16-byte rows; "few" the weight gradient in
+    `csrc/conv3x3_few.cu`)."""
     return conv3x3_route(C, CO, dtype)
 
 
@@ -103,8 +115,8 @@ _K_STEP = {"wgmma": 16, "wgmma_tf32x3": 8}
 
 def route_channels(C: int, route: str) -> int:
     """The input channels that `route` runs C on: C rounded up to the
-    route's K step on the tensor-core routes (the MIND stem's C = 12 runs
-    as 16 in either type), C elsewhere."""
+    route's K step on the wgmma routes (C = 12, forced there, runs as 16 in
+    either type), C elsewhere ("few" reads x at its own C)."""
     step = _K_STEP.get(route, 1)
     return -(-C // step) * step
 
@@ -118,7 +130,7 @@ def pad_channels(t: torch.Tensor, C: int, dim: int = -1) -> torch.Tensor:
 
 # the launch counter of each route but "cuda_core", per wrapper
 _COUNTERS = {"wgmma": "wgmma_launches", "wgmma_tf32x3": "tf32x3_launches",
-             "c1": "c1_launches"}
+             "c1": "c1_launches", "few": "few_launches"}
 
 
 def _count(fn, route):
@@ -152,6 +164,31 @@ def tf32_split(w: torch.Tensor):
     bits = w.contiguous().view(torch.int32)
     hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
     return hi, w - hi
+
+
+def few_k(C: int, kz: int, dtype):
+    """(Cs, Kp) of the "few" route for C input channels, kz z-taps and
+    compute type `dtype`: the channels per tap in its K order and K =
+    kz * 9 * Cs rounded up to the K step of one wgmma.  bf16 takes one k16
+    step per tap, 16 channels (zeros past C: its halo holds each pixel as
+    32 bytes, and a tap is a shift of the operand); f32 folds the taps at C
+    channels each into k8 steps (C = 12, kz = 3: 432 and 328)."""
+    if dtype == torch.bfloat16:
+        return 16, kz * 9 * 16
+    return C, -(-kz * 9 * C // 8) * 8
+
+
+def pack_few_weights(w: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The weights of the "few" route: w (3, 3, C, CO) or (kz, 3, 3, C, CO)
+    as a (Kp, CO) matrix in the GEMM's K order, row k = ((kz * 3 + ky) * 3
+    + kx) * Cs + ci, zero rows for the channels past C and past kz * 9 * Cs
+    (`few_k` for compute type `dtype`, w's type by default).  In w's type,
+    on w's device: a plain tensor op, once per call."""
+    w5 = _as_5d(w)
+    kz, _, _, C, CO = w5.shape
+    cs, kp = few_k(C, kz, w.dtype if dtype is None else dtype)
+    m = pad_channels(w5, cs, dim=-2).reshape(kz * 9 * cs, CO)
+    return F.pad(m, (0, 0, 0, kp - m.shape[0])).contiguous()
 
 
 def _check_aligned(route, **tensors):
@@ -253,16 +290,41 @@ def _launch_c1(x, w5, y, depth):
                            f"w {tuple(w5.shape)}, depth {depth}")
 
 
+def _launch_few(x, w5, y, depth):
+    fn = build.function("conv3x3_few", "dgtta_conv3x3_few",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                        + [ctypes.c_void_p])
+    # the weights in the GEMM's K order; f32 as a tf32 part and its
+    # remainder (3xTF32)
+    wk, wk_lo = pack_few_weights(w5), None
+    if x.dtype == torch.float32:
+        wk, wk_lo = tf32_split(wk)
+    N, H, W, C = x.shape
+    err = fn(x.data_ptr(), wk.data_ptr(),
+             0 if wk_lo is None else wk_lo.data_ptr(), y.data_ptr(), N,
+             depth, H, W, C, w5.shape[-1], w5.shape[0], wk.shape[0],
+             _DTYPE_CODES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 few kernel launch failed with CUDA "
+                           f"error {err} for x {tuple(x.shape)} {x.dtype}, "
+                           f"w {tuple(w5.shape)}, depth {depth}")
+
+
 _LAUNCH = {"cuda_core": _launch, "wgmma": _launch_wgmma,
-           "wgmma_tf32x3": _launch_wgmma, "c1": _launch_c1}
+           "wgmma_tf32x3": _launch_wgmma, "c1": _launch_c1,
+           "few": _launch_few}
 
 
-def _pick_route(route, chosen):
+def _pick_route(route, chosen, dtype):
     """`route` if given, else the route the shapes choose; the CUDA-core
-    kernels take every shape, another route only the shapes it chose."""
+    kernels take every shape, the type's wgmma route also the shapes that
+    choose "few" (on zero-padded channels), another route only the shapes
+    it chose."""
     if route is None or route == chosen:
         return chosen
-    if route != "cuda_core":
+    if route != "cuda_core" and not (
+            chosen == "few" and route == _WGMMA_ROUTE.get(dtype)):
         raise ValueError(f"route {route!r} does not take this call (its "
                          f"shapes choose {chosen!r})")
     return route
@@ -277,7 +339,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
     x: (N, H, W, C), N a multiple of depth.  Returns (N, H, W, CO) in x's
     type.  CPU tensors take the plain version; CUDA tensors the kernel of
     `conv3x3_route`, or of `route="cuda_core"` where the caller asks for the
-    CUDA-core kernel (to compare the routes on one shape).
+    CUDA-core kernel, or of the type's wgmma route on a shape that chooses
+    "few" (to compare the routes on one shape).
     """
     w5 = _check(x, w, depth)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -288,11 +351,13 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
     if not (x.is_contiguous() and w5.is_contiguous()):
         raise ValueError("conv3x3 needs contiguous x and w")
     N, H, W, C = x.shape
-    route = _pick_route(route, conv3x3_route(C, w5.shape[-1], x.dtype))
+    route = _pick_route(route, conv3x3_route(C, w5.shape[-1], x.dtype),
+                        x.dtype)
     if route in ("wgmma", "wgmma_tf32x3"):
         # zero channels add nothing to the sum
         x = pad_channels(x, route_channels(C, route))
         w5 = pad_channels(w5, x.shape[-1], dim=-2)
+    if route in ("wgmma", "wgmma_tf32x3", "few"):
         _check_aligned(route, x=x)
     padded = x.shape[-1] != C
     y = torch.empty((N, H, W, w5.shape[-1]), dtype=x.dtype, device=x.device)
@@ -305,6 +370,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
 
 conv3x3.launches = conv3x3.padded_launches = 0
 conv3x3.wgmma_launches = conv3x3.tf32x3_launches = conv3x3.c1_launches = 0
+conv3x3.few_launches = 0
 
 
 def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
@@ -335,6 +401,12 @@ _WGT_TCI, _WGT_TCO = 32, 32
 # conv3x3_c1 tiles (csrc/conv3x3_c1.cu): 16 x 32 positions, 32 output
 # channels per block; the weight gradient aims for 8 blocks per SM
 _C1_TILE_H, _C1_TILE_W, _C1_TCO = 16, 32, 32
+# conv3x3_few's weight gradient (csrc/conv3x3_few.cu): positions per stage
+# (bf16 8 x 16, f32 4 x 16), 32 output channels per block; bf16 keeps 2
+# blocks per SM resident, f32 one
+_FEW_TILE = {torch.bfloat16: (8, 16), torch.float32: (4, 16)}
+_FEW_TCO = 32
+_FEW_TARGET_BLOCKS = {torch.bfloat16: 2 * 132, torch.float32: 132}
 
 
 def _wgrad_check(x, dy, depth, kz):
@@ -403,6 +475,17 @@ def wgrad_tf32x3_splits(x_shape, co: int, kz: int = 3) -> int:
     return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
 
 
+def wgrad_few_splits(x_shape, co: int, dtype) -> int:
+    """How many blocks share the sum over positions on the "few" route:
+    enough for one wave of `_FEW_TARGET_BLOCKS`, at least 8 position tiles
+    each."""
+    N, H, W, _ = x_shape
+    th, tw = _FEW_TILE[dtype]
+    tiles = N * (-(-H // th)) * (-(-W // tw))
+    return max(1, min(-(-tiles // 8), _FEW_TARGET_BLOCKS[dtype]
+                      // -(-co // _FEW_TCO)))
+
+
 def wgrad_c1_splits(x_shape, co: int) -> int:
     """How many blocks share the sum over positions on the "c1" route: one
     position tile each at most, `_WG_TARGET_BLOCKS` in all."""
@@ -417,7 +500,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
     * dy[n,h,w,co], zero-padded as `conv3x3` pads: the weight gradient of
     `conv3x3(x, W, depth)`.  Returns (kz, 3, 3, C, CO) f32.  CPU tensors
     take the plain version; CUDA tensors the kernel of
-    `conv3x3_wgrad_route`, or of `route="cuda_core"` as in `conv3x3`."""
+    `conv3x3_wgrad_route`, or of a forced route as in `conv3x3`."""
     _wgrad_check(x, dy, depth, kz)
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return conv3x3_wgrad_reference(x, dy, depth, kz)
@@ -428,7 +511,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
         raise ValueError("conv3x3_wgrad needs contiguous x and dy")
     N, H, W, C = x.shape
     CO = dy.shape[-1]
-    route = _pick_route(route, conv3x3_wgrad_route(C, CO, x.dtype))
+    route = _pick_route(route, conv3x3_wgrad_route(C, CO, x.dtype), x.dtype)
     if route_channels(C, route) != C:
         # the gradient of the zero channels is computed and dropped
         dw = conv3x3_wgrad(pad_channels(x, route_channels(C, route)), dy,
@@ -448,6 +531,12 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
         splits = wgrad_c1_splits(x.shape, CO)
         fn = build.function("conv3x3_c1", "dgtta_conv3x3_wgrad_c1",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            + [ctypes.c_void_p])
+    elif route == "few":
+        _check_aligned(route, x=x, dy=dy)
+        splits = wgrad_few_splits(x.shape, CO, x.dtype)
+        fn = build.function("conv3x3_few", "dgtta_conv3x3_wgrad_few",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p])
     else:
         splits = wgrad_splits(x.shape, CO, kz)
@@ -504,7 +593,7 @@ def _wgrad_tf32x3(x, dy, depth, kz):
 
 conv3x3_wgrad.launches = conv3x3_wgrad.padded_launches = 0
 conv3x3_wgrad.wgmma_launches = conv3x3_wgrad.tf32x3_launches = 0
-conv3x3_wgrad.c1_launches = 0
+conv3x3_wgrad.c1_launches = conv3x3_wgrad.few_launches = 0
 
 
 class Conv3x3Function(torch.autograd.Function):

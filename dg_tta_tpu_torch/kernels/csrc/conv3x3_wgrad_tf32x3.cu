@@ -114,12 +114,6 @@ split_transpose_kernel(const float* __restrict__ dy, float* __restrict__ hi,
   }
 }
 
-template <int R>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_tf32x3_kernel(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tmhi,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu): the host side encodes TMA
-// tensor maps, the device side wraps the PTX of mbarriers, TMA tile loads
-// (cp.async.bulk.tensor) and warpgroup matrix multiply-accumulate (wgmma).
+// (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, conv3x3_wgrad_tf32x3.cu,
+// conv3x3_few.cu): the host side encodes TMA tensor maps, the device side
+// wraps the PTX of mbarriers, TMA tile loads (cp.async.bulk.tensor),
+// ldmatrix and warpgroup matrix multiply-accumulate (wgmma).
 //
 // The tensor maps are encoded by cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the libraries link against the runtime only
@@ -67,18 +68,20 @@ inline CUtensorMapSwizzle swizzle_for(int inner_bytes) {
 // bytes each (bf16 unless said otherwise), innermost first: dims[i]
 // elements, strides[i] bytes between steps of dimension i + 1, box[i]
 // elements per load.  The swizzle spans the box's innermost extent (32, 64
-// or 128 bytes).  Returns false if cuTensorMapEncodeTiled refuses the map.
+// or 128 bytes), or none if !swizzled (a dense box).  Returns false if
+// cuTensorMapEncodeTiled refuses the map.
 inline bool make_map(CUtensorMap* map, const void* base, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides,
                      const cuuint32_t* box,
                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                     int elem_bytes = 2) {
+                     int elem_bytes = 2, bool swizzled = true) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle_for(box[0] * elem_bytes),
+            swizzled ? swizzle_for(box[0] * elem_bytes)
+                     : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -154,6 +157,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -330,6 +345,59 @@ __device__ __forceinline__ uint32_t cvt_tf32(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
   return r;
+}
+
+// bf16: D(64 x 32, f32 registers) += A(64 x 16) * B(16 x 32), A from
+// registers, B K-major in shared memory by descriptor.  Each register holds
+// two bf16 of one row, the lower column in the low half.  Warp w of the warpgroup holds rows 16 w .. 16 w + 15; lane l
+//   a[0] = A[16 w + l / 4][2 (l % 4) + {0, 1}],
+//   a[1] = A[16 w + l / 4 + 8][2 (l % 4) + {0, 1}],
+//   a[2] = A[16 w + l / 4][2 (l % 4) + 8 + {0, 1}],
+//   a[3] = A[16 w + l / 4 + 8][2 (l % 4) + 8 + {0, 1}];
+// the accumulator as in wgmma_m64n32k16.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory, one register
+// each: lane l gives the address of row l % 8 of matrix l / 8 (16 bytes);
+// lane l receives row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1 of every
+// matrix, the layout of a wgmma A fragment (matrices: rows 0-7 | 8-15 x
+// columns 0-7 | 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) before later reads by the async proxy (wgmma's operands by
+// descriptor); a barrier then publishes them to the other threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps register operands of an asynchronous wgmma live (and unwritten)
+// until after the wgmma_wait that retires it.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N, int TA, int TB>

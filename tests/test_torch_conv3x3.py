@@ -35,6 +35,8 @@ CASES = {
     "h_prime": (2, 1, 5, 9, 4, 4, "float32"),
     "c1": (3, 2, 7, 11, 1, 8, "float32"),
     "c_ragged_bf16": (4, 3, 9, 13, 5, 12, "bfloat16"),
+    # the stem of a MIND model (the "few" route on the card)
+    "mind_stem": (11, 2, 9, 13, 12, 32, "float32"),
 }
 
 
@@ -70,12 +72,7 @@ def test_plain_matches_pallas_and_xla(case):
     np.testing.assert_allclose(got, pallas, **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,D", [(1, 6), (2, 3), (1, 1)])
-def test_z_taps_match_jax_unet_conv(B, D, dtype):
-    """(3, 3, 3, C, CO) weights: the sum of the three z-tap 2D convs that
-    `dg_tta_tpu/models/unet.py::_conv` builds, per volume of D planes."""
-    H, W, C, CO = 9, 12, 6, 10
+def _check_z_taps(B, D, H, W, C, CO, dtype):
     x, w = _inputs(5, B * D, H, W, C, CO, dtype, kz=3)
     got = conv3x3(_to_torch(x, dtype), _to_torch(w, dtype), depth=D)
     ref = jax_conv3d(_to_jax(x, dtype).reshape(B, D, H, W, C),
@@ -83,6 +80,91 @@ def test_z_taps_match_jax_unet_conv(B, D, dtype):
     np.testing.assert_allclose(
         got.float().numpy().reshape(B, D, H, W, CO),
         np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D", [(1, 6), (2, 3), (1, 1)])
+def test_z_taps_match_jax_unet_conv(B, D, dtype):
+    """(3, 3, 3, C, CO) weights: the sum of the three z-tap 2D convs that
+    `dg_tta_tpu/models/unet.py::_conv` builds, per volume of D planes."""
+    _check_z_taps(B, D, 9, 12, 6, 10, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D", [(2, 3), (1, 1)])
+def test_z_taps_match_jax_unet_conv_mind_stem(B, D, dtype):
+    """The same at a MIND model's stem, C = 12 -> 32 (the "few" route on
+    the card)."""
+    _check_z_taps(B, D, 7, 11, 12, 32, dtype)
+
+
+def _im2col(x, kz):
+    """(N, D, H, W, C) -> (N, D, H, W, kz * 9 * C): the zero-padded
+    neighbourhood of every voxel in the "few" route's K order, k = ((kz * 3
+    + ky) * 3 + kx) * C + ci (z-taps past the volume read zeros)."""
+    N, D, H, W, C = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)))
+    cols = [xp[:, z:z + D, ky:ky + H, kx:kx + W]
+            for z in ((0, 1, 2) if kz == 3 else (1,))
+            for ky in range(3) for kx in range(3)]
+    return np.concatenate(cols, axis=-1)
+
+
+@pytest.mark.parametrize("layout", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kz", [1, 3])
+def test_folded_k_order_matches_jax(kz, layout):
+    """The "few" route's GEMM in f32: an im2col of x in the kernel's
+    (kz, ky, kx, ci) order (f32: 12 channels per tap, zero-padded to K =
+    328; bf16: 16 channels per tap, K = 432), times the matrix
+    `pack_few_weights` returns on the CPU equals JAX's `conv3x3_pallas`
+    (one z-tap, interpret mode) and the JAX U-Net's `_conv` (three) within
+    TOL: the index map the kernel uses."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import few_k, pack_few_weights
+
+    B, D, H, W, C, CO = 2, 3, 7, 10, 12, 32
+    x, w = _inputs(12, B * D, H, W, C, CO, "float32",
+                   kz=None if kz == 1 else 3)
+    cs, kp_route = few_k(C, kz, getattr(torch, layout))
+    # f32: 27 x 12 = 324 rows -> 41 k8 steps, 9 x 12 = 108 -> 14; bf16:
+    # one k16 step of 16 channels per tap
+    assert (cs, kp_route) == {(3, "float32"): (12, 328),
+                              (3, "bfloat16"): (16, 432),
+                              (1, "float32"): (12, 112),
+                              (1, "bfloat16"): (16, 144)}[kz, layout]
+    m = pack_few_weights(torch.from_numpy(w), getattr(torch, layout))
+    assert m.dtype == torch.float32 and m.shape == (kp_route, CO)
+    assert not m[kz * 9 * cs:].any()
+    xs = np.pad(x, ((0, 0),) * 3 + ((0, cs - C),))
+    cols = _im2col(xs.reshape(B, D, H, W, cs), kz)
+    cols = np.pad(cols, ((0, 0),) * 4 + ((0, kp_route - cols.shape[-1]),))
+    got = (cols.reshape(-1, kp_route).astype(np.float64)
+           @ m.numpy().astype(np.float64)).reshape(B * D, H, W, CO)
+    if kz == 1:
+        ref = conv3x3_pallas(_to_jax(x, "float32"), _to_jax(w, "float32"),
+                             interpret=True, mode_name="pairs")
+    else:
+        ref = jax_conv3d(_to_jax(x, "float32").reshape(B, D, H, W, C),
+                         _to_jax(w, "float32"), None)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float64).reshape(
+        B * D, H, W, CO), **TOL["float32"])
+
+
+def test_folded_k_pads_channels_to_16_in_bf16():
+    """bf16: each tap's K rows hold 16 channels, zeros past C (the halo's
+    32-byte pixels); f32 keeps C channels per tap and zero rows up to the
+    k8 step."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import few_k, pack_few_weights
+
+    w = torch.from_numpy(_inputs(13, 1, 1, 1, 5, 8, "float32", kz=3)[1])
+    assert few_k(5, 3, torch.bfloat16) == (16, 432)
+    assert few_k(5, 3, torch.float32) == (5, 136)
+    m = pack_few_weights(w.bfloat16())
+    assert m.dtype == torch.bfloat16 and m.shape == (432, 8)
+    rows = m.float().reshape(27, 16, 8)
+    assert torch.equal(rows[:, :5], w.bfloat16().float().reshape(27, 5, 8))
+    assert not rows[:, 5:].any()
+    assert torch.equal(pack_few_weights(w), torch.nn.functional.pad(
+        w.reshape(135, 8), (0, 0, 0, 1)))
 
 
 def test_single_z_tap_weight_equals_2d():
@@ -161,11 +243,19 @@ def test_flops_count_skips_z_taps_past_the_volume():
     (32, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
     (24, 40, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
     (512, 256, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
-    (8, 8, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
+    # a few input channels: the taps folded into K, either type
+    (8, 8, torch.float32, "few", "few"),
     (32, 12, torch.float32, "cuda_core", "cuda_core"),   # CO % 8 != 0
-    # the 12-channel stem of a MIND model, padded to 16 in either type
-    (12, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
-    (12, 32, torch.bfloat16, "wgmma", "wgmma"),
+    # the 12-channel stem of a MIND model, at its own C in either type
+    (12, 32, torch.float32, "few", "few"),
+    (12, 32, torch.bfloat16, "few", "few"),
+    (2, 32, torch.bfloat16, "few", "few"),
+    (15, 16, torch.float32, "few", "few"),
+    (15, 40, torch.bfloat16, "few", "few"),
+    (16, 32, torch.bfloat16, "wgmma", "wgmma"),
+    (16, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
+    (12, 20, torch.bfloat16, "cuda_core", "cuda_core"),  # CO % 8 != 0
+    (12, 20, torch.float32, "cuda_core", "cuda_core"),
 ])
 def test_routes(C, CO, dtype, route, wgrad_route):
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -173,6 +263,30 @@ def test_routes(C, CO, dtype, route, wgrad_route):
 
     assert conv3x3_route(C, CO, dtype) == route
     assert conv3x3_wgrad_route(C, CO, dtype) == wgrad_route
+
+
+@pytest.mark.parametrize("route,chosen,dtype,picked", [
+    (None, "few", torch.bfloat16, "few"),
+    ("wgmma", "few", torch.bfloat16, "wgmma"),
+    ("wgmma_tf32x3", "few", torch.float32, "wgmma_tf32x3"),
+    ("cuda_core", "few", torch.float32, "cuda_core"),
+    ("cuda_core", "wgmma", torch.bfloat16, "cuda_core"),
+    ("wgmma_tf32x3", "few", torch.bfloat16, None),
+    ("wgmma", "few", torch.float32, None),
+    ("few", "wgmma", torch.bfloat16, None),
+    ("c1", "few", torch.float32, None),
+])
+def test_forced_routes(route, chosen, dtype, picked):
+    """A caller may force the CUDA-core kernels onto any shape and the
+    type's wgmma route (on zero-padded channels) onto a shape that chooses
+    "few", to time two routes on one shape; nothing else."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import _pick_route
+
+    if picked is None:
+        with pytest.raises(ValueError, match="does not take"):
+            _pick_route(route, chosen, dtype)
+    else:
+        assert _pick_route(route, chosen, dtype) == picked
 
 
 @pytest.mark.parametrize("C,route,padded", [
@@ -271,6 +385,18 @@ def test_3xtf32_products_meet_the_f32_tolerance(C):
     assert np.abs(tf32_alone - exact).max() > 5e-5 * scale
 
 
+def _longest_wgrad_few_k():
+    """The most positions one block of the "few" route's f32 weight
+    gradient sums at the MIND stem's shape (a trained step's batch)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_few_splits
+
+    depth, H, W, C, CO = _chip_smoke().STEM_SHAPE
+    N = 2 * depth
+    tiles = N * (-(-H // 4)) * (-(-W // 16))
+    splits = wgrad_few_splits((N, H, W, C), CO, torch.float32)
+    return -(-tiles // splits) * 64
+
+
 def _longest_wgrad_tf32x3_k():
     """The most positions one block of the f32 weight gradient sums at a
     TS104 shape (a trained step's batch, N = 2 x depth planes)."""
@@ -293,6 +419,10 @@ def _longest_wgrad_tf32x3_k():
     # the weight gradient: 64 positions per stage, K = the longest sum of
     # one block (the splits' partial sums are then added with rounding)
     ("conv3x3_wgrad_tf32x3.cu", 64, 1e-4),
+    # the "few" route's forward: K = 328 at the MIND stem, no promotion
+    ("conv3x3_few.cu", None, 5e-5),
+    # its weight gradient: 64 positions per stage, the longest block sum
+    ("conv3x3_few.cu", 64, 1e-4),
 ])
 def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
                                                         tol):
@@ -301,20 +431,30 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
     reaches ~1e-4 of the output's range (forward, K = 27 x 512) or ~3e-4
     (weight gradient, ~37k positions per block); each kernel therefore adds
     its accumulator into a second, rounded f32 sum every `kPromote` stages
-    (csrc/conv3x3_wgmma.cu, csrc/conv3x3_wgrad_tf32x3.cu).  A model of
-    that: k8 steps of three exact 8-term products, each step's sum
-    truncated to f32, with and without the promotion; it must stay within
-    half the route's tolerance (chip_smoke KERNEL_RTOL, WGRAD_RTOL)."""
+    (csrc/conv3x3_wgmma.cu, csrc/conv3x3_wgrad_tf32x3.cu, the weight
+    gradient of csrc/conv3x3_few.cu), except the "few" forward, whose K of
+    328 needs none.  A model of that: k8 steps of three exact 8-term
+    products, each step's sum truncated to f32, with and without the
+    promotion; it must stay within half the route's tolerance (chip_smoke
+    KERNEL_RTOL, WGRAD_RTOL)."""
     import re
     from pathlib import Path
 
+    from dg_tta_tpu_torch.kernels.conv3x3 import few_k
+
     src = (Path(__file__).resolve().parents[1] / "dg_tta_tpu_torch"
            / "kernels" / "csrc" / source).read_text()
-    promote = int(re.search(r"constexpr int kPromote = (\d+);", src)[1])
-    steps_per_promotion = promote * k_per_stage // 8
+    steps_per_promotion = 0
+    if k_per_stage is not None:
+        promote = int(re.search(r"constexpr int kPromote = (\d+);", src)[1])
+        steps_per_promotion = promote * k_per_stage // 8
     rng = np.random.default_rng(9)
     M = 96
-    K = 27 * 512 if k_per_stage == 32 else _longest_wgrad_tf32x3_k()
+    K = {"conv3x3_wgmma.cu": lambda: 27 * 512,
+         "conv3x3_wgrad_tf32x3.cu": _longest_wgrad_tf32x3_k,
+         "conv3x3_few.cu": lambda: (few_k(12, 3, torch.float32)[1]
+                                    if k_per_stage is None
+                                    else _longest_wgrad_few_k())}[source]()
     assert K >= 8 * steps_per_promotion
     a = rng.normal(size=(M, K)).astype(np.float32).astype(np.float64)
     b = (rng.normal(size=K) * (2.0 / K) ** 0.5).astype(np.float32) \
@@ -345,7 +485,8 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
         return np.abs(tot - exact).max() / np.abs(exact).max()
 
     assert run(steps_per_promotion) <= tol / 2
-    assert run(0) > run(steps_per_promotion)
+    if steps_per_promotion:
+        assert run(0) > run(steps_per_promotion)
 
 
 def test_strided_convs_run_without_tf32(monkeypatch):
@@ -449,9 +590,10 @@ def test_expected_launches_route_split(dtype):
     got = _chip_smoke().expected_launches(spec, 3, 2, plan, dtype)
     bf16 = dtype == "bfloat16"
     assert got == dict(
-        conv3x3=162, conv3x3_c1=26, conv3x3_wgmma=136 if bf16 else 0,
+        conv3x3=162, conv3x3_c1=26, conv3x3_few=0,
+        conv3x3_wgmma=136 if bf16 else 0,
         conv3x3_wgmma_tf32x3=0 if bf16 else 136, conv3x3_cuda_core=0,
-        conv3x3_wgrad=40, conv3x3_wgrad_c1=8,
+        conv3x3_wgrad=40, conv3x3_wgrad_c1=8, conv3x3_wgrad_few=0,
         conv3x3_wgrad_wgmma=32 if bf16 else 0,
         conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
         conv3x3_wgrad_cuda_core=0, conv3x3_padded=0,
@@ -461,9 +603,11 @@ def test_expected_launches_route_split(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_expected_launches_mind_stem(dtype):
     """The same spec with a MIND model's 12 input channels: the stem
-    (12 -> 16, no input gradient) leaves "c1" for the wgmma route of the
-    type, zero-padded to 16 channels in either type: its 2 x 10 + 3 x 2 =
-    26 forwards and 2 x 4 = 8 weight gradients count as padded."""
+    (12 -> 16, no input gradient) leaves "c1" for the "few" route in
+    either type, at its own 12 channels: its 2 x 10 + 3 x 2 = 26 forwards
+    and 2 x 4 = 8 weight gradients, none of them padded; the other convs
+    keep the wgmma route of the type (136 forwards, 32 weight
+    gradients)."""
     from dg_tta_tpu_torch.models.plans import ArchSpec
 
     spec = ArchSpec(features_per_stage=(16, 32),
@@ -476,13 +620,14 @@ def test_expected_launches_mind_stem(dtype):
     got = _chip_smoke().expected_launches(spec, 3, 2, plan, dtype)
     bf16 = dtype == "bfloat16"
     assert got == dict(
-        conv3x3=162, conv3x3_c1=0, conv3x3_wgmma=162 if bf16 else 0,
-        conv3x3_wgmma_tf32x3=0 if bf16 else 162, conv3x3_cuda_core=0,
-        conv3x3_wgrad=40, conv3x3_wgrad_c1=0,
-        conv3x3_wgrad_wgmma=40 if bf16 else 0,
-        conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 40,
-        conv3x3_wgrad_cuda_core=0, conv3x3_padded=26,
-        conv3x3_wgrad_padded=8, warp=0, warp_affine=84, warp_adjoint=0)
+        conv3x3=162, conv3x3_c1=0, conv3x3_few=26,
+        conv3x3_wgmma=136 if bf16 else 0,
+        conv3x3_wgmma_tf32x3=0 if bf16 else 136, conv3x3_cuda_core=0,
+        conv3x3_wgrad=40, conv3x3_wgrad_c1=0, conv3x3_wgrad_few=8,
+        conv3x3_wgrad_wgmma=32 if bf16 else 0,
+        conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
+        conv3x3_wgrad_cuda_core=0, conv3x3_padded=0,
+        conv3x3_wgrad_padded=0, warp=0, warp_affine=84, warp_adjoint=0)
 
 
 @pytest.mark.parametrize("spatial,exact,warps", [

@@ -10,9 +10,9 @@ Tolerances, max |kernel - plain| over max |plain|:
 * conv3x3: 5e-5 in f32 (the same products summed in another order, on
   the "wgmma_tf32x3" route each from three tf32 products; TF32 off for the
   plain version) and 2^-7 in bf16 (both round one f32 sum to bf16), on
-  every route ("c1" for C = 1, "wgmma" for bf16 and "wgmma_tf32x3" for
-  f32 with CO a multiple of 8, C zero-padded to a multiple of 16/8, else
-  "cuda_core");
+  every route ("c1" for C = 1, "few" for 1 < C < 16, "wgmma" for bf16
+  and "wgmma_tf32x3" for f32 with CO a multiple of 8, C zero-padded to a
+  multiple of 16/8, else "cuda_core");
 * conv3x3_wgrad: 1e-4, f32 out from f32 or bf16 in (sums over every
   position, split across blocks, in another order than cuDNN's);
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
@@ -399,9 +399,17 @@ TF32X3_CASES = {
 }
 
 
+def _tf32x3_route(C, CO):
+    """The `route` argument that runs a shape on "wgmma_tf32x3": forced
+    where the shape chooses "few" (C < 16, on channels zero-padded to a
+    multiple of 8), else the shape's own."""
+    chosen = conv3x3_route(C, CO, torch.float32)
+    assert chosen in ("wgmma_tf32x3", "few")
+    return "wgmma_tf32x3" if chosen == "few" else None
+
+
 def _tf32x3_inputs(case, seed, device):
     N, D, H, W, C, CO, kz = TF32X3_CASES[case]
-    assert conv3x3_route(C, CO, torch.float32) == "wgmma_tf32x3"
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(kz, 3, 3, C, CO))
@@ -417,7 +425,8 @@ def test_conv3x3_tf32x3_matches_plain(cuda_device, case):
     x, w, _ = _tf32x3_inputs(case, 6, cuda_device)
     depth = TF32X3_CASES[case][1]
     before = (conv3x3.launches, conv3x3.tf32x3_launches)
-    got = conv3x3(x, w, depth=depth)
+    got = conv3x3(x, w, depth=depth,
+                  route=_tf32x3_route(x.shape[-1], w.shape[-1]))
     torch.cuda.synchronize()
     assert (conv3x3.launches, conv3x3.tf32x3_launches) == \
         (before[0] + 1, before[1] + 1)
@@ -533,13 +542,14 @@ WGRAD_TF32X3_CASES = dict(TF32X3_CASES,
 def test_wgrad_tf32x3_matches_plain(cuda_device, case):
     """f32 weight gradient on the tensor cores at f32's 1e-4."""
     N, D, H, W, C, CO, kz = WGRAD_TF32X3_CASES[case]
-    assert conv3x3_wgrad_route(C, CO, torch.float32) == "wgmma_tf32x3"
+    assert conv3x3_wgrad_route(C, CO, torch.float32) in ("wgmma_tf32x3",
+                                                         "few")
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
     dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
     x, dy = x.to(cuda_device), dy.to(cuda_device)
     before = (conv3x3_wgrad.launches, conv3x3_wgrad.tf32x3_launches)
-    got = conv3x3_wgrad(x, dy, depth=D, kz=kz)
+    got = conv3x3_wgrad(x, dy, depth=D, kz=kz, route=_tf32x3_route(C, CO))
     torch.cuda.synchronize()
     assert (conv3x3_wgrad.launches, conv3x3_wgrad.tf32x3_launches) == \
         (before[0] + 1, before[1] + 1)
@@ -627,7 +637,8 @@ def test_warp_affine_broadcasts_one_theta(cuda_device):
 
 # Channel counts that are not a multiple of the wgmma routes' K step (16
 # bf16, 8 f32), zero-padded onto them: the 12-channel stem of a MIND model
-# and a ragged C = 20.  (N, depth, H, W, C, CO)
+# (forced there: its shapes choose "few") and a ragged C = 20 (padded by
+# choice).  (N, depth, H, W, C, CO)
 PADDED_CASES = {
     "mind_stem_c12": (8, 4, 19, 37, 12, 32),
     "ragged_c20": (6, 3, 11, 13, 20, 40),
@@ -645,7 +656,10 @@ def test_padded_channels_on_wgmma_routes_match_plain(cuda_device, dtype,
     dt = getattr(torch, dtype)
     route, counter = (("wgmma", "wgmma_launches") if dtype == "bfloat16"
                       else ("wgmma_tf32x3", "tf32x3_launches"))
-    assert conv3x3_route(C, CO, dt) == conv3x3_wgrad_route(C, CO, dt) == route
+    chosen = conv3x3_route(C, CO, dt)
+    assert chosen == conv3x3_wgrad_route(C, CO, dt) == (
+        "few" if C < 16 else route)
+    forced = route if chosen == "few" else None
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(3, 3, 3, C, CO))
@@ -654,7 +668,7 @@ def test_padded_channels_on_wgmma_routes_match_plain(cuda_device, dtype,
     x, w, dy = (t.to(cuda_device, dt) for t in (x, w, dy))
     before = (conv3x3.launches, getattr(conv3x3, counter),
               conv3x3.padded_launches)
-    got = conv3x3(x, w, depth=D)
+    got = conv3x3(x, w, depth=D, route=forced)
     torch.cuda.synchronize()
     assert (conv3x3.launches, getattr(conv3x3, counter),
             conv3x3.padded_launches) == tuple(n + 1 for n in before)
@@ -662,7 +676,7 @@ def test_padded_channels_on_wgmma_routes_match_plain(cuda_device, dtype,
     assert _max_rel_err(got, conv3x3_reference(x, w, depth=D)) <= RTOL[dtype]
     before = (conv3x3_wgrad.launches, getattr(conv3x3_wgrad, counter),
               conv3x3_wgrad.padded_launches)
-    dw = conv3x3_wgrad(x, dy, depth=D)
+    dw = conv3x3_wgrad(x, dy, depth=D, route=forced)
     torch.cuda.synchronize()
     assert (conv3x3_wgrad.launches, getattr(conv3x3_wgrad, counter),
             conv3x3_wgrad.padded_launches) == tuple(n + 1 for n in before)
@@ -670,6 +684,140 @@ def test_padded_channels_on_wgmma_routes_match_plain(cuda_device, dtype,
     assert dw.is_contiguous()
     ref = conv3x3_wgrad_reference(x, dy, depth=D)
     assert _max_rel_err(dw, ref) <= 1e-4
+
+
+# The "few" route (1 < C < 16, CO % 8 == 0, either type): (N, depth, H, W,
+# C, CO, kz).  Ragged planes leave every tile part empty (bf16: 4 x 64
+# forward, 8 x 16 weight gradient; f32: 16 x 16 and 4 x 16); C = 12 and 8
+# load the f32 halo by TMA, C = 2, 3 and 15 by cp.async (C = 3 and 15 odd:
+# bf16 element by element), C = 15 the most the route takes (f32: seven
+# m64 tiles of (tap, ci) rows); CO = 40 takes two 32-channel tiles, the
+# second part empty; the stem's plane size (112 x 128) at two volumes of 16
+# planes, and the stem's own shape (one volume of 112 planes), both with
+# enough positions to split the weight gradient.
+FEW_CASES = {
+    "mind_stem": (8, 4, 19, 37, 12, 32, 3),
+    "stem_one_z_tap": (6, 3, 11, 21, 12, 32, 1),
+    "depth1": (4, 1, 7, 9, 12, 32, 3),
+    "c2": (4, 2, 9, 17, 2, 8, 3),
+    "c3_odd": (6, 3, 13, 20, 3, 16, 3),
+    "c8_co40": (4, 2, 10, 18, 8, 40, 3),
+    "c15": (6, 2, 9, 33, 15, 24, 3),
+    "c15_one_z_tap": (4, 2, 6, 17, 15, 8, 1),
+    "stem_planes": (32, 16, 112, 128, 12, 32, 3),
+    "stem_shape": (112, 112, 112, 128, 12, 32, 3),
+}
+
+
+def _few_inputs(case, seed, dtype, device):
+    N, D, H, W, C, CO, kz = FEW_CASES[case]
+    assert conv3x3_route(C, CO, dtype) == "few"
+    assert conv3x3_wgrad_route(C, CO, dtype) == "few"
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(kz, 3, 3, C, CO))
+                          * (2.0 / (27 * C)) ** 0.5).astype(np.float32))
+    if kz == 1:
+        w = w[0]
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    return [t.to(device, dtype) for t in (x, w, dy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FEW_CASES))
+def test_conv3x3_few_matches_plain(cuda_device, dtype, case):
+    dt = getattr(torch, dtype)
+    x, w, _ = _few_inputs(case, 14, dt, cuda_device)
+    depth = FEW_CASES[case][1]
+    before = (conv3x3.launches, conv3x3.few_launches,
+              conv3x3.padded_launches)
+    got = conv3x3(x, w, depth=depth)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3.few_launches,
+            conv3x3.padded_launches) == (before[0] + 1, before[1] + 1,
+                                         before[2])
+    assert got.dtype == dt and got.shape == (*x.shape[:3], w.shape[-1])
+    assert _max_rel_err(got, conv3x3_reference(x, w, depth=depth)) \
+        <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FEW_CASES))
+def test_wgrad_few_matches_plain(cuda_device, dtype, case):
+    dt = getattr(torch, dtype)
+    x, _, dy = _few_inputs(case, 15, dt, cuda_device)
+    N, D, H, W, C, CO, kz = FEW_CASES[case]
+    before = (conv3x3_wgrad.launches, conv3x3_wgrad.few_launches,
+              conv3x3_wgrad.padded_launches)
+    got = conv3x3_wgrad(x, dy, depth=D, kz=kz)
+    torch.cuda.synchronize()
+    assert (conv3x3_wgrad.launches, conv3x3_wgrad.few_launches,
+            conv3x3_wgrad.padded_launches) == (before[0] + 1, before[1] + 1,
+                                               before[2])
+    assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, C, CO)
+    ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
+    assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_few_route_rejects_misaligned_or_non_contiguous(cuda_device, dtype):
+    """cp.async copies 16-byte units of dy (and of x where C allows): a
+    view that starts off a 16-byte boundary raises before any launch, and
+    so does a non-contiguous x."""
+    dt = getattr(torch, dtype)
+    shape = (4, 6, 8, 12)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=dt, device=cuda_device)
+    x = buf[1:n + 1].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.zeros((3, 3, 3, 12, 32), dtype=dt, device=cuda_device)
+    dy = torch.zeros((4, 6, 8, 32), dtype=dt, device=cuda_device)
+    before = (conv3x3.launches, conv3x3_wgrad.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3(x, w, depth=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_wgrad(x, dy, depth=2)
+    dbuf = torch.zeros(dy.numel() + 8, dtype=dt, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv3x3_wgrad(x.contiguous().clone(),
+                      dbuf[1:dy.numel() + 1].view(dy.shape), depth=2)
+    strided = torch.zeros(4, 6, 16, 12, dtype=dt, device=cuda_device)[:, :,
+                                                                      ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3(strided, w, depth=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_wgrad(strided, dy, depth=2)
+    assert (conv3x3.launches, conv3x3_wgrad.launches) == before
+
+
+@pytest.mark.cuda
+def test_few_conv_autograd_on_card_matches_cpu(cuda_device):
+    """`conv3x3_op` at a MIND stem's channels, 12 -> 32, forward and both
+    gradients on the card (the forward and weight gradient on "few", the
+    input gradient, 32 -> 12 with CO % 8 != 0, on "cuda_core") against the
+    CPU: f32, 1e-4 of each range."""
+    rng = np.random.default_rng(16)
+    N, D, H, W, C, CO = 8, 4, 13, 22, 12, 32
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, 3, C, CO)) * 0.1)
+                         .astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xd = x.detach().to(dev).requires_grad_(True)
+        wd = w.detach().to(dev).requires_grad_(True)
+        before = (conv3x3.few_launches, conv3x3_wgrad.few_launches)
+        y = conv3x3_op(xd, wd, depth=D)
+        (y * ct.to(dev)).sum().backward()
+        moved = (conv3x3.few_launches - before[0],
+                 conv3x3_wgrad.few_launches - before[1])
+        assert moved == ((0, 0) if dev == "cpu" else (1, 1))
+        outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    for ref, got in zip(*outs):
+        assert _max_rel_err(got, ref) <= 1e-4
 
 
 @pytest.mark.cuda
