@@ -13,9 +13,12 @@ Phases; any failure raises and the script exits non-zero:
    asserts that the SASS of the wgmma kernels (bf16 and f32 3xTF32
    instantiations of `conv3x3_wgmma`, `conv3x3_wgrad_wgmma` and the f32
    `conv3x3_wgrad_tf32x3`) holds tensor-core (`HGMMA`) and TMA
-   (`UTMALDG`) instructions, and that of `conv3x3_few`'s four kernels
+   (`UTMALDG`) instructions, that of `conv3x3_few`'s four kernels
    (forward and weight gradient, bf16 and f32) `HGMMA` and their halo
-   loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`);
+   loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`), and that of
+   `conv3x3_c1`'s four (the C = 1 forward and weight gradient, bf16 and
+   f32 3xTF32) tensor-core `HMMA` (mma.sync), the weight gradients' dy
+   loads cp.async (`LDGSTS`);
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -30,6 +33,11 @@ Phases; any failure raises and the script exits non-zero:
      "wgmma_tf32x3" for f32); the shapes of the "c1" and "wgmma_tf32x3"
      routes also run on the CUDA-core kernel they took before
      (`route="cuda_core"`, marked "forced"), so both are timed in one call;
+     each bound is the larger of the bytes floor and the operations floor
+     on the unit the route computes on (`_ops_ms`: the CUDA cores' f32
+     rate for "cuda_core" in either type, the tensor cores for the other
+     routes, f32 there as three tf32 products), and the "c1" shapes print
+     both floors;
      and the stem conv of a MIND model (12 -> 32 channels, route "few")
      at its window forward and its step forward, also forced onto the
      type's wgmma route (zero-padded to 16 channels: the route it took
@@ -102,6 +110,8 @@ Phases; any failure raises and the script exits non-zero:
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
 shapes they ran before the "c1" and "wgmma_tf32x3" routes took them; the
+"c1" rows with their operations and bytes floors and their shapes' times
+and bounds on the CUDA-core kernels (forced); the
 MIND stem's rows on "few" with the forced padded-route and CUDA-core
 times beside them; the warp's
 grid entry per deformable branch of a trained step, and its exact adjoint
@@ -132,12 +142,13 @@ TS104_CONV_SHAPES = [
     (14, 14, 16, 512, 256, 1),
     (7, 7, 8, 320, 320, 1),
 ]
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
-# bf16 on the tensor cores, HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores
+# (the CUDA cores), bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-# The f32 "wgmma_tf32x3" route does three tf32 products per f32 product on
-# the tensor cores (495 TFLOP/s dense): its bound is 3 x ops / 495e12 s.
+# The f32 tensor-core routes ("wgmma_tf32x3", "few", "c1") do three tf32
+# products per f32 product (495 TFLOP/s dense): their bound is 3 x ops /
+# 495e12 s.
 PEAK_TF32 = 495e12
 # Kernel vs plain version, max |diff| / max |plain|: both sum the same
 # products in f32 in another order (f32), and both round that sum to bf16
@@ -255,8 +266,11 @@ def phase_build():
     # the wgmma routes run on the tensor cores, fed by TMA: the bf16 and
     # the f32 (3xTF32) instantiations of conv3x3_wgmma, and wgrad's bf16
     # and f32 kernels; the "few" route's four kernels on the tensor cores,
-    # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA
+    # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA; the
+    # "c1" route's four by mma.sync (HMMA), the weight gradients' dy by
+    # cp.async
     tma, cp_async = ("HGMMA", "UTMALDG"), ("HGMMA", "LDGSTS")
+    hmma, hmma_cp = ("HMMA",), ("HMMA", "LDGSTS")
     for name, marker, ops in (
             ("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_", tma),
             ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf", tma),
@@ -265,7 +279,11 @@ def phase_build():
             ("conv3x3_few", "few_forward_bf16_kernel", cp_async),
             ("conv3x3_few", "few_forward_f32_kernel", tma),
             ("conv3x3_few", "few_wgrad_bf16_kernel", cp_async),
-            ("conv3x3_few", "few_wgrad_f32_kernel", tma)):
+            ("conv3x3_few", "few_wgrad_f32_kernel", tma),
+            ("conv3x3_c1", "c1_forward_kernelI13__nv_bfloat16", hmma),
+            ("conv3x3_c1", "c1_forward_kernelIf", hmma),
+            ("conv3x3_c1", "c1_wgrad_kernelI13__nv_bfloat16", hmma_cp),
+            ("conv3x3_c1", "c1_wgrad_kernelIf", hmma_cp)):
         funcs = [f for f in build.sass(name).split("Function : ")[1:]
                  if marker in f.split("\n", 1)[0]]
         counts = {op: sum(f.count(op) for f in funcs) for op in ops}
@@ -319,10 +337,37 @@ def _stem_cases():
 
 
 def _ops_ms(ops, name, route):
-    # f32 on the tensor cores (3xTF32): "wgmma_tf32x3", and "few" in f32
-    tf32x3 = route == "wgmma_tf32x3" or (route == "few"
-                                         and name == "float32")
-    return ops / (PEAK_TF32 / 3 if tf32x3 else PEAK_OPS[name]) * 1e3
+    """The least time for `ops` operations of type `name` on the unit
+    that `route` computes on: "cuda_core" on the CUDA cores' f32 rate in
+    either type (bf16 is widened to f32 there); every other route on the
+    tensor cores, bf16 at its rate and f32 as three tf32 products
+    (3xTF32)."""
+    if route == "cuda_core":
+        return ops / PEAK_OPS["float32"] * 1e3
+    if name == "float32":
+        return ops / (PEAK_TF32 / 3) * 1e3
+    return ops / PEAK_OPS["bfloat16"] * 1e3
+
+
+def _bound_text(ops_ms, bytes_ms, both):
+    """The bound of one shape, the larger floor named; with `both`, the
+    operations and the bytes floor beside it."""
+    text = (f"bound_ms={max(ops_ms, bytes_ms):.4f} "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    if both:
+        text += f" [ops_floor_ms={ops_ms:.4f} bytes_floor_ms={bytes_ms:.4f}]"
+    return text
+
+
+def _route_totals(totals, name, main, route, stem):
+    """The totals a shape's time on `route` adds to: its route's per type
+    ("<type>/<route>", the MIND stem's "<type>/stem12/<route>") and, for a
+    "c1" shape forced onto another route, "<type>/c1/<route>" too."""
+    at = [totals.setdefault(f"{name}/{'stem12/' if stem else ''}{route}",
+                            _new_totals())]
+    if main == "c1" and route != main:
+        at.append(totals.setdefault(f"{name}/c1/{route}", _new_totals()))
+    return at
 
 
 def _side_routes(main, stem, dtype):
@@ -404,12 +449,9 @@ def phase_kernels():
                     f"max_rel_err={err / scale:.3e} "
                     f"(tol {KERNEL_RTOL[name]:.1e}) kernel_ms={k_ms:.4f} "
                     f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-                    f"bound_ms={max(ops_ms, bytes_ms):.4f} "
-                    f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
+                    f"{_bound_text(ops_ms, bytes_ms, main == 'c1')} "
                     f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
-                at = [totals.setdefault(
-                    f"{name}/{'stem12/' if stem else ''}{route}",
-                    _new_totals())]
+                at = _route_totals(totals, name, main, route, stem)
                 if route == main and not stem:
                     at += [tot, per_use.setdefault(use, _new_totals())]
                 for t in at:
@@ -488,14 +530,11 @@ def phase_wgrad():
                     f"max_abs_err={err:.3e} (tol {WGRAD_RTOL * scale:.3e}) "
                     f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"library_ms={l_ms:.4f} "
-                    f"bound_ms={max(ops_ms, bytes_ms):.4f} "
-                    f"({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
+                    f"{_bound_text(ops_ms, bytes_ms, main == 'c1')} "
                     f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
                 if main == "wgmma_tf32x3" and not stem:
                     side[route] = side.get(route, 0.0) + mult * k_ms
-                at = [totals.setdefault(
-                    f"{name}/{'stem12/' if stem else ''}{route}",
-                    _new_totals())]
+                at = _route_totals(totals, name, main, route, stem)
                 if route == main and not stem:
                     at.append(tot)
                 for t in at:
@@ -1515,6 +1554,19 @@ def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None,
     return row
 
 
+def _c1_extra(totals):
+    """The "c1" rows' floors by unit and their forced CUDA-core times."""
+    out = {}
+    for dt, pre in (("float32", ""), ("bfloat16", "bf16_")):
+        t, cc = totals[f"{dt}/c1"], totals[f"{dt}/c1/cuda_core"]
+        out.update({f"{pre}ops_floor_ms": t["ops_ms"],
+                    f"{pre}bytes_floor_ms": t["bytes_ms"],
+                    f"{pre}cuda_core_ms": cc["ms"],
+                    f"{pre}cuda_core_bound_ms": max(cc["ops_ms"],
+                                                    cc["bytes_ms"])})
+    return out
+
+
 def main():
     phase_device()
     import torch
@@ -1603,11 +1655,15 @@ def main():
         _row("conv3x3_wgrad_tf32x3", conv3x3.WGRAD_TF32X3_SOURCE,
              conv3x3.REPLACES, both("conv3x3_wgrad_wgmma_tf32x3", "float32"),
              wg["float32/wgmma_tf32x3"]),
+        # the C = 1 first conv on "c1" (the tensor cores), its bytes and
+        # operations floors beside the bound, and its shapes forced onto
+        # the CUDA-core kernels with their bound there
         _row("conv3x3_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
-             both("conv3x3_c1"), c["float32/c1"], c["bfloat16/c1"], "c1"),
+             both("conv3x3_c1"), c["float32/c1"], c["bfloat16/c1"], "c1",
+             **_c1_extra(c)),
         _row("conv3x3_wgrad_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_c1"), wg["float32/c1"], wg["bfloat16/c1"],
-             "c1"),
+             "c1", **_c1_extra(wg)),
         # the MIND stem (C = 12) on "few" in both types, its launches over
         # the main-path runs; beside them the same shapes forced onto the
         # wgmma route of the type, zero-padded to 16 channels (the route

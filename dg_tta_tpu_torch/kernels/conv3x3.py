@@ -14,7 +14,10 @@ Five routes, each a CUDA source with its own C entry, chosen by
 `conv3x3_route(C, CO, dtype)` from the call's shapes alone (no fallback:
 a launch error raises, and a misaligned tensor raises before the launch):
 * "c1" (`csrc/conv3x3_c1.cu`): C == 1, f32 and bf16, the first conv on
-  the 1-channel image; a kernel bound by the bytes of its output;
+  the 1-channel image: the taps in the GEMM's K axis on the tensor cores
+  (mma.sync; f32 as 3xTF32), the weights packed into that order by the
+  kernel itself; bound by the bytes of y (forward) and dy (weight
+  gradient);
 * "few" (`csrc/conv3x3_few.cu`): 1 < C < 16 with CO % 8 == 0, f32
   (3xTF32) and bf16, the stem of a MIND model (C = 12): x read at its own
   C into a halo in shared memory, the taps in the GEMM's K axis, the
@@ -277,6 +280,8 @@ def _launch_wgmma(x, w5, y, depth):
 
 
 def _launch_c1(x, w5, y, depth):
+    # the kernel packs w into its GEMM's B operand itself: no launch but
+    # its own
     fn = build.function("conv3x3_c1", "dgtta_conv3x3_c1",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p])
@@ -398,9 +403,12 @@ _WGW_TARGET_BLOCKS = 4 * 132
 # per stage, 32 input and 32 output channels per block, one block per kz;
 # one block per SM is resident (672 threads)
 _WGT_TCI, _WGT_TCO = 32, 32
-# conv3x3_c1 tiles (csrc/conv3x3_c1.cu): 16 x 32 positions, 32 output
-# channels per block; the weight gradient aims for 8 blocks per SM
-_C1_TILE_H, _C1_TILE_W, _C1_TCO = 16, 32, 32
+# conv3x3_c1's weight gradient (csrc/conv3x3_c1.cu): positions per tile
+# (bf16 8 x 64, f32 4 x 64), 32 output channels per block; a block sums a
+# contiguous range of tiles, one wave of blocks, two per SM
+_C1_TILE = {torch.bfloat16: (8, 64), torch.float32: (4, 64)}
+_C1_TCO = 32
+_C1_TARGET_BLOCKS = 2 * 132
 # conv3x3_few's weight gradient (csrc/conv3x3_few.cu): positions per stage
 # (bf16 8 x 16, f32 4 x 16), 32 output channels per block; bf16 keeps 2
 # blocks per SM resident, f32 one
@@ -486,12 +494,14 @@ def wgrad_few_splits(x_shape, co: int, dtype) -> int:
                       // -(-co // _FEW_TCO)))
 
 
-def wgrad_c1_splits(x_shape, co: int) -> int:
-    """How many blocks share the sum over positions on the "c1" route: one
-    position tile each at most, `_WG_TARGET_BLOCKS` in all."""
+def wgrad_c1_splits(x_shape, co: int, dtype) -> int:
+    """How many blocks share the sum over positions on the "c1" route:
+    one wave of `_C1_TARGET_BLOCKS` over the output-channel tiles, at least
+    one position tile each."""
     N, H, W, _ = x_shape
-    tiles = N * (-(-H // _C1_TILE_H)) * (-(-W // _C1_TILE_W))
-    return max(1, min(tiles, -(-_WG_TARGET_BLOCKS // -(-co // _C1_TCO))))
+    th, tw = _C1_TILE[dtype]
+    tiles = N * (-(-H // th)) * (-(-W // tw))
+    return max(1, min(tiles, _C1_TARGET_BLOCKS // -(-co // _C1_TCO)))
 
 
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
@@ -528,7 +538,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                             + [ctypes.c_void_p])
     elif route == "c1":
         _check_aligned(route, dy=dy)
-        splits = wgrad_c1_splits(x.shape, CO)
+        splits = wgrad_c1_splits(x.shape, CO, x.dtype)
         fn = build.function("conv3x3_c1", "dgtta_conv3x3_wgrad_c1",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p])

@@ -28,9 +28,9 @@
 // on x and w zero-padded to 16 in device memory (a pad copy of x per call),
 // and the weight gradients' 64- and 32-channel M tiles were three quarters
 // and half zeros.  Here x is read at its own C and staged once per tile as
-// a zero-padded halo in shared memory; C = 1 keeps conv3x3_c1.cu (27
-// operations per byte: the tensor cores buy nothing there), and from
-// C = 16 on the wgmma routes need no padding.
+// a zero-padded halo in shared memory; C = 1 has conv3x3_c1.cu, whose K
+// is the 27 taps alone (here each tap is a 16-channel step: 16x the MMAs
+// at C = 1), and from C = 16 on the wgmma routes need no padding.
 //
 // The halo.  A block stages the zero-padded halo of its tile (KZ planes x
 // rows x pixels; zeros past the plane and past the volume's group of

@@ -167,6 +167,157 @@ def test_folded_k_pads_channels_to_16_in_bf16():
         w.reshape(135, 8), (0, 0, 0, 1)))
 
 
+# The "c1" route's GEMMs (C = 1): (N, depth, H, W, CO, kz).  Ragged planes,
+# one z-tap (K = 9 taps padded to 16), CO = 7 and 40 (zero columns past CO
+# in the last 32-channel tile).
+C1_GEMM_CASES = {
+    "kz1_ragged_co7": (4, 2, 5, 7, 7, 1),
+    "kz3_co32": (4, 4, 7, 10, 32, 3),
+    "kz3_ragged_co40": (6, 3, 6, 9, 40, 3),
+    "kz3_depth1_co7": (3, 1, 4, 3, 7, 3),
+}
+
+
+def c1_k(kz):
+    """K of the "c1" GEMMs (csrc/conv3x3_c1.cu): the kz * 9 taps padded to
+    whole MMA K steps, 16 (kz = 1) or 32 (kz = 3), in either type."""
+    return 16 if kz == 1 else 32
+
+
+# The "c1" forward's column order within each 32-channel tile: MMA column
+# 8 j + 2 t + e (n8 tile j, accumulator columns 2 t + e of lane t) holds
+# output channel 8 t + 2 j + e.
+C1_COLUMNS = tuple(8 * (n % 8 // 2) + 2 * (n // 8) + n % 2 for n in range(32))
+
+
+def pack_c1_weights(w):
+    """The B operand that the "c1" forward kernel builds in registers from
+    w (kz, 3, 3, 1, CO): a (c1_k(kz), COp) matrix, COp = CO rounded up to
+    32, row k = tap (kz * 3 + ky) * 3 + kx (zero rows past kz * 9), column
+    32 c + n = output channel 32 c + C1_COLUMNS[n] (zero past CO)."""
+    kz, CO = w.shape[0], w.shape[-1]
+    cop = -(-CO // 32) * 32
+    m = np.zeros((c1_k(kz), cop), np.float64)
+    m[:kz * 9, :CO] = w.reshape(kz * 9, CO)
+    cols = [32 * (c // 32) + C1_COLUMNS[c % 32] for c in range(cop)]
+    return m[:, cols]
+
+
+def _c1_im2col(x, depth, kz):
+    """(N, H, W, 1) -> (N, H, W, c1_k(kz)): the rows of the "c1" GEMMs'
+    im2col operand, tap k = (kz * 3 + ky) * 3 + kx in column k (zeros past
+    kz * 9), x zero-padded in H, W and past each group of `depth` planes."""
+    N, H, W, _ = x.shape
+    vp = np.pad(x[..., 0].reshape(N // depth, depth, H, W),
+                ((0, 0), (1, 1), (1, 1), (1, 1)))
+    cols = [vp[:, z:z + depth, ky:ky + H, kx:kx + W]
+            for z in ((0, 1, 2) if kz == 3 else (1,))
+            for ky in range(3) for kx in range(3)]
+    a = np.stack(cols, axis=-1).reshape(N, H, W, kz * 9)
+    return np.pad(a, ((0, 0),) * 3 + ((0, c1_k(kz) - kz * 9),))
+
+
+def _c1_case(case):
+    N, D, H, W, CO, kz = C1_GEMM_CASES[case]
+    rng = np.random.default_rng(sorted(C1_GEMM_CASES).index(case) + 20)
+    x = rng.normal(size=(N, H, W, 1)).astype(np.float32)
+    w = (rng.normal(size=(kz, 3, 3, 1, CO)) * 0.3).astype(np.float32)
+    dy = rng.normal(size=(N, H, W, CO)).astype(np.float64)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("case", sorted(C1_GEMM_CASES))
+def test_c1_forward_gemm_matches_jax(case):
+    """The "c1" forward as its kernel computes it: im2col(x) (taps in K,
+    zero-padded to `c1_k`) times the B operand the kernel builds
+    (`pack_c1_weights`: zero rows past the taps, columns permuted within
+    each 32-channel tile), the columns mapped back through `C1_COLUMNS`,
+    equals `conv3x3_reference` and JAX (`conv3x3_pallas` in interpret mode
+    for one z-tap, the U-Net's `_conv` for three) within TOL."""
+    N, D, H, W, CO, kz = C1_GEMM_CASES[case]
+    x, w, _ = _c1_case(case)
+    b = pack_c1_weights(w)
+    cop = -(-CO // 32) * 32
+    assert b.shape == (c1_k(kz), cop) and not b[kz * 9:].any()
+    packed = _c1_im2col(x, D, kz).astype(np.float64) @ b
+    y = np.empty_like(packed)
+    cols = [32 * (c // 32) + C1_COLUMNS[c % 32] for c in range(cop)]
+    y[..., cols] = packed
+    assert not y[..., CO:].any()
+    y = y[..., :CO]
+    w_in = w[0] if kz == 1 else w
+    ref = conv3x3_reference(torch.from_numpy(x), torch.from_numpy(w_in),
+                            depth=D).numpy()
+    np.testing.assert_allclose(y, ref, **TOL["float32"])
+    if kz == 1:
+        jax_ref = conv3x3_pallas(_to_jax(x, "float32"),
+                                 _to_jax(w_in, "float32"), interpret=True,
+                                 mode_name="pairs")
+    else:
+        jax_ref = jax_conv3d(_to_jax(x, "float32").reshape(N // D, D, H, W,
+                                                           1),
+                             _to_jax(w, "float32"), None)
+    np.testing.assert_allclose(
+        y, np.asarray(jax_ref, np.float64).reshape(N, H, W, CO),
+        **TOL["float32"])
+
+
+@pytest.mark.parametrize("case", sorted(C1_GEMM_CASES))
+def test_c1_wgrad_gemm_matches_jax(case):
+    """The "c1" weight gradient as its kernel computes it: dW^T = dy^T
+    im2col(x), the taps in N in the forward's K order (zero columns past
+    the taps contribute zero rows), equals `conv3x3_wgrad_reference` and
+    `jax.vjp` of the JAX U-Net's `_conv` with respect to w."""
+    import jax
+
+    from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3_wgrad_reference
+
+    N, D, H, W, CO, kz = C1_GEMM_CASES[case]
+    x, w, dy = _c1_case(case)
+    a = _c1_im2col(x, D, kz).reshape(-1, _c1_im2col(x, D, kz).shape[-1])
+    dwt = dy.reshape(-1, CO).T @ a.astype(np.float64)  # (CO, K)
+    assert not dwt[:, kz * 9:].any()
+    got = dwt[:, :kz * 9].T.reshape(kz, 3, 3, 1, CO)
+    ref = conv3x3_wgrad_reference(torch.from_numpy(x),
+                                  torch.from_numpy(dy.astype(np.float32)),
+                                  depth=D, kz=kz).numpy()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * scale)
+    _, vjp = jax.vjp(lambda b: jax_conv3d(
+        _to_jax(x, "float32").reshape(N // D, D, H, W, 1), b, None),
+        _to_jax(w, "float32"))
+    (jax_dw,) = vjp(_to_jax(dy.astype(np.float32).reshape(N // D, D, H, W,
+                                                          CO), "float32"))
+    np.testing.assert_allclose(got, np.asarray(jax_dw, np.float64),
+                               rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("shape,co,dtype,splits", [
+    # a trained step at TS104's first conv: one wave of 264 blocks
+    ((224, 112, 112, 1), 32, torch.bfloat16, 264),
+    ((224, 112, 112, 1), 32, torch.float32, 264),
+    # two channel tiles share the wave
+    ((224, 112, 112, 1), 40, torch.bfloat16, 132),
+    # fewer tiles than blocks: one tile each (bf16 8 x 64, f32 4 x 64)
+    ((4, 9, 70, 1), 32, torch.bfloat16, 4 * 2 * 2),
+    ((4, 9, 70, 1), 32, torch.float32, 4 * 3 * 2),
+])
+def test_wgrad_c1_splits(shape, co, dtype, splits):
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_c1_splits
+
+    assert wgrad_c1_splits(shape, co, dtype) == splits
+
+
+def test_c1_columns_give_each_lane_eight_contiguous_channels():
+    """Lane t of a quad accumulates MMA columns 8 j + 2 t + e (n8 tile j);
+    through `C1_COLUMNS` those are channels 8 t .. 8 t + 7 in the order
+    (j, e), which the kernel stores as one 16-byte run per pixel."""
+    assert sorted(C1_COLUMNS) == list(range(32))
+    for t in range(4):
+        assert [C1_COLUMNS[8 * j + 2 * t + e] for j in range(4)
+                for e in range(2)] == list(range(8 * t, 8 * t + 8))
+
+
 def test_single_z_tap_weight_equals_2d():
     x, w = _inputs(6, 4, 8, 8, 3, 5, "float32")
     a = conv3x3(torch.from_numpy(x), torch.from_numpy(w))
@@ -232,10 +383,13 @@ def test_flops_count_skips_z_taps_past_the_volume():
     (32, 32, torch.bfloat16, "wgmma", "wgmma"),
     (16, 40, torch.bfloat16, "wgmma", "wgmma"),
     (320, 320, torch.bfloat16, "wgmma", "wgmma"),
-    # the first conv, on the image, in either type
+    # the first conv, on the image, in either type, for any CO
     (1, 32, torch.bfloat16, "c1", "c1"),
     (1, 32, torch.float32, "c1", "c1"),
     (1, 7, torch.float32, "c1", "c1"),
+    (1, 7, torch.bfloat16, "c1", "c1"),
+    (1, 40, torch.float32, "c1", "c1"),
+    (1, 40, torch.bfloat16, "c1", "c1"),
     # C % 16 != 0: on x and w zero-padded to 32 channels
     (24, 32, torch.bfloat16, "wgmma", "wgmma"),
     (32, 12, torch.bfloat16, "cuda_core", "cuda_core"),  # CO % 8 != 0

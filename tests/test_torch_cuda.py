@@ -470,8 +470,11 @@ def test_tf32x3_route_rejects_misaligned_tensors(cuda_device):
 
 
 # The "c1" route (C = 1, either type): (N, depth, H, W, CO, kz).  Ragged
-# planes leave 16 x 32 tiles part empty; CO = 40 takes two channel slices,
-# the second part empty; CO = 7 is odd (no pair accesses).
+# planes leave the 8 x 64 (forward, bf16 weight gradient) and 4 x 64 (f32
+# weight gradient) tiles part empty, and W = 100 the last 16-pixel M tile
+# of a row; a plane of one row leaves all but one row of a tile empty;
+# CO = 40 takes two channel slices, the second part empty (channel-wise
+# stores); CO = 7 is odd (no vector accesses: element-wise staging of dy).
 C1_CASES = {
     "first_conv": (8, 8, 16, 16, 32, 3),
     "ragged": (12, 6, 19, 37, 32, 3),
@@ -480,6 +483,8 @@ C1_CASES = {
     "co7_odd": (6, 3, 9, 20, 7, 3),
     "one_z_tap": (6, 3, 11, 45, 32, 1),
     "many_tiles": (64, 32, 40, 72, 32, 3),
+    "w100_ragged_m_tile": (6, 3, 10, 100, 32, 3),
+    "one_row_plane": (8, 4, 1, 70, 32, 3),
 }
 
 
@@ -527,6 +532,23 @@ def test_wgrad_c1_matches_plain(cuda_device, dtype, case):
     assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, 1, CO)
     ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
     assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_c1_is_deterministic(cuda_device, dtype):
+    """Two runs of the "c1" weight gradient give the same dW bit for bit:
+    each block sums its tiles and its warps in a fixed order, and a second
+    kernel adds the blocks' partials in a fixed order (no atomics)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_c1_splits
+
+    dt = getattr(torch, dtype)
+    x, _, dy = _c1_inputs("many_tiles", 10, dt, cuda_device)
+    assert wgrad_c1_splits(x.shape, dy.shape[-1], dt) > 1
+    a = conv3x3_wgrad(x, dy, depth=C1_CASES["many_tiles"][1])
+    b = conv3x3_wgrad(x, dy, depth=C1_CASES["many_tiles"][1])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 # The weight gradient's "wgmma_tf32x3" route (f32, C % 8 == 0, CO % 8 == 0):
