@@ -18,7 +18,8 @@ Phases; any failure raises and the script exits non-zero:
    loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`), and that of
    `conv3x3_c1`'s four (the C = 1 forward and weight gradient, bf16 and
    f32 3xTF32) tensor-core `HMMA` (mma.sync), the weight gradients' dy
-   loads cp.async (`LDGSTS`);
+   loads cp.async (`LDGSTS`), and that of the warp's affine-entry kernels
+   cp.async (`LDGSTS`) and shared-memory gathers (`LDS`);
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -61,13 +62,17 @@ Phases; any failure raises and the script exits non-zero:
      the host where it is slower), on the device alone (the calls replayed
      from a CUDA graph) and, for the affine entry, in host microseconds
      per call (library: `F.grid_sample` on a precomputed grid, and
-     `F.affine_grid` + `F.grid_sample`);
+     `F.affine_grid` + `F.grid_sample`), with its share of the bound; the
+     bricks of each call counted by path (`brick_paths`: the source box
+     staged in shared memory, or gathered from device memory; the grid
+     entry stages none) and held to `warp_brick_paths`' prediction;
    * `warp`'s grid entry at a deformable branch's sites
      (`phase_warp_deformable`): the field warps (C = 3, f32,
      align_corners=True, border and zeros, on identity plus a full-size
      field from `get_disp_field`), the input warp, the unwarp and its fast
-     adjoint (f32 and bf16), each against its plain version and timed
-     eagerly and on the device against `F.grid_sample`; and the exact
+     adjoint (f32 and bf16), each against its plain version, its blocks
+     counted by path as above, and timed eagerly and on the device against
+     `F.grid_sample`; and the exact
      adjoint kernel (`warp_flat_adjoint`, f32 and bf16) at the logit site
      on an affine and a deformable grid, against its plain version (twice:
      its atomics sum in a varying order) and timed against autograd of
@@ -268,7 +273,8 @@ def phase_build():
     # and f32 kernels; the "few" route's four kernels on the tensor cores,
     # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA; the
     # "c1" route's four by mma.sync (HMMA), the weight gradients' dy by
-    # cp.async
+    # cp.async; the warp's affine entry stages its boxes by cp.async and
+    # gathers from shared memory (LDS)
     tma, cp_async = ("HGMMA", "UTMALDG"), ("HGMMA", "LDGSTS")
     hmma, hmma_cp = ("HMMA",), ("HMMA", "LDGSTS")
     for name, marker, ops in (
@@ -283,7 +289,8 @@ def phase_build():
             ("conv3x3_c1", "c1_forward_kernelI13__nv_bfloat16", hmma),
             ("conv3x3_c1", "c1_forward_kernelIf", hmma),
             ("conv3x3_c1", "c1_wgrad_kernelI13__nv_bfloat16", hmma_cp),
-            ("conv3x3_c1", "c1_wgrad_kernelIf", hmma_cp)):
+            ("conv3x3_c1", "c1_wgrad_kernelIf", hmma_cp),
+            ("warp", "warp_brick_kernel", ("LDGSTS", "LDS"))):
         funcs = [f for f in build.sass(name).split("Function : ")[1:]
                  if marker in f.split("\n", 1)[0]]
         counts = {op: sum(f.count(op) for f in funcs) for op in ops}
@@ -612,10 +619,37 @@ def host_us(fn, calls=200):
     return us
 
 
+def _counted_paths(calls, src, grid, C, element_size, mode="trilinear",
+                   align_corners=False):
+    """The results of the warp calls `calls`, (fn, affine?) pairs of the
+    forward kernel's affine entry at `grid`'s affine or its grid entry at
+    `grid`, and their bricks by path (staged, global), each call's counts
+    held to `warp_brick_paths`' prediction."""
+    import torch
+
+    from dg_tta_tpu_torch.kernels.warp import brick_paths, warp_brick_paths
+
+    outs, paths = [], []
+    for fn, affine in calls:
+        want = warp_brick_paths(src, grid, C, element_size, 1, mode,
+                                align_corners, affine)
+        with brick_paths() as counts:
+            outs.append(fn())
+            torch.cuda.synchronize()
+            got = tuple(counts.tolist())
+        if got != want:
+            raise AssertionError(f"warp: bricks by path (staged, global) "
+                                 f"{got}, predicted {want}")
+        paths.append(got)
+    return outs, paths
+
+
 def phase_warp():
     """The warp kernel at its four call sites, through both entries: the
     affine entry the main path takes, and the grid entry on the grid that
-    `affine_grid` makes on the card."""
+    `affine_grid` makes on the card; each site's bricks by path (source
+    box staged in shared memory, or gathered from device memory) counted
+    and held to `warp_brick_paths`."""
     import torch
     import torch.nn.functional as F
 
@@ -636,7 +670,8 @@ def phase_warp():
         name = str(dt).split(".")[-1]
         tot = {"affine": _new_totals(), "grid": _new_totals()}
         extra = dict(device_ms=0.0, host_us=0.0, grid_device_ms=0.0,
-                     library_device_ms=0.0, library_affine_ms=0.0)
+                     library_device_ms=0.0, library_affine_ms=0.0,
+                     staged_bricks=0, global_bricks=0)
         for site, C, src, theta, scale, mode, pad in _warp_sites(gen, "cuda"):
             n_src = src[0] * src[1] * src[2]
             flat = torch.randn((1, C, n_src), generator=gen).to(dt).cuda()
@@ -652,8 +687,9 @@ def phase_warp():
                 return out if scale is None else \
                     out * scale.reshape(-1, 1, 1).to(dt)
 
-            got, same = affine(), by_grid()
-            torch.cuda.synchronize()
+            (got, same), (paths, _) = _counted_paths(
+                ((affine, True), (by_grid, False)), src, grid, C,
+                flat.element_size(), mode)
             ref = warp_affine_reference(flat, src, theta, PATCH, scale=scale,
                                         **kw)
             diff = (got.float() - same.float()).abs().max().item()
@@ -704,10 +740,15 @@ def phase_warp():
                 f"{'' if scale is None else ' x 1/|det|'}: affine entry "
                 f"== grid entry on affine_grid (max |diff| 0); "
                 f"max_abs_err={err:.3e} (tol {tol:.3e}); affine entry "
+                f"bricks staged {paths[0]} of {sum(paths)} (as "
+                f"warp_brick_paths predicts; the grid entry stages none); "
+                f"affine entry "
                 f"kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
-                f"host_us={k_host:.1f} bound_ms={bound['affine']:.4f}; "
+                f"host_us={k_host:.1f} bound_ms={bound['affine']:.4f} "
+                f"(share of bound {bound['affine'] / k_dev:.3f}); "
                 f"grid entry kernel_ms={g_ms:.4f} device_ms={g_dev:.4f} "
-                f"bound_ms={bound['grid']:.4f}; "
+                f"bound_ms={bound['grid']:.4f} (share of bound "
+                f"{bound['grid'] / g_dev:.3f}); "
                 f"plain_ms={p_ms:.4f}; library F.grid_sample "
                 f"library_ms={l_ms:.4f} device_ms={l_dev:.4f}, "
                 f"F.affine_grid + F.grid_sample {la_ms:.4f} ms; source "
@@ -721,18 +762,25 @@ def phase_warp():
             for key, v in (("device_ms", k_dev), ("host_us", k_host),
                            ("grid_device_ms", g_dev),
                            ("library_device_ms", l_dev),
-                           ("library_affine_ms", la_ms)):
+                           ("library_affine_ms", la_ms),
+                           ("staged_bricks", paths[0]),
+                           ("global_bricks", paths[1])):
                 extra[key] += v
+        extra["staged_share"] = extra["staged_bricks"] / (
+            extra["staged_bricks"] + extra["global_bricks"])
         tot["affine"].update(extra)
         bound = {e: max(t["ops_ms"], t["bytes_ms"]) for e, t in tot.items()}
         log(f"warp {name} over the four call sites: affine entry "
             f"kernel_ms={tot['affine']['ms']:.4f} "
             f"device_ms={extra['device_ms']:.4f} "
             f"host_us={extra['host_us']:.1f} "
-            f"bound_ms={bound['affine']:.4f}; "
+            f"bound_ms={bound['affine']:.4f} (share of bound "
+            f"{bound['affine'] / extra['device_ms']:.3f}); "
             f"grid entry kernel_ms={tot['grid']['ms']:.4f} "
             f"device_ms={extra['grid_device_ms']:.4f} "
-            f"bound_ms={bound['grid']:.4f}; "
+            f"bound_ms={bound['grid']:.4f} (share of bound "
+            f"{bound['grid'] / extra['grid_device_ms']:.3f}); bricks "
+            f"staged {extra['staged_share']:.3f}; "
             f"plain_ms={tot['affine']['plain_ms']:.4f}; library "
             f"F.grid_sample library_ms={tot['affine']['library_ms']:.4f} "
             f"device_ms={extra['library_device_ms']:.4f}, F.affine_grid + "
@@ -806,7 +854,8 @@ def phase_warp_deformable():
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         tot = _new_totals()
-        tot.update(device_ms=0.0, library_device_ms=0.0)
+        tot.update(device_ms=0.0, library_device_ms=0.0, staged_bricks=0,
+                   global_bricks=0)
         for site, C, grid, pad, align, mult, field in sites:
             # the fields are f32 in either compute type
             src_dt = torch.float32 if field is not None else dt
@@ -817,8 +866,9 @@ def phase_warp_deformable():
             def kernel():
                 return warp_flat(flat, PATCH, grid, **kw)
 
-            got = kernel()
-            torch.cuda.synchronize()
+            (got,), (paths,) = _counted_paths(((kernel, False),), PATCH,
+                                              grid, C, flat.element_size(),
+                                              align_corners=align)
             ref = warp_flat_reference(flat, PATCH, grid, **kw)
             err = (got.float() - ref.float()).abs().max().item()
             tol = WARP_RTOL[str(src_dt).split(".")[-1]] \
@@ -845,18 +895,27 @@ def phase_warp_deformable():
             log(f"warp {name} {site} C={C} {str(src_dt).split('.')[-1]} "
                 f"{pad} align_corners={align} (x{mult} per branch of a "
                 f"trained step): grid entry max_abs_err={err:.3e} (tol "
-                f"{tol:.3e}) kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
-                f"bound_ms={max(ops_ms, bytes_ms):.4f}; plain_ms="
+                f"{tol:.3e}) bricks staged {paths[0]} of {sum(paths)} "
+                f"kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
+                f"bound_ms={max(ops_ms, bytes_ms):.4f} (share of bound "
+                f"{max(ops_ms, bytes_ms) / k_dev:.3f}); plain_ms="
                 f"{p_ms:.4f}; library F.grid_sample library_ms={l_ms:.4f} "
                 f"device_ms={l_dev:.4f}; source voxels needed {n_need} of "
                 f"{n}")
             _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
             tot["device_ms"] += mult * k_dev
             tot["library_device_ms"] += mult * l_dev
+            tot["staged_bricks"] += mult * paths[0]
+            tot["global_bricks"] += mult * paths[1]
+        tot["staged_share"] = tot["staged_bricks"] / (
+            tot["staged_bricks"] + tot["global_bricks"])
+        bound = max(tot['ops_ms'], tot['bytes_ms'])
         log(f"warp {name} grid entry per deformable branch of a trained "
             f"step (13 launches): kernel_ms={tot['ms']:.4f} "
             f"device_ms={tot['device_ms']:.4f} "
-            f"bound_ms={max(tot['ops_ms'], tot['bytes_ms']):.4f}; "
+            f"bound_ms={bound:.4f} (share of bound "
+            f"{bound / tot['device_ms']:.3f}); bricks staged "
+            f"{tot['staged_share']:.3f}; "
             f"plain_ms={tot['plain_ms']:.4f}; library F.grid_sample "
             f"library_ms={tot['library_ms']:.4f} "
             f"device_ms={tot['library_device_ms']:.4f}")
@@ -1627,7 +1686,9 @@ def main():
              affine_sites_ms=w32["grid"]["ms"],
              affine_sites_device_ms=w32["affine"]["grid_device_ms"],
              bf16_affine_sites_ms=w16["grid"]["ms"],
-             bf16_affine_sites_device_ms=w16["affine"]["grid_device_ms"]),
+             bf16_affine_sites_device_ms=w16["affine"]["grid_device_ms"],
+             staged_share=wg32["staged_share"],
+             bf16_staged_share=wg16["staged_share"]),
         # the exact adjoint at the logit site on a deformable grid, its
         # times on an affine grid beside them
         _row("warp_adjoint", warp.SOURCE, warp.REPLACES,
@@ -1640,10 +1701,10 @@ def main():
              w32["affine"], w16["affine"], "cuda",
              **{k: w32["affine"][k] for k in (
                  "device_ms", "host_us", "library_device_ms",
-                 "library_affine_ms")},
+                 "library_affine_ms", "staged_share")},
              **{f"bf16_{k}": w16["affine"][k] for k in (
                  "device_ms", "host_us", "library_device_ms",
-                 "library_affine_ms")}),
+                 "library_affine_ms", "staged_share")}),
         _row("conv3x3_wgmma", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgmma", "bfloat16"), c["bfloat16/wgmma"]),
         _row("conv3x3_wgrad_wgmma", conv3x3.WGRAD_WGMMA_SOURCE,

@@ -9,15 +9,17 @@ normalized coordinates gives (B, C, Do*Ho*Wo).  Trilinear or nearest
 (half to even), zeros or border padding, both `align_corners`, any source
 and output shapes.  f32 or bf16 in, f32 sums, output in the input's type.
 
-Two entries into the kernel (`csrc/warp.cu`, which says what bounds it on
-an H100 and what its design does about that):
+Two forward entries (`csrc/warp.cu`, which says what bounds them on an
+H100 and what its design does about that):
 * `warp_flat` samples at a grid, an (x, y, z) tuple of coordinate arrays:
   a deformable plan's fields and warps take it;
 * `warp_affine_flat` samples at the grid `core/grid.affine_grid(theta,
   out_spatial)` would make, built in the kernel from theta's 12 numbers per
   batch entry (no grid in memory, bit for bit the same points), with an
   optional per-batch factor on the output; every warp of an affine plan's
-  adaptation takes it.
+  adaptation takes it.  Its blocks take 3D bricks of outputs and stage each
+  brick's source box in shared memory (`warp_plan` sizes both), or gather
+  from device memory where the box does not fit.
 A third entry is the exact adjoint of the grid entry's trilinear warp,
 the scatter-add that autodiff of the JAX package's gather computes:
 * `warp_flat_adjoint` gives the gradient with respect to `flat` of
@@ -27,12 +29,18 @@ Each launches the kernel for CUDA tensors, or raises; it runs its plain
 version (`warp_flat_reference`, `warp_affine_reference`,
 `warp_flat_adjoint_reference`) only for tensors on the CPU.
 `warp_flat.launches`, `warp_affine_flat.launches` and
-`warp_flat_adjoint.launches` count the kernel's launches through each.
+`warp_flat_adjoint.launches` count the kernel's launches through each;
+`brick_paths` counts the forward entries' blocks by path on the card (the
+affine entry's bricks staged or gathered from device memory; the grid
+entry's blocks all the latter), and `warp_brick_paths` predicts those
+counts.
 """
 
+import contextlib
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from dg_tta_tpu_torch.kernels import build
 
@@ -41,6 +49,64 @@ REPLACES = "dg_tta_tpu/ops/experimental/warp_pallas_staged.py:360"
 MODES = ("trilinear", "nearest")
 PADDINGS = ("zeros", "border")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The affine entry's brick of outputs, a block's unit of work, is 32
+# x-consecutive outputs (a warp's lanes) by 8 y by `depth` z (csrc/warp.cu's
+# kBX, kBY, KBZ); the grid entry's blocks take GRID_BLOCK consecutive
+# outputs (kFlat), one a thread, in the kernel of the wide register budget
+# from GRID_WIDE_C channels on.
+BRICK_XY = (8, 32)
+GRID_BLOCK = 256
+GRID_WIDE_C = 4
+# Source voxels per channel that an affine block's box buffer is sized for,
+# by brick depth: under the TTA's draws (get_rand_affine at strength 0.05)
+# a 4-deep brick's box holds ~2800-3200 at the median draw and up to ~5300
+# (bf16 rows are widened to 8 voxels), an 8-deep one's ~5000.
+STAGE_VOXELS = {4: 6144, 8: 12288}
+# The largest box buffer: four blocks fit an SM's 228 KB of shared memory
+# (four f32 channels of a 4-deep brick: 3520 voxels).
+STAGE_MAX = 55 << 10
+_PATHS = []  # the device counters of the open `brick_paths`
+
+
+def warp_plan(channels: int, element_size: int) -> tuple:
+    """(brick depth, box buffer bytes) of an affine entry call.  Bricks 8
+    deep for C <= 2, whose boxes are small, so that a block's fixed work
+    (the box, its copy, its barrier) spreads over more outputs; 4 deep for
+    more channels, whose boxes of all channels must fit the buffer.  The
+    buffer holds STAGE_VOXELS of the depth in every channel, at most
+    STAGE_MAX; a brick whose box of all channels does not fit gathers from
+    device memory.  (The grid entry stages nothing.)"""
+    depth = 8 if channels <= 2 else 4
+    return depth, min(channels * element_size * STAGE_VOXELS[depth],
+                      STAGE_MAX)
+
+
+def warp_bricks(batch: int, out_spatial, depth: int) -> int:
+    """Bricks of one call of the forward kernel at brick depth `depth`."""
+    n = batch
+    for s, b in zip(out_spatial, (depth, *BRICK_XY)):
+        n *= -(-int(s) // b)
+    return n
+
+
+@contextlib.contextmanager
+def brick_paths(device=None):
+    """While open, the forward entries' kernel adds one to a device
+    counter of each brick's path: yields an int64 CUDA tensor (staged,
+    global), read after the launches complete.  Off (no counter passed)
+    otherwise, as on the main path."""
+    counts = torch.zeros(2, dtype=torch.int64,
+                         device=device if device is not None else "cuda")
+    _PATHS.append(counts)
+    try:
+        yield counts
+    finally:
+        _PATHS.remove(counts)
+
+
+def _paths_ptr(device) -> int:
+    return next((c.data_ptr() for c in reversed(_PATHS)
+                 if c.device == device), 0)
 
 
 def _unnormalize(coord, size: int, align_corners: bool):
@@ -121,22 +187,22 @@ def warp_flat_reference(flat, src_spatial, grid, mode: str = "trilinear",
     return out.to(flat.dtype)
 
 
-def _launch(flat, gx, gy, gz, out, src_spatial, nearest, border, align):
+def _launch(flat, gx, gy, gz, out, src_spatial, out_spatial, nearest,
+            border, align):
     fn = build.function("warp", "dgtta_warp",
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                        + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                        + [ctypes.c_void_p])
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                        + [ctypes.c_void_p] * 2)
     B, C, _ = flat.shape
-    D, H, W = src_spatial
     err = fn(flat.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
-             out.data_ptr(), B, C, D, H, W, out.shape[2], int(nearest),
+             out.data_ptr(), B, C, *src_spatial, *out_spatial, int(nearest),
              int(border), int(align), _DTYPE_CODES[flat.dtype],
+             int(C >= GRID_WIDE_C), _paths_ptr(flat.device),
              torch.cuda.current_stream(flat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed with CUDA error {err} "
                            f"for flat {tuple(flat.shape)} {flat.dtype}, "
                            f"source {tuple(src_spatial)}, output "
-                           f"{out.shape[2]} voxels")
+                           f"{tuple(out_spatial)}")
 
 
 def warp_flat(flat, src_spatial, grid, mode: str = "trilinear",
@@ -162,8 +228,8 @@ def warp_flat(flat, src_spatial, grid, mode: str = "trilinear",
     n_out = out_spatial[0] * out_spatial[1] * out_spatial[2]
     out = torch.empty((B, C, n_out), dtype=flat.dtype, device=flat.device)
     with torch.cuda.device(flat.device):
-        _launch(flat, gx, gy, gz, out, src_spatial, mode == "nearest",
-                padding_mode == "border", align_corners)
+        _launch(flat, gx, gy, gz, out, src_spatial, out_spatial,
+                mode == "nearest", padding_mode == "border", align_corners)
     warp_flat.launches += 1
     return out
 
@@ -326,6 +392,22 @@ def warp_affine_reference(flat, src_spatial, theta, out_spatial,
 
 
 _AFFINE_FN = []  # the C entry, resolved at the first launch
+_BASE_TABLES = {}  # (out_spatial, device): the affine entry's base coordinates
+
+
+def _base_table(out_spatial, device):
+    """x_n, y_n and z_n of an output of (Do, Ho, Wo) voxels, as
+    `core/grid._base_coords` computes them (on the CPU: the division is a
+    true division), concatenated and kept on `device`."""
+    key = (out_spatial, device)
+    table = _BASE_TABLES.get(key)
+    if table is None:
+        from dg_tta_tpu_torch.core.grid import _base_coords
+
+        table = torch.cat([_base_coords(n, False) for n in
+                           reversed(out_spatial)]).to(device)
+        _BASE_TABLES[key] = table
+    return table
 
 
 def warp_affine_flat(flat, src_spatial, theta, out_spatial,
@@ -361,8 +443,8 @@ def warp_affine_flat(flat, src_spatial, theta, out_spatial,
         _AFFINE_FN.append(build.function(
             "warp", "dgtta_warp_affine",
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 11
-            + [ctypes.c_void_p]))
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 2))
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"warp_affine_flat launches on the current CUDA "
                          f"device, {torch.cuda.current_device()}, got "
@@ -373,9 +455,11 @@ def warp_affine_flat(flat, src_spatial, theta, out_spatial,
     err = _AFFINE_FN[0](
         flat.data_ptr(), theta.data_ptr(), 12 if theta.shape[0] > 1 else 0,
         0 if scale is None else scale.data_ptr(),
-        1 if scale is not None and scale.shape[0] > 1 else 0, out.data_ptr(),
+        1 if scale is not None and scale.shape[0] > 1 else 0,
+        _base_table(out_spatial, dev).data_ptr(), out.data_ptr(),
         B, C, D, H, W, Do, Ho, Wo, int(mode == "nearest"),
         int(padding_mode == "border"), _DTYPE_CODES[flat.dtype],
+        *warp_plan(C, flat.element_size()), _paths_ptr(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp affine kernel launch failed with CUDA "
@@ -422,6 +506,51 @@ def warp_source_voxels(src_spatial, grid, batch: int = 1,
                + xi.clamp(0, W - 1)).long() + base
         need[lin[keep]] = True
     return int(need.sum())
+
+
+def warp_brick_paths(src_spatial, grid, channels: int, element_size: int,
+                     batch: int = 1, mode: str = "trilinear",
+                     align_corners: bool = False, affine: bool = True):
+    """The forward kernel's bricks by path, (staged, global), for a call
+    with a 16-byte-aligned `flat`: the affine entry (`affine`, `grid` the
+    points of its `affine_grid`) stages a brick when its box of clamped
+    corners, widened to 16-byte chunks where W allows, fits `warp_plan`'s
+    buffer in every channel; the grid entry stages none.  Plain PyTorch on
+    the grid's device.  The grid entry's counts are its blocks."""
+    out_spatial = tuple(grid[0].shape[-3:])
+    if not affine:
+        n_out = out_spatial[0] * out_spatial[1] * out_spatial[2]
+        return 0, batch * -(-n_out // GRID_BLOCK)
+    depth, buffer = warp_plan(channels, element_size)
+    size = tuple(int(s) for s in src_spatial)
+    brick = (depth, *BRICK_XY)
+    nb = [-(-s // b) for s, b in zip(out_spatial, brick)]
+    pad = []
+    for s, n, b in zip(reversed(out_spatial), reversed(nb), reversed(brick)):
+        pad += [0, n * b - s]
+
+    def per_brick(t, fill, reduce):
+        t = F.pad(t, pad, value=fill).reshape(batch, nb[0], brick[0], nb[1],
+                                              brick[1], nb[2], brick[2])
+        return reduce(t, dim=(2, 4, 6)).long()
+
+    ext = []
+    for c, n, axis in zip(reversed(grid), size, "zyx"):
+        u = _unnormalize(c.float().expand(batch, *out_spatial), n,
+                         align_corners)
+        first = torch.round(u) if mode == "nearest" else torch.floor(u)
+        last = first if mode == "nearest" else first + 1
+        lo = per_brick(first.clamp(0, n - 1), n, torch.amin)
+        hi = per_brick(last.clamp(0, n - 1), -1, torch.amax)
+        vec = 16 // element_size
+        if axis == "x" and n % vec == 0:
+            lo = lo - lo % vec
+            ext.append((hi + vec - lo) // vec * vec)
+        else:
+            ext.append(hi + 1 - lo)
+    box = ext[0] * ext[1] * ext[2] * channels * element_size
+    staged = int((box <= buffer).sum())
+    return staged, warp_bricks(batch, out_spatial, depth) - staged
 
 
 def warp_bytes(flat_shape, n_source: int, n_out: int, element_size: int,

@@ -644,6 +644,116 @@ def test_warp_affine_matches_grid_entry_and_plain(cuda_device, dtype, mode,
         assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
 
 
+# Cases of the forward kernel's two paths (a brick's source box staged in
+# shared memory, or gathered from device memory), as (C, B, source, output,
+# points, mode, padding, the affine entry's paths): "tta" draws of
+# get_rand_affine at the TTA's strength (0.05), one per batch entry; "zoom"
+# a rotation times a zoom of `z`; "crop" a unit-stride crop of a larger
+# volume (the labels site); "random" identity plus independent noise and
+# "field" identity plus a smooth displacement at align_corners=True (the
+# field warps), both through the grid entry only, which stages nothing.
+PATH_CASES = {
+    "tta_c4_zeros": (4, 2, (40, 48, 96), (40, 48, 96), "tta", "trilinear",
+                     "zeros", "staged"),
+    "tta_c1_border_ragged": (1, 2, (37, 45, 83), (37, 45, 83), "tta",
+                             "trilinear", "border", "staged"),
+    "tta_c3_not_endomorphic": (3, 2, (21, 30, 50), (13, 27, 70), "tta",
+                               "trilinear", "zeros", "staged"),
+    "zoom15_c5_zeros": (5, 2, (40, 48, 96), (40, 48, 96), 1.5, "trilinear",
+                        "zeros", "both"),
+    "zoom22_c5_border": (5, 1, (40, 48, 96), (40, 48, 96), 2.2, "trilinear",
+                         "border", "both"),
+    "zoom_c1_strong": (1, 2, (40, 48, 96), (40, 48, 96), 3.0, "trilinear",
+                       "border", "both"),
+    "crop_labels": (1, 1, (60, 64, 96), (30, 32, 48), "crop", "nearest",
+                    "zeros", "staged"),
+    "random_c4": (4, 2, (24, 40, 64), (24, 40, 64), "random", "trilinear",
+                  "zeros", None),
+    "field_c3_align": (3, 1, (30, 40, 50), (30, 40, 50), "field",
+                       "trilinear", "border", None),
+}
+
+
+def _path_case_points(rng, kind, B, src, out, device):
+    """(theta or None, grid, align_corners) of a PATH_CASES case."""
+    from dg_tta_tpu_torch.core.fields import get_rand_affine
+    from dg_tta_tpu_torch.core.grid import affine_grid, identity_grid
+
+    if kind in ("random", "field"):
+        align = kind == "field"
+        ident = identity_grid(out, align)
+        if kind == "random":
+            d = rng.normal(0.0, 0.5, size=(3, B, *out))
+        else:
+            coarse = torch.from_numpy(rng.normal(
+                0.0, 0.05, size=(B, 3, *(s // 5 for s in out))))
+            d = torch.nn.functional.interpolate(
+                coarse, size=out, mode="trilinear").movedim(1, 0).numpy()
+        return None, tuple(
+            (i[None] + torch.from_numpy(e.astype(np.float32))).to(device)
+            for i, e in zip(ident, d)), align
+    if kind == "tta":
+        theta, _ = get_rand_affine(torch.from_numpy(
+            rng.normal(size=(B, 3, 4)).astype(np.float32)))
+    elif kind == "crop":
+        theta = torch.tensor([[[out[2] / src[2], 0, 0, 0.2],
+                               [0, out[1] / src[1], 0, -0.1],
+                               [0, 0, out[0] / src[0], 0.3]]],
+                             dtype=torch.float32)
+    else:
+        a = rng.uniform(0.2, 0.4, size=B)
+        theta = torch.from_numpy(np.stack([
+            [[kind * np.cos(t), -kind * np.sin(t), 0, 0],
+             [kind * np.sin(t), kind * np.cos(t), 0, 0],
+             [0, 0, kind, 0.05]] for t in a]).astype(np.float32))
+    theta = theta.to(device)
+    return theta, affine_grid(theta, out), False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_warp_paths_match_grid_entry_and_plain(cuda_device, dtype, case):
+    """Both forward entries on both paths of the kernel: the bricks of each
+    launch count themselves by path (`brick_paths`) exactly as
+    `warp_brick_paths` predicts (the grid entry's all on device memory),
+    the affine entry takes the paths its case is built for and equals the
+    grid entry on the card's `affine_grid` bit for bit, and both agree
+    with the plain version within WARP_RTOL (nearest exactly)."""
+    from dg_tta_tpu_torch.kernels.warp import (brick_paths,
+                                               warp_brick_paths)
+
+    C, B, src, out, kind, mode, pad, paths = PATH_CASES[case]
+    rng = np.random.default_rng(40)
+    dt = getattr(torch, dtype)
+    flat = torch.from_numpy(rng.normal(size=(B, C, int(np.prod(src))))
+                            .astype(np.float32)).to(cuda_device, dt)
+    theta, grid, align = _path_case_points(rng, kind, B, src, out,
+                                           cuda_device)
+    kw = dict(mode=mode, padding_mode=pad)
+    es = flat.element_size()
+    with brick_paths() as counts:
+        got = warp_flat(flat, src, grid, align_corners=align, **kw)
+        torch.cuda.synchronize()
+        assert tuple(counts.tolist()) == warp_brick_paths(
+            src, grid, C, es, B, mode, align, affine=False)
+    ref = warp_flat_reference(flat, src, grid, align_corners=align, **kw)
+    if mode == "nearest":
+        assert torch.equal(got, ref)
+    else:
+        assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+    if theta is None:
+        return
+    want = warp_brick_paths(src, grid, C, es, B, mode, align)
+    assert want[0] > 0 if paths in ("staged", "both") else want[0] == 0
+    assert want[1] > 0 if paths in ("global", "both") else want[1] == 0
+    with brick_paths() as counts:
+        same = warp_affine_flat(flat, src, theta, out, **kw)
+        torch.cuda.synchronize()
+        assert tuple(counts.tolist()) == want
+    assert torch.equal(same, got)
+
+
 @pytest.mark.cuda
 def test_warp_affine_broadcasts_one_theta(cuda_device):
     rng = np.random.default_rng(13)

@@ -31,9 +31,12 @@ from dg_tta_tpu.ops.experimental.warp_pallas_staged import \
 from dg_tta_tpu.tta.engine import _warp_with_inverse as jax_wwi
 from dg_tta_tpu_torch.core import grid as tgrid
 from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
-from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
-                                           warp_flat_reference,
-                                           warp_source_voxels)
+from dg_tta_tpu_torch.kernels.warp import (BRICK_XY, GRID_BLOCK, STAGE_MAX,
+                                           STAGE_VOXELS,
+                                           warp_affine_flat,
+                                           warp_brick_paths, warp_bricks,
+                                           warp_flat, warp_flat_reference,
+                                           warp_plan, warp_source_voxels)
 from dg_tta_tpu_torch.tta.engine import _warp_with_inverse
 
 ATOL = 1e-5
@@ -349,3 +352,133 @@ def test_warp_adjoint_bf16_and_rejects(rng):
         warp_flat_adjoint(g[:, :, :100], src, grid)
     with pytest.raises(ValueError, match="padding_mode"):
         warp_flat_adjoint(g, src, grid, padding_mode="reflect")
+
+
+# The forward kernel's bricks and the path each takes (staged source box or
+# gathers from device memory), as `warp_brick_paths` predicts them: the
+# card tests hold the kernel's counts to it.
+def _brick_paths_loop(src, grid, C, element_size, mode, align_corners):
+    """warp_brick_paths, brick by brick in numpy (f32 coordinates)."""
+    D, H, W = src
+    gx, gy, gz = (np.asarray(g, np.float32) for g in grid)
+    B, Do, Ho, Wo = gx.shape
+    bz, (by, bx) = warp_plan(C, element_size)[0], BRICK_XY
+    vec = 16 // element_size
+    paths = [0, 0]
+    for b in range(B):
+        for z0 in range(0, Do, bz):
+            for y0 in range(0, Ho, by):
+                for x0 in range(0, Wo, bx):
+                    at = (b, slice(z0, z0 + bz), slice(y0, y0 + by),
+                          slice(x0, x0 + bx))
+                    box = 1
+                    for c, n, axis in ((gz, D, "z"), (gy, H, "y"),
+                                       (gx, W, "x")):
+                        u = (((c[at] + np.float32(1)) * np.float32(n - 1)
+                              * np.float32(0.5)) if align_corners else
+                             ((c[at] + np.float32(1)) * np.float32(n)
+                              - np.float32(1)) * np.float32(0.5))
+                        first = np.rint(u) if mode == "nearest" \
+                            else np.floor(u)
+                        last = first + (mode != "nearest")
+                        lo = int(np.clip(first, 0, n - 1).min())
+                        hi = int(np.clip(last, 0, n - 1).max())
+                        if axis == "x" and n % vec == 0:
+                            lo -= lo % vec
+                            box *= -(-(hi + 1 - lo) // vec) * vec
+                        else:
+                            box *= hi + 1 - lo
+                    paths[box * C * element_size
+                          > warp_plan(C, element_size)[1]] += 1
+    return tuple(paths)
+
+
+@pytest.mark.parametrize("case", [
+    # C, element size, source, output, mode, align_corners, grid
+    (1, 4, (9, 21, 40), (9, 21, 40), "trilinear", False, "affine"),
+    (4, 2, (11, 17, 37), (6, 19, 45), "trilinear", False, "affine"),
+    (1, 4, (19, 13, 37), (19, 13, 37), "trilinear", True, "random"),
+    (1, 2, (19, 13, 37), (19, 13, 37), "trilinear", True, "random"),
+    (1, 4, (26, 30, 64), (9, 10, 33), "nearest", False, "patch"),
+])
+def test_warp_brick_paths_matches_a_loop_over_bricks(rng, case):
+    C, es, src, out, mode, align, kind = case
+    if kind == "random":
+        ident = tgrid.identity_grid(out, align)
+        grid = tuple(i[None] + torch.from_numpy(rng.normal(
+            0.0, 0.2, size=(2, *out)).astype(np.float32)) for i in ident)
+    elif kind == "patch":  # a unit-stride crop of the larger source
+        grid = tgrid.affine_grid(torch.tensor(
+            [[[33 / 64, 0, 0, 0.25], [0, 1 / 3, 0, 0.1],
+              [0, 0, 9 / 26, -0.3]]]), out)
+    else:
+        grid = tgrid.affine_grid(torch.from_numpy(_theta(rng, 2)), out)
+    B = grid[0].shape[0]
+    got = warp_brick_paths(src, grid, C, es, B, mode, align)
+    assert got == _brick_paths_loop(src, grid, C, es, mode, align)
+    depth = warp_plan(C, es)[0]
+    assert sum(got) == warp_bricks(B, out, depth) == B * np.prod(
+        [-(-o // b) for o, b in zip(out, (depth, *BRICK_XY))])
+    assert warp_brick_paths(src, grid, C, es, B, mode, align,
+                            affine=False) == (0, B * -(-int(np.prod(out))
+                                                       // GRID_BLOCK))
+
+
+def test_warp_plan_holds_a_tta_brick_and_four_blocks():
+    """The affine entry's bricks are 8 deep for C <= 2 and 4 deep above;
+    a box buffer holds STAGE_VOXELS of the depth in every channel, at most
+    STAGE_MAX, and at least 3500 voxels (a 4-deep brick's box under all but
+    the strongest TTA draws) or 7000 (an 8-deep one's) for the main path's
+    C (at most 4) in either type; it is a whole number of 16-byte chunks,
+    and four blocks (with the 1 KB the card reserves per block) fit in an
+    SM's 228 KB."""
+    for es in (2, 4):
+        for C in range(1, 9):
+            depth, n = warp_plan(C, es)
+            assert depth == (8 if C <= 2 else 4)
+            assert n == min(C * es * STAGE_VOXELS[depth], STAGE_MAX)
+            assert n % 16 == 0 and 4 * (n + 1024) <= 228 << 10
+            if C <= 4:
+                assert n // (C * es) >= (7000 if depth == 8 else 3500)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tta_sites_stage_every_brick(dtype):
+    """At the four affine call sites of adaptation (chip_smoke's seeded
+    draws, at the full patch) every brick stages its source box; over 16
+    strength-0.05 draws (and their inverses) every brick does at C = 1,
+    and at least 99% do at C = n_opt (the largest f32 boxes of a strong
+    draw exceed a buffer); a strong zoom and rotation sends the bricks near
+    the centre of the patch to device memory (those at the edges read
+    clamped corners); so would a random grid, every brick (the grid entry,
+    which takes such grids, stages none)."""
+    import chip_smoke as cs
+
+    es = torch.finfo(getattr(torch, dtype)).bits // 8
+    P = cs.PATCH
+    sites = cs._warp_sites(torch.Generator().manual_seed(2), "cpu")
+    for _, C, src, theta, _, mode, _ in sites:
+        grid = tgrid.affine_grid(theta, P)
+        assert warp_brick_paths(src, grid, C, es, 1, mode) == \
+            (warp_bricks(1, P, warp_plan(C, es)[0]), 0)
+    gen = torch.Generator().manual_seed(5)
+    staged = 0
+    for _ in range(16):
+        for theta in get_rand_affine(torch.randn((1, 3, 4), generator=gen)):
+            grid = tgrid.affine_grid(theta, P)
+            assert warp_brick_paths(P, grid, 1, es) == \
+                (warp_bricks(1, P, 8), 0)
+            staged += warp_brick_paths(P, grid, cs.N_OPT, es)[0]
+    assert staged >= 0.99 * 32 * warp_bricks(1, P, 4)
+    c, s = 3 * np.cos(0.3), 3 * np.sin(0.3)
+    strong = torch.tensor([[[c, -s, 0.0, 0.0], [s, c, 0.0, 0.0],
+                            [0.0, 0.0, 3.0, 0.0]]], dtype=torch.float32)
+    staged, glob = warp_brick_paths(P, tgrid.affine_grid(strong, P), 1, es)
+    assert glob > 0 and staged > 0
+    ident = tgrid.identity_grid((24, 32, 64))
+    noisy = tuple(i[None] + 0.5 * torch.randn((1, 24, 32, 64),
+                                                generator=gen)
+                  for i in ident)
+    assert warp_brick_paths((24, 32, 64), noisy, 1, es)[0] == 0
+    assert warp_brick_paths((24, 32, 64), noisy, 1, es, affine=False) == \
+        (0, 24 * 32 * 64 // GRID_BLOCK)
