@@ -19,7 +19,9 @@ Phases; any failure raises and the script exits non-zero:
    `conv3x3_c1`'s four (the C = 1 forward and weight gradient, bf16 and
    f32 3xTF32) tensor-core `HMMA` (mma.sync), the weight gradients' dy
    loads cp.async (`LDGSTS`), and that of the warp's affine-entry kernels
-   cp.async (`LDGSTS`) and shared-memory gathers (`LDS`);
+   cp.async (`LDGSTS`) and shared-memory gathers (`LDS`), and that of the
+   exact adjoint's kernels shared-memory atomics (`ATOMS`) and 16-byte
+   global reductions (`REDG.E.ADD.F32x4`);
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -73,10 +75,15 @@ Phases; any failure raises and the script exits non-zero:
      adjoint (f32 and bf16), each against its plain version, its blocks
      counted by path as above, and timed eagerly and on the device against
      `F.grid_sample`; and the exact
-     adjoint kernel (`warp_flat_adjoint`, f32 and bf16) at the logit site
-     on an affine and a deformable grid, against its plain version (twice:
-     its atomics sum in a varying order) and timed against autograd of
-     `F.grid_sample` with respect to its input;
+     adjoint (f32 and bf16) at the logit site: its affine entry
+     (`warp_affine_flat_adjoint`) at an inverse affine, its grid entry
+     (`warp_flat_adjoint`) on that affine's grid and on a deformable
+     branch's inverse grid, each against its plain version (twice: its
+     atomics sum in a varying order, and the two runs' difference is
+     printed), its bricks counted by path (each brick's scatter summed in
+     shared memory, or added into device memory) and held to
+     `warp_brick_paths`, and timed against autograd of `F.grid_sample`
+     with respect to its input;
 4. reference, under PyTorch's default precision flags (asserted), as a
    user's run finds them: the full-width TS104_GIN U-Net on a small patch,
    its forward and one step's gradient, a stride-2 stage-entry conv
@@ -91,13 +98,15 @@ Phases; any failure raises and the script exits non-zero:
    size from one noise tensor, and one deformable trained step's gradient
    of the full-width TS104_GIN net on a small patch, each on the card
    against the same code on the CPU (plain versions);
-5. main path, six times, each in a fresh workspace and under the default
-   flags, f32 (the default), then bf16 (`DGTTA_COMPUTE_DTYPE=bfloat16`),
-   for each of two seeded full-width checkpoints (105 classes): TS104_GIN,
-   then TS104_GIN_MIND (12 input channels: MIND in every forward, with
-   noise; the plan also puts GIN in both branches); then TS104_GIN with a
-   deformable plan (`spatial_aug_type: "deformable"`), in f32 with the
-   fast adjoint and in bf16 with `DGTTA_EXACT_WARP_GRAD=1`:
+5. main path, seven times, each in a fresh workspace and under the
+   default flags, f32 (the default), then bf16
+   (`DGTTA_COMPUTE_DTYPE=bfloat16`), for each of two seeded full-width
+   checkpoints (105 classes): TS104_GIN, then TS104_GIN_MIND (12 input
+   channels: MIND in every forward, with noise; the plan also puts GIN in
+   both branches); then TS104_GIN in f32 with `DGTTA_EXACT_WARP_GRAD=1`
+   (the exact adjoint's affine entry); then TS104_GIN with a deformable
+   plan (`spatial_aug_type: "deformable"`), in f32 with the fast adjoint
+   and in bf16 with `DGTTA_EXACT_WARP_GRAD=1`:
    `prepare_tta` and `run_tta` through the port's CLI on a synthetic CT
    volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows), with no member
    files: `run_tta` adapts three members (Phase 1), then predicts and
@@ -109,8 +118,9 @@ Phases; any failure raises and the script exits non-zero:
    CUDA-core `conv3x3` and `conv3x3_wgrad` launched not at all, that no
    launch ran on padded channels (a MIND model's stem runs on "few"), and
    that
-   the warp's grid entry and its exact adjoint launched where the plan
-   and the flag put them (the affine runs: neither).
+   the warp's grid entry and the exact adjoint's two entries launched
+   where the plan and the flag put them (the affine runs: no grid entry,
+   the exact one the adjoint's affine entry only).
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
@@ -119,8 +129,9 @@ shapes they ran before the "c1" and "wgmma_tf32x3" routes took them; the
 and bounds on the CUDA-core kernels (forced); the
 MIND stem's rows on "few" with the forced padded-route and CUDA-core
 times beside them; the warp's
-grid entry per deformable branch of a trained step, and its exact adjoint
-on a deformable grid) and, last, one JSON line naming the device.
+grid entry per deformable branch of a trained step, the exact adjoint's
+grid entry on a deformable grid and its affine entry) and, last, one JSON
+line naming the device.
 """
 
 import contextlib
@@ -192,8 +203,9 @@ MIND_RTOL = GIN_RTOL = 1e-5
 # zero-padded to 16).
 STEM_SHAPE = (112, 112, 128, 12, 32)
 # The warp's exact adjoint vs its plain version, max |diff| / max |plain|:
-# the same products added into each source voxel by atomics, in an order
-# that varies from run to run (f32); one rounding of the f32 sum (bf16).
+# the same products added into each source voxel by shared-memory and
+# device-memory atomics, in an order that varies from run to run (f32); one
+# rounding of the f32 sum (bf16).
 ADJOINT_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # A deformable branch's displacement fields at the patch size, card vs CPU,
 # max |diff| / max |CPU|: ten warps and the smoothing summed in another
@@ -274,7 +286,9 @@ def phase_build():
     # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA; the
     # "c1" route's four by mma.sync (HMMA), the weight gradients' dy by
     # cp.async; the warp's affine entry stages its boxes by cp.async and
-    # gathers from shared memory (LDS)
+    # gathers from shared memory (LDS); the exact adjoint sums in shared
+    # memory (ATOMS: compare-and-swap loops) and flushes by 16-byte global
+    # reductions
     tma, cp_async = ("HGMMA", "UTMALDG"), ("HGMMA", "LDGSTS")
     hmma, hmma_cp = ("HMMA",), ("HMMA", "LDGSTS")
     for name, marker, ops in (
@@ -290,7 +304,8 @@ def phase_build():
             ("conv3x3_c1", "c1_forward_kernelIf", hmma),
             ("conv3x3_c1", "c1_wgrad_kernelI13__nv_bfloat16", hmma_cp),
             ("conv3x3_c1", "c1_wgrad_kernelIf", hmma_cp),
-            ("warp", "warp_brick_kernel", ("LDGSTS", "LDS"))):
+            ("warp", "warp_brick_kernel", ("LDGSTS", "LDS")),
+            ("warp", "adjoint_brick_kernel", ("ATOMS", "REDG.E.ADD.F32x4"))):
         funcs = [f for f in build.sass(name).split("Function : ")[1:]
                  if marker in f.split("\n", 1)[0]]
         counts = {op: sum(f.count(op) for f in funcs) for op in ops}
@@ -823,21 +838,26 @@ def phase_warp_deformable():
     """The warp's grid entry at a deformable branch's call sites (the
     field warps, C = 3 f32, and the input warp, the unwarp and its fast
     adjoint, f32 and bf16), held against its plain version and timed
-    against `F.grid_sample`; then the exact adjoint kernel at the logit
-    site (C = n_opt) on an affine and a deformable grid, f32 and bf16,
-    against its plain version and timed against autograd of
-    `F.grid_sample` with respect to its input (ATen's own scatter).
-    Totals: per branch of a trained step (10 border field warps, the input
-    warp, the unwarp and the fast adjoint), and the adjoint on the
-    deformable grid."""
+    against `F.grid_sample`; then the exact adjoint at the logit site
+    (C = n_opt), f32 and bf16: its affine entry at an inverse affine, its
+    grid entry on that affine's grid and on a deformable branch's inverse
+    grid, each against its plain version (twice: its atomics sum in a
+    varying order), its bricks by path held to `warp_brick_paths`, and
+    timed against autograd of `F.grid_sample` with respect to its input
+    (ATen's own scatter).  Totals: per branch of a trained step (10 border
+    field warps, the input warp, the unwarp and the fast adjoint), and
+    each adjoint site."""
     import torch
     import torch.nn.functional as F
 
     from dg_tta_tpu_torch.core.fields import get_rand_affine
     from dg_tta_tpu_torch.core.grid import affine_grid, pack_grid
-    from dg_tta_tpu_torch.kernels.warp import (warp_adjoint_bytes,
-                                               warp_bytes, warp_flat,
-                                               warp_flat_adjoint,
+    from dg_tta_tpu_torch.kernels.warp import (brick_paths,
+                                               warp_adjoint_bytes,
+                                               warp_affine_adjoint_reference,
+                                               warp_affine_flat_adjoint,
+                                               warp_brick_paths, warp_bytes,
+                                               warp_flat, warp_flat_adjoint,
                                                warp_flat_adjoint_reference,
                                                warp_flat_reference,
                                                warp_flops,
@@ -848,8 +868,14 @@ def phase_warp_deformable():
     sites = _deformable_sites(gen)
     _, theta_inv = get_rand_affine(torch.randn((1, 3, 4), generator=gen)
                                    .cuda())
-    adjoint_grids = [("affine grid", affine_grid(theta_inv, PATCH)),
-                     ("deformable grid", sites[3][2])]
+    # the exact adjoint at the logit site: an affine branch's through the
+    # affine entry (the main path's since the affine entry took it) and
+    # through the grid entry on the card's affine_grid, and a deformable
+    # branch's on its inverse grid
+    aff_grid = affine_grid(theta_inv, PATCH)
+    adjoint_sites = [("affine entry", aff_grid, True),
+                     ("affine grid", aff_grid, False),
+                     ("deformable grid", sites[3][2], False)]
     totals = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
@@ -921,18 +947,31 @@ def phase_warp_deformable():
             f"device_ms={tot['library_device_ms']:.4f}")
         totals[name] = tot
 
-        for site, grid in adjoint_grids:
+        for site, grid, affine in adjoint_sites:
             g = torch.randn((1, N_OPT, n), generator=gen).to(dt).cuda()
 
             def adjoint():
+                if affine:
+                    return warp_affine_flat_adjoint(g, PATCH, theta_inv,
+                                                    PATCH)
                 return warp_flat_adjoint(g, PATCH, grid)
 
-            got, again = adjoint(), adjoint()
-            torch.cuda.synchronize()
-            ref = warp_flat_adjoint_reference(g, PATCH, grid)
+            want = warp_brick_paths(PATCH, grid, N_OPT, 4, adjoint=True)
+            with brick_paths() as counts:
+                got = adjoint()
+                torch.cuda.synchronize()
+                paths = tuple(counts.tolist())
+            if paths != want:
+                raise AssertionError(f"warp adjoint {name} {site}: bricks by "
+                                     f"path (staged, global) {paths}, "
+                                     f"predicted {want}")
+            again = adjoint()
+            ref = (warp_affine_adjoint_reference(g, PATCH, theta_inv, PATCH)
+                   if affine else warp_flat_adjoint_reference(g, PATCH, grid))
             scale = ref.float().abs().max().item()
             err = max((t.float() - ref.float()).abs().max().item()
                       for t in (got, again))
+            runs = (got.float() - again.float()).abs().max().item()
             tol = ADJOINT_RTOL[name] * scale
             if not err <= tol:
                 raise AssertionError(f"warp adjoint {name} {site}: max abs "
@@ -944,23 +983,31 @@ def phase_warp_deformable():
                                  align_corners=False)
             g5 = g.view(1, N_OPT, *PATCH)
             k_ms, k_dev = time_ms(adjoint), device_ms(adjoint)
-            p_ms = time_ms(lambda: warp_flat_adjoint_reference(g, PATCH,
-                                                               grid))
+            p_ms = time_ms(lambda: warp_affine_adjoint_reference(
+                g, PATCH, theta_inv, PATCH) if affine else
+                warp_flat_adjoint_reference(g, PATCH, grid))
             l_ms = time_ms(lambda: torch.autograd.grad(
                 out5, vol5, g5, retain_graph=True))
             ops_ms = warp_flops(g.shape, n) / PEAK_OPS["float32"] * 1e3
-            bytes_ms = warp_adjoint_bytes(g.shape, n, g.element_size()) \
+            # the whole of dx is the output (the voxels no corner reaches
+            # are written too, as zeros)
+            bytes_ms = warp_adjoint_bytes(g.shape, n, g.element_size(),
+                                          48 if affine else 12 * n) \
                 / PEAK_BYTES * 1e3
+            bound = max(ops_ms, bytes_ms)
             log(f"warp adjoint {name} {site} C={N_OPT} zeros: "
-                f"max_abs_err={err:.3e} (tol {tol:.3e}, two runs) "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}, two runs; the runs "
+                f"differ by max |diff| {runs:.3e}) bricks staged {paths[0]} "
+                f"of {sum(paths)} (as warp_brick_paths predicts) "
                 f"kernel_ms={k_ms:.4f} device_ms={k_dev:.4f} "
-                f"bound_ms={max(ops_ms, bytes_ms):.4f} "
-                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
-                f"plain_ms={p_ms:.4f}; library autograd of F.grid_sample "
-                f"library_ms={l_ms:.4f}")
+                f"bound_ms={bound:.4f} "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; share "
+                f"of bound {bound / k_dev:.3f}); plain_ms={p_ms:.4f}; "
+                f"library autograd of F.grid_sample library_ms={l_ms:.4f}")
             t = _new_totals()
             _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms)
-            t["device_ms"] = k_dev
+            t.update(device_ms=k_dev, runs_max_diff=runs,
+                     staged_share=paths[0] / sum(paths))
             totals[f"{name}/adjoint/{site}"] = t
     return totals
 
@@ -1400,13 +1447,14 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
     `conv3x3_wgrad_route` pick them) and on zero-padded channels
     (`conv3x3_padded`, `conv3x3_wgrad_padded`: a MIND model's stem), and
     those of the warp's affine entry (`warp_affine`), grid entry (`warp`)
-    and exact adjoint (`warp_adjoint`).  Per patch step, each branch the
-    plan warps makes one input warp and one unwarp, and each trained step
-    one adjoint of each unwarp: an affine plan's on the affine entry (with
-    `exact`, its unwarp on the grid entry at the inverse affine's grid and
-    its adjoint exact); a deformable plan's on the grid entry, after the
-    10 field warps of its branch's displacement field (5 iterations, 2
-    warps each); each eval samples its labels on the affine entry."""
+    and the exact adjoint's grid entry (`warp_adjoint`) and affine entry
+    (`warp_affine_adjoint`).  Per patch step, each branch the plan warps
+    makes one input warp and one unwarp, and each trained step one adjoint
+    of each unwarp: an affine plan's on the affine entry (with `exact`,
+    the exact adjoint's affine entry); a deformable plan's on the grid
+    entry, after the 10 field warps of its branch's displacement field (5
+    iterations, 2 warps each; with `exact`, the exact adjoint's grid
+    entry); each eval samples its labels on the affine entry."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -1441,22 +1489,25 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
     steps = acc * epochs * branches        # branch warps of patch steps
     adjoints = trained * branches
     fast = 0 if exact else adjoints
-    if plan.get("spatial_aug_type", "affine") == "deformable":
+    deformable = plan.get("spatial_aug_type", "affine") == "deformable"
+    if deformable:
         out["warp"] = members * (steps * 12 + fast)
         out["warp_affine"] = members * epochs
     else:
-        out["warp"] = members * steps if exact else 0
-        out["warp_affine"] = members * (steps * (1 if exact else 2) + fast
-                                        + epochs)
-    out["warp_adjoint"] = members * adjoints if exact else 0
+        out["warp"] = 0
+        out["warp_affine"] = members * (steps * 2 + fast + epochs)
+    exact_adjoints = members * adjoints if exact else 0
+    out["warp_adjoint"] = exact_adjoints if deformable else 0
+    out["warp_affine_adjoint"] = 0 if deformable else exact_adjoints
     return out
 
 
 def _read_counts():
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
                                                   route_launches)
-    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
-                                               warp_flat_adjoint)
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                               warp_affine_flat_adjoint,
+                                               warp_flat, warp_flat_adjoint)
 
     out = {"conv3x3": conv3x3.launches,
            "conv3x3_wgrad": conv3x3_wgrad.launches,
@@ -1464,7 +1515,8 @@ def _read_counts():
            "conv3x3_wgrad_padded": conv3x3_wgrad.padded_launches,
            "warp": warp_flat.launches,
            "warp_affine": warp_affine_flat.launches,
-           "warp_adjoint": warp_flat_adjoint.launches}
+           "warp_adjoint": warp_flat_adjoint.launches,
+           "warp_affine_adjoint": warp_affine_flat_adjoint.launches}
     for fn, prefix in ((conv3x3, "conv3x3"), (conv3x3_wgrad, "conv3x3_wgrad")):
         out.update({f"{prefix}_{r}": n for r, n in route_launches(fn).items()})
     return out
@@ -1473,13 +1525,14 @@ def _read_counts():
 def _zero_counts():
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
                                                   zero_launches)
-    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
-                                               warp_flat_adjoint)
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                               warp_affine_flat_adjoint,
+                                               warp_flat, warp_flat_adjoint)
 
     zero_launches(conv3x3)
     zero_launches(conv3x3_wgrad)
     warp_flat.launches = warp_affine_flat.launches = 0
-    warp_flat_adjoint.launches = 0
+    warp_flat_adjoint.launches = warp_affine_flat_adjoint.launches = 0
 
 
 def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
@@ -1548,14 +1601,19 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
             launches["conv3x3_few"] and launches["conv3x3_wgrad_few"]):
         raise AssertionError(f"the stem of a {model.spec.num_input_channels}"
                              f"-channel model launched no \"few\" kernel")
-    # the grid entry carries a deformable plan's warps and an exact
-    # unwarp, and nothing of an affine plan's otherwise
+    # the grid entry carries a deformable plan's warps and nothing of an
+    # affine plan's; the exact adjoint runs with `exact` only, on the entry
+    # of the plan's warps
     deformable = plan["spatial_aug_type"] == "deformable"
-    if (launches["warp"] > 0) != (deformable or exact) \
-            or (launches["warp_adjoint"] > 0) != exact:
+    if (launches["warp"] > 0) != deformable \
+            or (launches["warp_adjoint"] > 0) != (exact and deformable) \
+            or (launches["warp_affine_adjoint"] > 0) != (exact
+                                                         and not deformable):
         raise AssertionError(f"the main path launched the grid entry "
-                             f"{launches['warp']} and the exact adjoint "
-                             f"{launches['warp_adjoint']} times")
+                             f"{launches['warp']}, the exact adjoint's grid "
+                             f"entry {launches['warp_adjoint']} and its "
+                             f"affine entry {launches['warp_affine_adjoint']} "
+                             f"times")
     (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
     pretrained = load_flat_npz(ws.checkpoint)
     for i in range(n_members):
@@ -1646,6 +1704,9 @@ def main():
             runs["TS104_GIN_MIND", dtype] = phase_main_path(
                 Path(tmp) / f"gin_mind_{dtype}", dtype, "TS104_GIN_MIND",
                 do_intensity_aug_in="both")
+        # affine TTA with the exact adjoint (its affine entry)
+        runs["TS104_GIN exact", "float32"] = phase_main_path(
+            Path(tmp) / "exact_float32", "float32", exact=True)
         # deformable TTA: f32 with the fast adjoint, bf16 with the exact one
         runs["TS104_GIN deformable", "float32"] = phase_main_path(
             Path(tmp) / "deformable_float32", "float32",
@@ -1662,9 +1723,10 @@ def main():
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
     w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
     wg32, wg16 = totals["warp_grid"]["float32"], totals["warp_grid"]["bfloat16"]
-    adj, adj_aff = ({k: totals["warp_grid"][f"{k}/adjoint/{site} grid"]
-                     for k in ("float32", "bfloat16")}
-                    for site in ("deformable", "affine"))
+    adj, adj_aff, adj_entry = ({k: totals["warp_grid"][f"{k}/adjoint/{site}"]
+                                for k in ("float32", "bfloat16")}
+                               for site in ("deformable grid", "affine grid",
+                                            "affine entry"))
     rows = [
         # the CUDA-core kernels, timed on the shapes they ran before the
         # later routes took them (f32: every conv; bf16: C = 1)
@@ -1689,14 +1751,26 @@ def main():
              bf16_affine_sites_device_ms=w16["affine"]["grid_device_ms"],
              staged_share=wg32["staged_share"],
              bf16_staged_share=wg16["staged_share"]),
-        # the exact adjoint at the logit site on a deformable grid, its
-        # times on an affine grid beside them
+        # the exact adjoint's grid entry at the logit site on a deformable
+        # grid, its times on an affine grid beside them; and its affine
+        # entry at that affine
         _row("warp_adjoint", warp.SOURCE, warp.REPLACES,
              both("warp_adjoint"), adj["float32"], adj["bfloat16"], "cuda",
              device_ms=adj["float32"]["device_ms"],
              bf16_device_ms=adj["bfloat16"]["device_ms"],
+             runs_max_diff=adj["float32"]["runs_max_diff"],
+             staged_share=adj["float32"]["staged_share"],
              affine_grid_ms=adj_aff["float32"]["ms"],
-             bf16_affine_grid_ms=adj_aff["bfloat16"]["ms"]),
+             affine_grid_device_ms=adj_aff["float32"]["device_ms"],
+             bf16_affine_grid_ms=adj_aff["bfloat16"]["ms"],
+             bf16_affine_grid_device_ms=adj_aff["bfloat16"]["device_ms"]),
+        _row("warp_affine_adjoint", warp.SOURCE, warp.REPLACES,
+             both("warp_affine_adjoint"), adj_entry["float32"],
+             adj_entry["bfloat16"], "cuda",
+             device_ms=adj_entry["float32"]["device_ms"],
+             bf16_device_ms=adj_entry["bfloat16"]["device_ms"],
+             runs_max_diff=adj_entry["float32"]["runs_max_diff"],
+             staged_share=adj_entry["float32"]["staged_share"]),
         _row("warp_affine", warp.SOURCE, warp.REPLACES, both("warp_affine"),
              w32["affine"], w16["affine"], "cuda",
              **{k: w32["affine"][k] for k in (

@@ -77,23 +77,42 @@
 //   of exact .5 ties in nearest mode) is bit-for-bit that of the plain
 //   version; each corner is added by fmaf in the order k = 0..7.
 //
-// A third entry, dgtta_warp_adjoint, is the exact adjoint of the grid entry's
-// trilinear warp: the gradient of sum(out * g) with respect to src,
+// Two more entries are the exact adjoints of the forward entries' trilinear
+// warps, dgtta_warp_adjoint (the grid entry's) and dgtta_warp_affine_adjoint
+// (the affine entry's, no scale: the points built from theta as the
+// forward's, bit for bit the corners and weights of dgtta_warp_adjoint on
+// affine_grid(theta)): the gradient of sum(out * g) with respect to src,
 //
 //   dx[b, c, lin_k(o)] += weight_k(o) * g[b, c, o]
 //
 // over the 8 corners of every output o, the weights and corners of the
 // forward kernel (zeros padding drops the outside corners; border padding
-// adds their weight to the clamped edge voxel).  It is what the JAX package's
-// autodiff of its gather computes, a scatter-add; the TTA engine runs it for
-// DGTTA_EXACT_WARP_GRAD.  One thread per output voxel computes its corners
-// and weights once, then loops over the channels, reading g[b, c, o]
-// (coalesced across the warp) and adding eight products into an f32 buffer
-// with atomicAdd.  What bounds it: the atomics; the TTA warps are near the
-// identity, so the 32 threads of a warp add into a few neighbouring cache
-// lines per corner, which L2 serves.  The sum's order varies from run to
-// run, so its result does too, in the last bits of f32.  A bf16 result is
-// the f32 buffer cast by one pass (the wrapper's).
+// adds their weight to the clamped edge voxel).  It is what the JAX
+// package's autodiff of its gather computes, a scatter-add; the TTA engine
+// runs it for DGTTA_EXACT_WARP_GRAD.
+//
+// What bounds it on an H100: the adds.  One thread per output adding its 8
+// products per channel into device memory by f32 atomics (the kernel this
+// design replaced) ran at 7% of its bytes bound: 51 M atomics a call at
+// C = 4, most of its time in their count and, on a deformable grid, in
+// their scatter (PERF.md §6 has the scratch variants' times).  What the design
+// does about it: blocks take the forward's 3D bricks of outputs; a brick's
+// products are summed in an f32 copy of its source box in shared memory,
+// then the box's nonzero voxels are added into dx once, by 16-byte global
+// reductions where W allows, so device memory sees about two adds per
+// touched source voxel and channel instead of eight per output and
+// channel.  sm_90 has no f32 add in shared memory: an update is a
+// compare-and-swap loop, whose cost is by instruction, so a warp's
+// neighbouring outputs, which share half their corners, first add their
+// shared corners' products in registers (a shuffle), and a warp's corner
+// pair takes one loop where its outputs map a voxel apart; the products no
+// neighbour takes go to dx by global reductions.  (Keeping two channels a
+// voxel and updating them by one 64-bit loop was slower.)  The box takes
+// as many channels a pass as fit the buffer; a box too large for one
+// channel (a strong warp) sends its brick back to global atomics.  The
+// order of the adds varies from run to run (shared and global atomics), so
+// the result does too, in the last bits of f32.  A bf16 result is the f32
+// sum cast by one pass (the wrapper's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,8 +121,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;  // the adjoint's block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -600,70 +617,339 @@ bool bad_forward_args(int B, int C, int D, int H, int W, int Do, int Ho,
          stage_bytes % 16 != 0 || stage_bytes > 200 * 1024;
 }
 
-// The exact adjoint of the grid entry (trilinear): dx (f32, zeroed by the
-// caller) += weight * g at each corner, by atomicAdd.  One thread per output
-// voxel, the corners and weights of the forward kernel computed once, a loop
-// over the channels.
-template <typename T, bool BORDER>
-__global__ void __launch_bounds__(kThreads)
-warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ gx,
-                    const float* __restrict__ gy,
-                    const float* __restrict__ gz, float* __restrict__ dx,
-                    int C, int D, int H, int W, long long n_out, int align) {
-  const long long o = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (o >= n_out) return;
-  const int b = blockIdx.y;
-  const long long n_src = static_cast<long long>(D) * H * W;
-  const size_t gi = static_cast<size_t>(b) * n_out + o;
-  const float x = unnormalize(gx[gi], W, align);
-  const float y = unnormalize(gy[gi], H, align);
-  const float z = unnormalize(gz[gi], D, align);
-  const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
-  const float tx = x - x0f, ty = y - y0f, tz = z - z0f;
-  const int x0 = to_index(x0f, W), y0 = to_index(y0f, H),
-            z0 = to_index(z0f, D);
-  int lin[8];
-  float wt[8];
+// Adds v to the f32 sum at shared byte address addr.  sm_90 has no f32 add
+// in shared memory: this compiles to a compare-and-swap loop.  (No memory
+// clobber: the g loads may move ahead of the updates, and the barriers
+// order them against the box's other accesses.)
+__device__ __forceinline__ void red_shared(unsigned addr, float v) {
+  asm volatile("red.shared.add.f32 [%0], %1;\n" ::"r"(addr), "f"(v));
+}
+
+// One output's corners as indices into a channel of dx, and their
+// weights, in the forward's order k = 4 z + 2 y + x: (z factor * y factor)
+// * x factor.
+template <bool BORDER>
+__device__ __forceinline__ void adjoint_corners(const float (&u)[3], int H,
+                                                int W, float wm1, float hm1,
+                                                float dm1, int (&lin)[8],
+                                                float (&w)[8]) {
+  using A = Axis<false, BORDER>;
+  const A ax(u[0], wm1), ay(u[1], hm1), az(u[2], dm1);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const int dz = k >> 2, dy = (k >> 1) & 1, dx_ = k & 1;
-    bool inside = true;
-    const int zi = corner(z0 + dz, D, &inside);
-    const int yi = corner(y0 + dy, H, &inside);
-    const int xi = corner(x0 + dx_, W, &inside);
-    lin[k] = (zi * H + yi) * W + xi;
-    const float w = __fmul_rn(__fmul_rn(dz ? tz : 1.0f - tz,
-                                        dy ? ty : 1.0f - ty),
-                              dx_ ? tx : 1.0f - tx);
-    wt[k] = (BORDER || inside) ? w : 0.0f;
-  }
-  const T* gb = g + static_cast<size_t>(b) * C * n_out + o;
-  float* db = dx + static_cast<size_t>(b) * C * n_src;
-  for (int c = 0; c < C; ++c) {
-    const float gv = to_f32(gb[static_cast<size_t>(c) * n_out]);
-    if (gv == 0.0f) continue;
-    float* dc = db + static_cast<size_t>(c) * n_src;
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (wt[k] != 0.0f) atomicAdd(dc + lin[k], __fmul_rn(wt[k], gv));
+    w[k] = __fmul_rn(__fmul_rn(az.w[k >> 2], ay.w[(k >> 1) & 1]),
+                     ax.w[k & 1]);
+    lin[k] = (az.i[k >> 2] * H + ay.i[(k >> 1) & 1]) * W + ax.i[k & 1];
   }
 }
 
-template <typename T>
-void launch_adjoint(const void* g, const float* gx, const float* gy,
-                    const float* gz, float* dx, int B, int C, int D, int H,
-                    int W, long long n_out, int border, int align,
-                    cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((n_out + kThreads - 1) / kThreads),
-                  B);
-  const T* gt = static_cast<const T*>(g);
-  if (border)
-    warp_adjoint_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        gt, gx, gy, gz, dx, C, D, H, W, n_out, align);
-  else
-    warp_adjoint_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        gt, gx, gy, gz, dx, C, D, H, W, n_out, align);
+// The exact adjoint's kernel, both entries (AFFINE: the points of the
+// affine entry, built from theta and the base table; else the grid's):
+// one block per brick of 32 x 8 x 4 outputs, as the forward's bricks (4
+// deep whatever C: the box holds f32 sums, a channel or more a pass).
+// (A) Each thread's KBZ points, unnormalized, kept in registers.  (B) The
+// brick's box of clamped corners: the affine entry's from two vertices per
+// axis by a shuffle, as the forward's; the grid entry's the min and max
+// over its threads' corners, by warp reductions and one step through
+// shared memory.  (C) If one channel of the box (f32, rows widened to
+// 4-voxel chunks where W allows) fits the buffer, the channels go in
+// passes of as many as fit: each thread adds its outputs' products into
+// the box (red_shared; the products a neighbouring lane does not take, into
+// dx), a barrier, then the block flushes the box's nonzero sums to dx with
+// 16-byte (or scalar) global reductions and clears them for the next
+// pass.  A brick whose box does not fit adds every product into dx with
+// global atomics.  counts, if given: bricks staged (counts[0]) or global
+// (counts[1]).
+constexpr int kAdjointDepth = 4;
+
+template <typename T, bool BORDER, bool AFFINE>
+__global__ void __launch_bounds__(kBrickThreads, 4)
+adjoint_brick_kernel(const Args a) {
+  constexpr int KBZ = kAdjointDepth;
+  using A = Axis<false, BORDER>;
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  float* const s_box = reinterpret_cast<float*>(s_raw);
+  __shared__ int s_lohi[kWarps][6];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int D = a.D, H = a.H, W = a.W, C = a.C;
+  const float wm1 = static_cast<float>(W - 1), hm1 = static_cast<float>(H - 1),
+              dm1 = static_cast<float>(D - 1);
+  const size_t n_src = static_cast<size_t>(D) * H * W;
+  const size_t n_out = static_cast<size_t>(a.Do) * a.Ho * a.Wo;
+  const Brick k = block_brick<KBZ>(a);
+  const int ox = k.x + lane, oy = k.y + warp;  // row j: z = k.z + j
+  const bool in_xy = ox < a.Wo && oy < a.Ho;
+
+  // the buffer cleared for the first pass
+  for (int i = tid; i < a.stage_bytes / 16; i += kBrickThreads)
+    reinterpret_cast<float4*>(s_raw)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // (A) the thread's points, unnormalized; (B) the brick's box
+  float u[KBZ][3];
+  int lohi[6];
+  if constexpr (AFFINE) {
+    const float* th = a.theta + k.b * a.theta_stride;
+    const float* const xb = a.base;  // x_n, then y_n, then z_n
+    const float* const yb = a.base + a.Wo;
+    const float* const zb = a.base + a.Wo + a.Ho;
+    const float xn = __ldg(xb + min(ox, a.Wo - 1)),
+                yn = __ldg(yb + min(oy, a.Ho - 1)),
+                zn = __ldg(zb + min(k.z + lane % KBZ, a.Do - 1));
+    float px[3], py[3], pz[3], t3[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      px[i] = __fmul_rn(__ldg(th + 4 * i), xn);
+      py[i] = __fmul_rn(__ldg(th + 4 * i + 1), yn);
+      pz[i] = __fmul_rn(__ldg(th + 4 * i + 2), zn);
+      t3[i] = __ldg(th + 4 * i + 3);
+    }
+#pragma unroll
+    for (int j = 0; j < KBZ; ++j) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        // affine_grid's order: ((t0 x + t1 y) + t2 z) + t3
+        const float zj = __shfl_sync(0xffffffffu, pz[i], j);
+        u[j][i] = unnormalize(
+            __fadd_rn(__fadd_rn(__fadd_rn(px[i], py[i]), zj), t3[i]),
+            i == 0 ? W : i == 1 ? H : D, false);
+      }
+    }
+    // lane 2 r + e: the lowest (e = 0) or highest (e = 1) corner index
+    // along axis r, at the vertex where row r of theta is least or greatest
+    const int r = min(lane >> 1, 2), e = lane & 1;
+    const float* t = th + 4 * r;
+    const float t0 = __ldg(t), t1 = __ldg(t + 1), t2 = __ldg(t + 2);
+    const int xv = (t0 < 0.0f) != (e == 1) ? min(k.x + kBX, a.Wo) - 1 : k.x;
+    const int yv = (t1 < 0.0f) != (e == 1) ? min(k.y + kBY, a.Ho) - 1 : k.y;
+    const int zv = (t2 < 0.0f) != (e == 1) ? min(k.z + KBZ, a.Do) - 1 : k.z;
+    const int n = r == 0 ? W : r == 1 ? H : D;
+    const float g = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(t0, __ldg(xb + xv)),
+                            __fmul_rn(t1, __ldg(yb + yv))),
+                  __fmul_rn(t2, __ldg(zb + zv))),
+        __ldg(t + 3));
+    const A v(unnormalize(g, n, false), static_cast<float>(n - 1));
+    const int end = e ? v.i[1] : v.i[0];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      lohi[i] = __shfl_sync(0xffffffffu, end, 2 * (i % 3) + i / 3);
+    __syncthreads();
+  } else {
+    int lo[3] = {INT_MAX, INT_MAX, INT_MAX}, hi[3] = {-1, -1, -1};
+#pragma unroll
+    for (int j = 0; j < KBZ; ++j) {
+      const int oz = k.z + j;
+      u[j][0] = u[j][1] = u[j][2] = 0.0f;
+      if (!in_xy || oz >= a.Do) continue;
+      const size_t gi = k.b * n_out +
+                        (static_cast<size_t>(oz) * a.Ho + oy) * a.Wo + ox;
+      u[j][0] = unnormalize(__ldg(a.gx + gi), W, a.align);
+      u[j][1] = unnormalize(__ldg(a.gy + gi), H, a.align);
+      u[j][2] = unnormalize(__ldg(a.gz + gi), D, a.align);
+      const A ax(u[j][0], wm1), ay(u[j][1], hm1), az(u[j][2], dm1);
+      lo[0] = min(lo[0], ax.i[0]);
+      hi[0] = max(hi[0], ax.i[1]);
+      lo[1] = min(lo[1], ay.i[0]);
+      hi[1] = max(hi[1], ay.i[1]);
+      lo[2] = min(lo[2], az.i[0]);
+      hi[2] = max(hi[2], az.i[1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      lo[i] = __reduce_min_sync(0xffffffffu, lo[i]);
+      hi[i] = __reduce_max_sync(0xffffffffu, hi[i]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        s_lohi[warp][i] = lo[i];
+        s_lohi[warp][3 + i] = hi[i];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      lohi[i] = s_lohi[0][i];
+      lohi[3 + i] = s_lohi[0][3 + i];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        lohi[i] = min(lohi[i], s_lohi[w][i]);
+        lohi[3 + i] = max(lohi[3 + i], s_lohi[w][3 + i]);
+      }
+    }
+  }
+  // the box: rows of sx floats from x = xs (16-byte chunks where W allows),
+  // ey rows a plane, ez planes a channel; cpp channels a pass
+  const bool vec = W % 4 == 0;
+  const int xs = vec ? lohi[0] & ~3 : lohi[0];
+  const int sx = vec ? (lohi[3] + 4 - xs) & ~3 : lohi[3] + 1 - xs;
+  const int ey = lohi[4] + 1 - lohi[1], ez = lohi[5] + 1 - lohi[2];
+  const int plane = sx * ey, cbox = plane * ez;
+  const int cpp = min(C, a.stage_bytes / 4 / cbox);
+  if (tid == 0 && a.counts != nullptr)
+    atomicAdd(a.counts + (cpp > 0 ? 0 : 1), 1ull);
+
+  const T* const g_b =
+      static_cast<const T*>(a.src) + static_cast<size_t>(k.b) * C * n_out;
+  float* const dx_b =
+      static_cast<float*>(a.out) + static_cast<size_t>(k.b) * C * n_src;
+  if (cpp == 0) {  // global atomics
+#pragma unroll
+    for (int j = 0; j < KBZ; ++j) {
+      const int oz = k.z + j;
+      if (!in_xy || oz >= a.Do) continue;
+      const size_t o = (static_cast<size_t>(oz) * a.Ho + oy) * a.Wo + ox;
+      int lin[8];
+      float w[8];
+      adjoint_corners<BORDER>(u[j], H, W, wm1, hm1, dm1, lin, w);
+      for (int c = 0; c < C; ++c) {
+        const float gv = to_f32(g_b[c * n_out + o]);
+        if (gv == 0.0f) continue;
+        float* const dc = dx_b + c * n_src;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (w[q] != 0.0f) atomicAdd(dc + lin[q], __fmul_rn(w[q], gv));
+      }
+    }
+    return;
+  }
+
+  const unsigned s_base = static_cast<unsigned>(__cvta_generic_to_shared(s_box));
+  // the flush's share of a pass: thread (p0, r) takes row chunk r of
+  // planes p0, p0 + P, ...; R chunks a plane
+  const int step = vec ? 4 : 1, nq = sx / step, R = ey * nq;
+  const int P = max(1, kBrickThreads / R), p0 = tid / R;
+  const size_t hw = static_cast<size_t>(H) * W;
+  for (int c0 = 0; c0 < C; c0 += cpp) {
+    const int nc = min(cpp, C - c0);
+#pragma unroll
+    for (int j = 0; j < KBZ; ++j) {
+      const int oz = k.z + j;
+      if (oy >= a.Ho || oz >= a.Do) continue;  // the whole warp
+      const bool valid = ox < a.Wo;
+      const size_t o = (static_cast<size_t>(oz) * a.Ho + oy) * a.Wo +
+                       (valid ? ox : 0);
+      // per (z, y) corner pair p = 2 dz + dy: the x0 and x1 corners' byte
+      // offsets into the box, the x1 corner's index into dx, the weights
+      const A ax(u[j][0], wm1), ay(u[j][1], hm1), az(u[j][2], dm1);
+      int off0[4], off1[4], lin1[4];
+      float w0[4], w1[4];
+      bool take[4], give[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int zi = az.i[p >> 1], yi = ay.i[p & 1];
+        const int zy = ((zi - lohi[2]) * plane + (yi - lohi[1]) * sx) * 4;
+        off0[p] = valid ? zy + (ax.i[0] - xs) * 4 : -1;
+        off1[p] = valid ? zy + (ax.i[1] - xs) * 4 : -1;
+        lin1[p] = (zi * H + yi) * W + ax.i[1];
+        const float wzy = __fmul_rn(az.w[p >> 1], ay.w[p & 1]);
+        w0[p] = __fmul_rn(wzy, ax.w[0]);
+        w1[p] = __fmul_rn(wzy, ax.w[1]);
+        // Lane l + 1's x0 corner is lane l's x1 corner wherever the warp's
+        // outputs map a voxel apart: there lane l + 1 adds lane l's x1
+        // product to its own x0 product, so that a warp's corner pair
+        // takes one shared-memory reduction (each a compare-and-swap loop,
+        // whose cost is by instruction: sm_90 has no f32 add in shared
+        // memory); the x1 products no neighbour takes (lane 31's, and
+        // where the warp's outputs map further apart) go straight to dx by
+        // global reductions.
+        const int left = __shfl_up_sync(0xffffffffu, off1[p], 1);
+        take[p] = lane > 0 && valid && left == off0[p];
+        give[p] = __shfl_down_sync(0xffffffffu, take[p], 1) && lane < 31;
+      }
+      for (int cc = 0; cc < nc; cc += 4) {
+        float gv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          gv[c] = valid && cc + c < nc
+                      ? to_f32(g_b[(c0 + cc + c) * n_out + o])
+                      : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (cc + c >= nc) break;
+          const unsigned cb =
+              s_base + static_cast<unsigned>((cc + c) * cbox * 4);
+          float* const dc = dx_b + (c0 + cc + c) * n_src;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            float v0 = __fmul_rn(w0[p], gv[c]);
+            const float v1 = __fmul_rn(w1[p], gv[c]);
+            const float left = __shfl_up_sync(0xffffffffu, v1, 1);
+            if (take[p]) v0 = __fadd_rn(v0, left);
+            if (v0 != 0.0f) red_shared(cb + off0[p], v0);
+            if (!give[p] && v1 != 0.0f) atomicAdd(dc + lin1[p], v1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // flush the pass's nonzero voxels into dx and clear them
+    if (p0 < P) {
+      for (int r = tid - p0 * R; r < R; r += R > kBrickThreads ? kBrickThreads : R) {
+        const int y = r / nq, q = r - y * nq;
+        float* const dxr = dx_b + static_cast<size_t>(c0) * n_src +
+                           static_cast<size_t>(lohi[1] + y) * W + xs + q * step;
+        int c = 0, z = p0;
+        while (z >= ez) z -= ez, ++c;
+        for (int cz = p0; cz < nc * ez; cz += P) {
+          float* const dst = dxr + c * n_src + (lohi[2] + z) * hw;
+          float* const src = s_box + cz * plane + r * step;
+          if (vec) {
+            const float4 v = *reinterpret_cast<float4*>(src);
+            if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
+              atomicAdd(reinterpret_cast<float4*>(dst), v);
+              *reinterpret_cast<float4*>(src) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+          } else if (*src != 0.0f) {
+            atomicAdd(dst, *src);
+            *src = 0.0f;
+          }
+          z += P;
+          while (z >= ez) z -= ez, ++c;
+        }
+      }
+    }
+    if (c0 + cpp < C) __syncthreads();
+  }
+}
+
+template <typename T, bool BORDER, bool AFFINE>
+int launch_adjoint_brick(Args a, cudaStream_t stream) {
+  constexpr int KBZ = kAdjointDepth;
+  auto kernel = adjoint_brick_kernel<T, BORDER, AFFINE>;
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (a.stage_bytes > allowed[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.stage_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = a.stage_bytes;
+  }
+  a.nbx = (a.Wo + kBX - 1) / kBX;
+  a.nby = (a.Ho + kBY - 1) / kBY;
+  a.nbz = (a.Do + KBZ - 1) / KBZ;
+  if (a.nby > 65535 || static_cast<long long>(a.nbz) * a.B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(a.nbx, a.nby, a.nbz * a.B), kBrickThreads, a.stage_bytes,
+           stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool AFFINE>
+int launch_adjoint_typed(const Args& a, int border, cudaStream_t stream) {
+  return border ? launch_adjoint_brick<T, true, AFFINE>(a, stream)
+                : launch_adjoint_brick<T, false, AFFINE>(a, stream);
+}
+
+template <bool AFFINE>
+int launch_adjoint(const Args& a, int border, int dtype, cudaStream_t stream) {
+  return dtype == 0
+             ? launch_adjoint_typed<float, AFFINE>(a, border, stream)
+             : launch_adjoint_typed<__nv_bfloat16, AFFINE>(a, border, stream);
 }
 
 }  // namespace
@@ -740,31 +1026,61 @@ extern "C" int dgtta_warp_affine(const void* src, const void* theta,
 }
 
 // The exact adjoint of dgtta_warp (trilinear): dx (B, C, D*H*W) f32, zeroed
-// by the caller, += the scatter of g (B, C, n_out) through the corners and
-// weights of the points gx/gy/gz (B, n_out) f32; border: 0 = zeros, 1 =
-// border; dtype of g: 0 = float32, 1 = bfloat16.  All contiguous.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
-// the kernel does not take).
+// by the caller, += the scatter of g (B, C, Do*Ho*Wo) through the corners
+// and weights of the points gx/gy/gz (B, Do*Ho*Wo) f32; border: 0 = zeros,
+// 1 = border; dtype of g: 0 = float32, 1 = bfloat16; stage_bytes: a
+// block's box buffer (a brick whose box of one channel pair, f32, does not
+// fit it adds into dx by global atomics); counts: null, or two device
+// counters (bricks of 32 x 8 x 4 outputs staged, global).  All contiguous.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take).
 extern "C" int dgtta_warp_adjoint(const void* g, const void* gx,
                                   const void* gy, const void* gz, void* dx,
-                                  int B, int C, int D, int H, int W,
-                                  long long n_out, int border, int align,
-                                  int dtype, void* stream) {
-  if (B <= 0 || B > 65535 || C <= 0 || D <= 0 || H <= 0 || W <= 0 ||
-      static_cast<long long>(D) * H * W > 2147483647LL || n_out <= 0 ||
-      (n_out + kThreads - 1) / kThreads > 2147483647LL ||
-      (dtype != 0 && dtype != 1))
+                                  int B, int C, int D, int H, int W, int Do,
+                                  int Ho, int Wo, int border, int align,
+                                  int dtype, int stage_bytes, void* counts,
+                                  void* stream) {
+  if (bad_forward_args(B, C, D, H, W, Do, Ho, Wo, dtype, stage_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* x = static_cast<const float*>(gx);
-  const float* y = static_cast<const float*>(gy);
-  const float* z = static_cast<const float*>(gz);
-  float* d = static_cast<float*>(dx);
-  if (dtype == 0)
-    launch_adjoint<float>(g, x, y, z, d, B, C, D, H, W, n_out, border, align,
-                          s);
-  else
-    launch_adjoint<__nv_bfloat16>(g, x, y, z, d, B, C, D, H, W, n_out,
-                                  border, align, s);
-  return static_cast<int>(cudaGetLastError());
+  Args a = {};
+  a.src = g;
+  a.out = dx;
+  a.gx = static_cast<const float*>(gx);
+  a.gy = static_cast<const float*>(gy);
+  a.gz = static_cast<const float*>(gz);
+  a.counts = static_cast<unsigned long long*>(counts);
+  a.align = align;
+  a.B = B, a.C = C, a.D = D, a.H = H, a.W = W, a.Do = Do, a.Ho = Ho, a.Wo = Wo;
+  a.stage_bytes = stage_bytes;
+  return launch_adjoint<false>(a, border, dtype,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The exact adjoint of dgtta_warp_affine (trilinear, no scale): dx as
+// dgtta_warp_adjoint's, at the points of core/grid.py::affine_grid(theta,
+// (Do, Ho, Wo), align_corners=False), built in the kernel as
+// dgtta_warp_affine builds them (bit for bit the same corners and weights
+// as dgtta_warp_adjoint's on that grid); theta, theta_stride and base as
+// dgtta_warp_affine's; the rest as dgtta_warp_adjoint's.
+extern "C" int dgtta_warp_affine_adjoint(const void* g, const void* theta,
+                                         int theta_stride, const void* base,
+                                         void* dx, int B, int C, int D, int H,
+                                         int W, int Do, int Ho, int Wo,
+                                         int border, int dtype,
+                                         int stage_bytes, void* counts,
+                                         void* stream) {
+  if (bad_forward_args(B, C, D, H, W, Do, Ho, Wo, dtype, stage_bytes) ||
+      (theta_stride != 0 && theta_stride != 12))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = {};
+  a.src = g;
+  a.out = dx;
+  a.theta = static_cast<const float*>(theta);
+  a.theta_stride = theta_stride;
+  a.base = static_cast<const float*>(base);
+  a.counts = static_cast<unsigned long long*>(counts);
+  a.B = B, a.C = C, a.D = D, a.H = H, a.W = W, a.Do = Do, a.Ho = Ho, a.Wo = Wo;
+  a.stage_bytes = stage_bytes;
+  return launch_adjoint<true>(a, border, dtype,
+                              static_cast<cudaStream_t>(stream));
 }

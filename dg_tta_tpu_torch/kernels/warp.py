@@ -20,20 +20,27 @@ H100 and what its design does about that):
   adaptation takes it.  Its blocks take 3D bricks of outputs and stage each
   brick's source box in shared memory (`warp_plan` sizes both), or gather
   from device memory where the box does not fit.
-A third entry is the exact adjoint of the grid entry's trilinear warp,
-the scatter-add that autodiff of the JAX package's gather computes:
+Two more are the exact adjoints of their trilinear warps, the scatter-add
+that autodiff of the JAX package's gather computes:
 * `warp_flat_adjoint` gives the gradient with respect to `flat` of
   `sum(warp_flat(flat, ...) * g)`; `warp_flat_op` is the grid entry as an
-  autograd Function whose backward it is.
-Each launches the kernel for CUDA tensors, or raises; it runs its plain
-version (`warp_flat_reference`, `warp_affine_reference`,
-`warp_flat_adjoint_reference`) only for tensors on the CPU.
-`warp_flat.launches`, `warp_affine_flat.launches` and
-`warp_flat_adjoint.launches` count the kernel's launches through each;
-`brick_paths` counts the forward entries' blocks by path on the card (the
-affine entry's bricks staged or gathered from device memory; the grid
-entry's blocks all the latter), and `warp_brick_paths` predicts those
-counts.
+  autograd Function whose backward it is;
+* `warp_affine_flat_adjoint` that of `sum(warp_affine_flat(flat, ...) *
+  g)`, from theta (no grid in memory, the same corners and weights);
+  `warp_affine_op` is the affine entry as an autograd Function whose
+  backward it is.
+Their blocks take the forward's bricks and sum each brick's scatter in an
+f32 copy of its source box in shared memory, flushed into the gradient
+once (or add into device memory where one channel of the box does not
+fit).  Each launches the kernel for CUDA tensors, or raises; it runs its
+plain version (`warp_flat_reference`, `warp_affine_reference`,
+`warp_flat_adjoint_reference`, `warp_affine_adjoint_reference`) only for
+tensors on the CPU.  `warp_flat.launches`, `warp_affine_flat.launches`,
+`warp_flat_adjoint.launches` and `warp_affine_flat_adjoint.launches` count
+the kernel's launches through each; `brick_paths` counts the blocks by
+path on the card (the affine entry's and the adjoints' bricks staged in
+shared memory or not; the grid entry's blocks all the latter), and
+`warp_brick_paths` predicts those counts.
 """
 
 import contextlib
@@ -65,6 +72,9 @@ STAGE_VOXELS = {4: 6144, 8: 12288}
 # The largest box buffer: four blocks fit an SM's 228 KB of shared memory
 # (four f32 channels of a 4-deep brick: 3520 voxels).
 STAGE_MAX = 55 << 10
+# The exact adjoints' (brick depth, box buffer bytes), whatever C: their
+# boxes hold f32 sums, taken in passes of as many channels as fit.
+ADJOINT_PLAN = (4, STAGE_MAX)
 _PATHS = []  # the device counters of the open `brick_paths`
 
 
@@ -75,14 +85,15 @@ def warp_plan(channels: int, element_size: int) -> tuple:
     more channels, whose boxes of all channels must fit the buffer.  The
     buffer holds STAGE_VOXELS of the depth in every channel, at most
     STAGE_MAX; a brick whose box of all channels does not fit gathers from
-    device memory.  (The grid entry stages nothing.)"""
+    device memory.  (The grid entry stages nothing; the exact adjoints take
+    ADJOINT_PLAN.)"""
     depth = 8 if channels <= 2 else 4
     return depth, min(channels * element_size * STAGE_VOXELS[depth],
                       STAGE_MAX)
 
 
 def warp_bricks(batch: int, out_spatial, depth: int) -> int:
-    """Bricks of one call of the forward kernel at brick depth `depth`."""
+    """Bricks of one call of a brick kernel at brick depth `depth`."""
     n = batch
     for s, b in zip(out_spatial, (depth, *BRICK_XY)):
         n *= -(-int(s) // b)
@@ -91,10 +102,10 @@ def warp_bricks(batch: int, out_spatial, depth: int) -> int:
 
 @contextlib.contextmanager
 def brick_paths(device=None):
-    """While open, the forward entries' kernel adds one to a device
-    counter of each brick's path: yields an int64 CUDA tensor (staged,
-    global), read after the launches complete.  Off (no counter passed)
-    otherwise, as on the main path."""
+    """While open, the warp's kernels (the forward entries and the exact
+    adjoints) add one to a device counter of each brick's path: yields an
+    int64 CUDA tensor (staged, global), read after the launches complete.
+    Off (no counter passed) otherwise, as on the main path."""
     counts = torch.zeros(2, dtype=torch.int64,
                          device=device if device is not None else "cuda")
     _PATHS.append(counts)
@@ -263,8 +274,9 @@ def warp_flat_adjoint(g, src_spatial, grid, padding_mode: str = "zeros",
     at `grid` (an (x, y, z) tuple of (B or 1, Do, Ho, Wo) coordinates),
     returns the gradient of `sum(warp_flat(flat, ...) * g)` with respect to
     `flat`, (B, C, D*H*W) in g's type.  CPU tensors take the plain version;
-    CUDA tensors the kernel (an f32 scatter-add by atomics, cast to bf16 by
-    one pass for a bf16 g)."""
+    CUDA tensors the kernel (each brick's scatter summed in an f32 box in
+    shared memory and flushed once, ADJOINT_PLAN sizing both; cast to bf16
+    by one pass for a bf16 g)."""
     if padding_mode not in PADDINGS:
         raise ValueError(f"padding_mode must be one of {PADDINGS}, got "
                          f"{padding_mode!r}")
@@ -274,7 +286,7 @@ def warp_flat_adjoint(g, src_spatial, grid, padding_mode: str = "zeros",
     D, H, W = (int(s) for s in src_spatial)
     if len(grid) != 3:
         raise ValueError("grid must be an (x, y, z) tuple")
-    out_spatial = tuple(grid[0].shape[-3:])
+    out_spatial = tuple(int(s) for s in grid[0].shape[-3:])
     B, C, n_out = g.shape
     for c in grid:
         if c.dim() != 4 or tuple(c.shape[-3:]) != out_spatial \
@@ -296,17 +308,17 @@ def warp_flat_adjoint(g, src_spatial, grid, padding_mode: str = "zeros",
     if not _ADJOINT_FN:
         _ADJOINT_FN.append(build.function(
             "warp", "dgtta_warp_adjoint",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]))
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+            + [ctypes.c_void_p] * 2))
     gx, gy, gz = (c.to(torch.float32).expand(B, *out_spatial).contiguous()
                   for c in grid)
     dx = torch.zeros((B, C, D * H * W), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         err = _ADJOINT_FN[0](
             g.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
-            dx.data_ptr(), B, C, D, H, W, n_out,
+            dx.data_ptr(), B, C, D, H, W, *out_spatial,
             int(padding_mode == "border"), int(align_corners),
-            _DTYPE_CODES[g.dtype],
+            _DTYPE_CODES[g.dtype], ADJOINT_PLAN[1], _paths_ptr(g.device),
             torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp adjoint kernel launch failed with CUDA "
@@ -473,6 +485,111 @@ def warp_affine_flat(flat, src_spatial, theta, out_spatial,
 warp_affine_flat.launches = 0
 
 
+def warp_affine_adjoint_reference(g, src_spatial, theta, out_spatial,
+                                  padding_mode: str = "zeros"):
+    """Plain PyTorch version of `warp_affine_flat_adjoint`: autograd of
+    `warp_affine_reference` (trilinear, no scale) with respect to its f32
+    input, cast to g's type."""
+    D, H, W = (int(s) for s in src_spatial)
+    x = torch.zeros((g.shape[0], g.shape[1], D * H * W), device=g.device,
+                    requires_grad=True)
+    with torch.enable_grad():
+        out = warp_affine_reference(x, (D, H, W), theta.detach(), out_spatial,
+                                    "trilinear", padding_mode)
+        (dx,) = torch.autograd.grad(out, x, g.float())
+    return dx.to(g.dtype)
+
+
+_AFFINE_ADJOINT_FN = []  # the C entry, resolved at the first launch
+
+
+def warp_affine_flat_adjoint(g, src_spatial, theta, out_spatial,
+                             padding_mode: str = "zeros"):
+    """The exact adjoint of the trilinear `warp_affine_flat(flat,
+    src_spatial, theta, out_spatial, padding_mode=...)` (no scale): for `g`
+    (B, C, Do*Ho*Wo), returns the gradient of `sum(warp_affine_flat(flat,
+    ...) * g)` with respect to `flat`, (B, C, D*H*W) in g's type; theta is
+    a float32 (B or 1, 3, 4) tensor on g's device.  The same sums as
+    `warp_flat_adjoint` on `affine_grid(theta, out_spatial)`, from the same
+    corners and weights, with no grid in memory.  CPU tensors take the
+    plain version; CUDA tensors the kernel."""
+    if padding_mode not in PADDINGS:
+        raise ValueError(f"padding_mode must be one of {PADDINGS}, got "
+                         f"{padding_mode!r}")
+    D, H, W = (int(s) for s in src_spatial)
+    Do, Ho, Wo = (int(s) for s in out_spatial)
+    gs, ts = g.shape, theta.shape
+    if len(gs) != 3 or gs[2] != Do * Ho * Wo or g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"g must be a float32 or bfloat16 (B, C, N') tensor "
+                         f"of {(Do, Ho, Wo)} outputs, got {tuple(gs)} "
+                         f"{g.dtype}")
+    if len(ts) != 3 or ts[0] not in (1, gs[0]) or ts[1] != 3 or ts[2] != 4 \
+            or theta.dtype != torch.float32:
+        raise ValueError(f"theta must be float32 ({gs[0]} or 1, 3, 4), got "
+                         f"{tuple(ts)} {theta.dtype}")
+    dev = g.device
+    if dev.type == "cpu" and theta.device == dev:
+        return warp_affine_adjoint_reference(g, (D, H, W), theta,
+                                             (Do, Ho, Wo), padding_mode)
+    if dev.type != "cuda" or theta.device != dev:
+        raise ValueError(f"g and theta must lie on one CUDA device or both "
+                         f"on the CPU, got {dev} and {theta.device}")
+    if not (g.is_contiguous() and theta.is_contiguous()):
+        raise ValueError("warp_affine_flat_adjoint needs contiguous g and "
+                         "theta")
+    if not _AFFINE_ADJOINT_FN:
+        _AFFINE_ADJOINT_FN.append(build.function(
+            "warp", "dgtta_warp_affine_adjoint",
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2))
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"warp_affine_flat_adjoint launches on the current "
+                         f"CUDA device, {torch.cuda.current_device()}, got "
+                         f"tensors on {dev}")
+    B, C, _ = gs
+    dx = torch.zeros((B, C, D * H * W), dtype=torch.float32, device=dev)
+    err = _AFFINE_ADJOINT_FN[0](
+        g.data_ptr(), theta.data_ptr(), 12 if ts[0] > 1 else 0,
+        _base_table((Do, Ho, Wo), dev).data_ptr(), dx.data_ptr(),
+        B, C, D, H, W, Do, Ho, Wo, int(padding_mode == "border"),
+        _DTYPE_CODES[g.dtype], ADJOINT_PLAN[1], _paths_ptr(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp affine adjoint kernel launch failed with "
+                           f"CUDA error {err} for g {tuple(gs)} {g.dtype}, "
+                           f"source {(D, H, W)}, output {(Do, Ho, Wo)}")
+    warp_affine_flat_adjoint.launches += 1
+    return dx if g.dtype == torch.float32 else dx.to(g.dtype)
+
+
+warp_affine_flat_adjoint.launches = 0
+
+
+class _WarpAffineExact(torch.autograd.Function):
+    """The trilinear `warp_affine_flat` whose backward is its exact adjoint
+    (`warp_affine_flat_adjoint`); no gradient for theta."""
+
+    @staticmethod
+    def forward(ctx, flat, src_spatial, theta, out_spatial, padding_mode):
+        ctx.args = (src_spatial, theta, out_spatial, padding_mode)
+        return warp_affine_flat(flat, src_spatial, theta, out_spatial,
+                                "trilinear", padding_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        return warp_affine_flat_adjoint(g.contiguous(), *ctx.args), None, \
+            None, None, None
+
+
+def warp_affine_op(flat, src_spatial, theta, out_spatial,
+                   padding_mode: str = "zeros"):
+    """The trilinear `warp_affine_flat` through autograd: its gradient with
+    respect to `flat` is the exact adjoint (`warp_affine_flat_adjoint`)."""
+    return _WarpAffineExact.apply(flat, tuple(int(s) for s in src_spatial),
+                                  theta, tuple(int(s) for s in out_spatial),
+                                  padding_mode)
+
+
 def warp_source_voxels(src_spatial, grid, batch: int = 1,
                        mode: str = "trilinear", padding_mode: str = "zeros",
                        align_corners: bool = False) -> int:
@@ -510,18 +627,28 @@ def warp_source_voxels(src_spatial, grid, batch: int = 1,
 
 def warp_brick_paths(src_spatial, grid, channels: int, element_size: int,
                      batch: int = 1, mode: str = "trilinear",
-                     align_corners: bool = False, affine: bool = True):
+                     align_corners: bool = False, affine: bool = True,
+                     adjoint: bool = False):
     """The forward kernel's bricks by path, (staged, global), for a call
     with a 16-byte-aligned `flat`: the affine entry (`affine`, `grid` the
     points of its `affine_grid`) stages a brick when its box of clamped
     corners, widened to 16-byte chunks where W allows, fits `warp_plan`'s
-    buffer in every channel; the grid entry stages none.  Plain PyTorch on
-    the grid's device.  The grid entry's counts are its blocks."""
+    buffer in every channel; the grid entry stages none.  With `adjoint`,
+    the exact adjoint's bricks (either entry: `grid` its points; trilinear;
+    ADJOINT_PLAN): its box holds f32 sums whatever `element_size`, and a
+    brick stages when the box of one channel fits the buffer (the kernel
+    takes the channels in passes of as many as fit).
+    Plain PyTorch on the grid's device.  The grid entry's counts are its
+    blocks."""
     out_spatial = tuple(grid[0].shape[-3:])
-    if not affine:
+    if adjoint:
+        element_size, mode = 4, "trilinear"
+        depth, buffer = ADJOINT_PLAN
+    elif not affine:
         n_out = out_spatial[0] * out_spatial[1] * out_spatial[2]
         return 0, batch * -(-n_out // GRID_BLOCK)
-    depth, buffer = warp_plan(channels, element_size)
+    else:
+        depth, buffer = warp_plan(channels, element_size)
     size = tuple(int(s) for s in src_spatial)
     brick = (depth, *BRICK_XY)
     nb = [-(-s // b) for s, b in zip(out_spatial, brick)]
@@ -548,7 +675,8 @@ def warp_brick_paths(src_spatial, grid, channels: int, element_size: int,
             ext.append((hi + vec - lo) // vec * vec)
         else:
             ext.append(hi + 1 - lo)
-    box = ext[0] * ext[1] * ext[2] * channels * element_size
+    box = ext[0] * ext[1] * ext[2] * (1 if adjoint else channels) \
+        * element_size
     staged = int((box <= buffer).sum())
     return staged, warp_bricks(batch, out_spatial, depth) - staged
 
@@ -564,12 +692,15 @@ def warp_bytes(flat_shape, n_source: int, n_out: int, element_size: int,
     return (C * n_source + B * C * n_out) * element_size + grid_bytes
 
 
-def warp_adjoint_bytes(g_shape, n_source: int, element_size: int) -> int:
-    """Bytes one `warp_flat_adjoint` call must move: g read once, the
-    (B, C, n_source) gradient written once in g's type, and three f32
-    coordinates per output voxel."""
+def warp_adjoint_bytes(g_shape, n_source: int, element_size: int,
+                       grid_bytes: int) -> int:
+    """Bytes one exact adjoint call must move: g read once, the
+    (B, C, n_source) gradient written once in g's type, and `grid_bytes` of
+    sample points: three f32 coordinates per output voxel for
+    `warp_flat_adjoint` (12 * B * n_out), theta's 48 bytes per batch entry
+    for `warp_affine_flat_adjoint`."""
     B, C, n_out = g_shape
-    return (B * C * n_out + B * C * n_source) * element_size + 12 * B * n_out
+    return (B * C * n_out + B * C * n_source) * element_size + grid_bytes
 
 
 def warp_flops(flat_shape, n_out: int, mode: str = "trilinear") -> int:

@@ -50,12 +50,14 @@ STEPS = 4
 
 def _counters():
     from dg_tta_tpu_torch.kernels.conv3x3 import conv3x3, conv3x3_wgrad
-    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
-                                               warp_flat_adjoint)
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                               warp_affine_flat_adjoint,
+                                               warp_flat, warp_flat_adjoint)
 
     return {"conv3x3": conv3x3, "conv3x3_wgrad": conv3x3_wgrad,
             "warp": warp_flat, "warp_affine": warp_affine_flat,
-            "warp_adjoint": warp_flat_adjoint}
+            "warp_adjoint": warp_flat_adjoint,
+            "warp_affine_adjoint": warp_affine_flat_adjoint}
 
 
 def _route_counts():

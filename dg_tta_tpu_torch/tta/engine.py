@@ -22,8 +22,9 @@ The math is the JAX package's CPU default: the exact trilinear warp, the
 original-frame loss, full-resolution fields and the plain z-tap U-Net,
 with the approximate inverse-map adjoint of the unwarp
 (`_WarpWithInverse`, `_GridWarpWithInverse`), or with
-`exact_warp_grad` the exact one (the warp kernel's scatter-add adjoint,
-`kernels/warp.warp_flat_op`).  The random draws come from a draw source
+`exact_warp_grad` the exact one (the warp kernel's scatter-add adjoint:
+`kernels/warp.warp_affine_op` on an affine branch, `warp_flat_op` on a
+deformable one).  The random draws come from a draw source
 (`tta/draws.py`).  Members run one after another.
 
 Reference quirks kept, as in the JAX package:
@@ -49,12 +50,11 @@ import torch
 
 from dg_tta_tpu_torch.core.fields import (affine_abs_det, deformable_grids,
                                           get_rand_affine)
-from dg_tta_tpu_torch.core.grid import affine_grid
 from dg_tta_tpu_torch.core.labels import map_label_argmaxed
 from dg_tta_tpu_torch.core.losses import consistency_loss_flat, dice_coeff
 from dg_tta_tpu_torch.core.patches import extract_batch
-from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_flat,
-                                           warp_flat_op)
+from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_affine_op,
+                                           warp_flat, warp_flat_op)
 from dg_tta_tpu_torch.models.network import Model
 from dg_tta_tpu_torch.ops.gin import gin_aug
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
@@ -240,14 +240,15 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         """Undo a branch's warp on channels-first flat (B, C, N) logits; the
         backward resamples by the forward warp (`_WarpWithInverse`,
         `_GridWarpWithInverse`), or with exact_warp_grad is the unwarp's
-        exact adjoint (`warp_flat_op`, on the inverse affine's grid for an
-        affine branch)."""
+        exact adjoint (`warp_flat_op` on a deformable branch's inverse grid,
+        `warp_affine_op` on an affine branch's inverse affine)."""
         if warp_ctx is None:
             return logits_flat
         if exact_warp_grad:
-            grid_inv = (warp_ctx[2] if warp_ctx[0] == "grid"
-                        else affine_grid(warp_ctx[2], patch_size))
-            return warp_flat_op(logits_flat, patch_size, grid_inv)
+            if warp_ctx[0] == "grid":
+                return warp_flat_op(logits_flat, patch_size, warp_ctx[2])
+            return warp_affine_op(logits_flat, patch_size, warp_ctx[2],
+                                  patch_size)
         if warp_ctx[0] == "grid":
             _, grid, grid_inv = warp_ctx
             return _GridWarpWithInverse.apply(logits_flat, grid_inv, grid,

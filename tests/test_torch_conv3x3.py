@@ -730,7 +730,8 @@ def test_expected_launches_route_split(dtype):
       conv3x3_wgrad = 2 x 4 x 5 = 40, of it c1 8, the wgmma route of
         the type 32, none on "cuda_core"
       warp_affine = 2 x (8 x 4 + 4 x 2 + 2) = 84 (every warp is by an
-        affine), warp (the grid entry) = 0, warp_adjoint (exact) = 0
+        affine), warp (the grid entry) = 0, warp_adjoint and
+        warp_affine_adjoint (exact) = 0
     """
     from dg_tta_tpu_torch.models.plans import ArchSpec
 
@@ -751,7 +752,8 @@ def test_expected_launches_route_split(dtype):
         conv3x3_wgrad_wgmma=32 if bf16 else 0,
         conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
         conv3x3_wgrad_cuda_core=0, conv3x3_padded=0,
-        conv3x3_wgrad_padded=0, warp=0, warp_affine=84, warp_adjoint=0)
+        conv3x3_wgrad_padded=0, warp=0, warp_affine=84, warp_adjoint=0,
+        warp_affine_adjoint=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -781,27 +783,30 @@ def test_expected_launches_mind_stem(dtype):
         conv3x3_wgrad_wgmma=32 if bf16 else 0,
         conv3x3_wgrad_wgmma_tf32x3=0 if bf16 else 32,
         conv3x3_wgrad_cuda_core=0, conv3x3_padded=0,
-        conv3x3_wgrad_padded=0, warp=0, warp_affine=84, warp_adjoint=0)
+        conv3x3_wgrad_padded=0, warp=0, warp_affine=84, warp_adjoint=0,
+        warp_affine_adjoint=0)
 
 
 @pytest.mark.parametrize("spatial,exact,warps", [
-    ("deformable", False, (400, 4, 0)),
-    ("deformable", True, (384, 4, 16)),
-    ("affine", True, (32, 36, 16)),
-    ("affine", False, (0, 84, 0)),
+    ("deformable", False, (400, 4, 0, 0)),
+    ("deformable", True, (384, 4, 16, 0)),
+    ("affine", True, (0, 68, 0, 16)),
+    ("affine", False, (0, 84, 0, 0)),
 ])
 def test_expected_launches_warp_entries(spatial, exact, warps):
-    """The warp's three entries at the plan of
+    """The warp's four entries at the plan of
     test_expected_launches_route_split (2 members, 8 patch steps of which
     4 trained, 2 evals, both branches warped), worked out by hand as
-    (grid entry, affine entry, exact adjoint):
+    (grid entry, affine entry, exact adjoint's grid entry, its affine
+    entry):
       deformable: per step and branch 10 field warps, the input warp and
         the unwarp, 2 x 8 x 2 x 12 = 384, plus the fast adjoints on the
-        grid entry, 2 x 4 x 2 = 16, or the exact ones; the affine entry
-        samples the evals' labels only, 2 x 2 = 4;
-      affine, exact: the unwarps on the grid entry (2 x 8 x 2 = 32), the
-        input warps and label samplings on the affine entry (32 + 4), the
-        exact adjoints 16.
+        grid entry, 2 x 4 x 2 = 16, or the exact ones on the exact
+        adjoint's grid entry; the affine entry samples the evals' labels
+        only, 2 x 2 = 4;
+      affine, exact: the input warps and the unwarps (2 x 8 x 2 x 2 = 64)
+        and the label samplings (4) on the affine entry, the exact
+        adjoints (16) on the exact adjoint's affine entry; no grid entry.
     The conv counts do not depend on the warps."""
     from dg_tta_tpu_torch.models.plans import ArchSpec
 
@@ -815,7 +820,8 @@ def test_expected_launches_warp_entries(spatial, exact, warps):
                 spatial_aug_type=spatial, do_spatial_aug_in="both")
     mod = _chip_smoke()
     got = mod.expected_launches(spec, 3, 2, plan, "float32", exact)
-    assert (got["warp"], got["warp_affine"], got["warp_adjoint"]) == warps
+    assert (got["warp"], got["warp_affine"], got["warp_adjoint"],
+            got["warp_affine_adjoint"]) == warps
     base = mod.expected_launches(spec, 3, 2, dict(
         epochs=2, patches_to_be_accumulated=4, start_tta_at_epoch=1),
         "float32")

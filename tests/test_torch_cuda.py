@@ -999,16 +999,29 @@ def _near_identity_grid(rng, B, out_spatial, align_corners, device):
         * 0.5 + 0.05).to(device) for i in ident)
 
 
+# The exact adjoint's cases, as (C, source, output): C = 1 (8-deep bricks),
+# 3 and 4 (4-deep), 12 (its box taken in passes of channels); W % 4 != 0
+# (scalar flushes) and == 0 (16-byte flushes).
+ADJOINT_CASES = [
+    (1, (19, 13, 37), (19, 13, 37)),    # ragged, endomorphic
+    (4, (9, 14, 11), (6, 17, 23)),      # not endomorphic
+    (3, (12, 16, 40), (12, 16, 40)),
+    (12, (10, 12, 20), (10, 12, 20)),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("align_corners", [False, True])
-@pytest.mark.parametrize("C,src,out", [
-    (1, (19, 13, 37), (19, 13, 37)),    # ragged, endomorphic
-    (4, (9, 14, 11), (6, 17, 23)),      # not endomorphic
-])
+@pytest.mark.parametrize("C,src,out", ADJOINT_CASES)
 def test_warp_adjoint_kernel_matches_plain(cuda_device, dtype, padding_mode,
                                            align_corners, C, src, out):
+    """The grid entry of the exact adjoint within WARP_RTOL of its plain
+    version, its bricks by path as `warp_brick_paths(adjoint=True)`
+    predicts."""
+    from dg_tta_tpu_torch.kernels.warp import brick_paths, warp_brick_paths
+
     rng = np.random.default_rng(30)
     B = 2
     dt = getattr(torch, dtype)
@@ -1016,13 +1029,146 @@ def test_warp_adjoint_kernel_matches_plain(cuda_device, dtype, padding_mode,
                          .astype(np.float32)).to(cuda_device, dt)
     grid = _near_identity_grid(rng, B, out, align_corners, cuda_device)
     before = warp_flat_adjoint.launches
-    got = warp_flat_adjoint(g, src, grid, padding_mode, align_corners)
-    torch.cuda.synchronize()
+    with brick_paths() as counts:
+        got = warp_flat_adjoint(g, src, grid, padding_mode, align_corners)
+        torch.cuda.synchronize()
+        assert tuple(counts.tolist()) == warp_brick_paths(
+            src, grid, C, 4, B, align_corners=align_corners, adjoint=True)
     assert warp_flat_adjoint.launches == before + 1
     ref = warp_flat_adjoint_reference(g, src, grid, padding_mode,
                                       align_corners)
     assert got.dtype == dt and got.shape == (B, C, int(np.prod(src)))
     assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("C,src,out", ADJOINT_CASES)
+def test_warp_affine_adjoint_kernel_matches_plain(cuda_device, dtype,
+                                                  padding_mode, C, src, out):
+    """The affine entry of the exact adjoint (theta reaching outside the
+    source) within WARP_RTOL of its plain version and of the grid entry on
+    the card's `affine_grid`, its bricks by path as predicted."""
+    from dg_tta_tpu_torch.core.grid import affine_grid
+    from dg_tta_tpu_torch.kernels.warp import (brick_paths,
+                                               warp_affine_adjoint_reference,
+                                               warp_affine_flat_adjoint,
+                                               warp_brick_paths)
+
+    rng = np.random.default_rng(34)
+    B = 2
+    dt = getattr(torch, dtype)
+    g = torch.from_numpy(rng.normal(size=(B, C, int(np.prod(out))))
+                         .astype(np.float32)).to(cuda_device, dt)
+    theta = torch.from_numpy((np.eye(3, 4)[None] + 0.12 * rng.normal(
+        size=(B, 3, 4))).astype(np.float32)).to(cuda_device)
+    grid = affine_grid(theta, out)
+    before = (warp_affine_flat_adjoint.launches, warp_flat_adjoint.launches)
+    with brick_paths() as counts:
+        got = warp_affine_flat_adjoint(g, src, theta, out, padding_mode)
+        torch.cuda.synchronize()
+        assert tuple(counts.tolist()) == warp_brick_paths(
+            src, grid, C, 4, B, adjoint=True)
+    assert (warp_affine_flat_adjoint.launches, warp_flat_adjoint.launches) \
+        == (before[0] + 1, before[1])
+    ref = warp_affine_adjoint_reference(g, src, theta, out, padding_mode)
+    assert got.dtype == dt and got.shape == (B, C, int(np.prod(src)))
+    assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+    same = warp_flat_adjoint(g, src, grid, padding_mode)
+    assert _max_rel_err(got, same) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp_adjoint_strong_grid_takes_the_global_path(cuda_device, dtype):
+    """A random grid whose boxes do not all fit the buffer: the bricks that
+    overflow add into dx by global atomics, the others sum in shared
+    memory, each counted by path as predicted, and the sums agree with
+    the plain version."""
+    from dg_tta_tpu_torch.core.grid import identity_grid
+    from dg_tta_tpu_torch.kernels.warp import brick_paths, warp_brick_paths
+
+    rng = np.random.default_rng(35)
+    C, B, src = 4, 2, (24, 40, 64)
+    grid = tuple((i[None] + torch.from_numpy(rng.normal(
+        0.0, 0.2, size=(B, *src)).astype(np.float32))).to(cuda_device)
+        for i in identity_grid(src))
+    g = torch.from_numpy(rng.normal(size=(B, C, int(np.prod(src))))
+                         .astype(np.float32)).to(cuda_device,
+                                                 getattr(torch, dtype))
+    want = warp_brick_paths(src, grid, C, 4, B, adjoint=True)
+    assert want[0] > 0 and want[1] > 0
+    with brick_paths() as counts:
+        got = warp_flat_adjoint(g, src, grid)
+        torch.cuda.synchronize()
+        assert tuple(counts.tolist()) == want
+    ref = warp_flat_adjoint_reference(g, src, grid)
+    assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_warp_affine_adjoint_corners_equal_grid_entry(cuda_device, dtype,
+                                                      padding_mode):
+    """A one-hot g whose nonzero outputs lie 4 apart on every axis and 6
+    from every face, so that under a TTA draw no two share a corner and no
+    corner is clamped: every voxel of dx is one product, and the affine
+    entry equals the grid entry on the card's `affine_grid` bit for bit
+    (the same corners and weights), in every channel."""
+    from dg_tta_tpu_torch.core.fields import get_rand_affine
+    from dg_tta_tpu_torch.core.grid import affine_grid
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_adjoint_reference,
+                                               warp_affine_flat_adjoint)
+
+    rng = np.random.default_rng(36)
+    C, B, size = 4, 2, (40, 48, 96)
+    _, theta = get_rand_affine(torch.from_numpy(
+        rng.normal(size=(B, 3, 4)).astype(np.float32)))
+    theta = theta.to(cuda_device)
+    lattice = (slice(None), slice(None)) + (slice(6, -6, 4),) * 3
+    g = np.zeros((B, C, *size), np.float32)
+    g[lattice] = rng.normal(size=g[lattice].shape)
+    g = torch.from_numpy(g.reshape(B, C, -1)).to(cuda_device,
+                                                 getattr(torch, dtype))
+    got = warp_affine_flat_adjoint(g, size, theta, size, padding_mode)
+    same = warp_flat_adjoint(g, size, affine_grid(theta, size), padding_mode)
+    assert torch.equal(got, same)
+    assert (got != 0).sum() == 8 * C * B * 7 * 9 * 21
+    ref = warp_affine_adjoint_reference(g, size, theta, size, padding_mode)
+    assert _max_rel_err(got, ref) <= WARP_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_warp_affine_op_backward_on_card_matches_cpu(cuda_device):
+    """The affine entry through autograd: the forward on the affine entry,
+    the backward on the affine adjoint, against the same Function on the
+    CPU (plain versions)."""
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat_adjoint,
+                                               warp_affine_op)
+
+    rng = np.random.default_rng(37)
+    src = (12, 16, 20)
+    n = int(np.prod(src))
+    x = torch.from_numpy(rng.normal(size=(1, 4, n)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(1, 4, n)).astype(np.float32))
+    theta = torch.from_numpy((np.eye(3, 4)[None] + 0.1 * rng.normal(
+        size=(1, 3, 4))).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        xd = x.detach().to(dev).requires_grad_(True)
+        counts = (warp_affine_flat.launches,
+                  warp_affine_flat_adjoint.launches)
+        y = warp_affine_op(xd, src, theta.to(dev), src)
+        (y * ct.to(dev)).sum().backward()
+        outs.append((y.detach().cpu(), xd.grad.cpu(),
+                     (warp_affine_flat.launches - counts[0],
+                      warp_affine_flat_adjoint.launches - counts[1])))
+    (y0, g0, c0), (y1, g1, c1) = outs
+    assert c0 == (0, 0) and c1 == (1, 1)
+    assert _max_rel_err(y1, y0) <= 1e-5
+    assert _max_rel_err(g1, g0) <= 1e-5
 
 
 @pytest.mark.cuda

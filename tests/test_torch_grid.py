@@ -31,7 +31,8 @@ from dg_tta_tpu.ops.experimental.warp_pallas_staged import \
 from dg_tta_tpu.tta.engine import _warp_with_inverse as jax_wwi
 from dg_tta_tpu_torch.core import grid as tgrid
 from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
-from dg_tta_tpu_torch.kernels.warp import (BRICK_XY, GRID_BLOCK, STAGE_MAX,
+from dg_tta_tpu_torch.kernels.warp import (ADJOINT_PLAN, BRICK_XY,
+                                           GRID_BLOCK, STAGE_MAX,
                                            STAGE_VOXELS,
                                            warp_affine_flat,
                                            warp_brick_paths, warp_bricks,
@@ -354,15 +355,67 @@ def test_warp_adjoint_bf16_and_rejects(rng):
         warp_flat_adjoint(g, src, grid, padding_mode="reflect")
 
 
+@pytest.mark.parametrize("C", [1, 3, 4])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_warp_affine_adjoint_plain_matches_jax_vjp(rng, padding_mode, C):
+    """`warp_affine_flat_adjoint`'s plain version against `jax.vjp` of the
+    JAX `grid_sample_flat` on the JAX `affine_grid(theta)` at 1e-5 (the
+    same products, summed into each source voxel in another order; theta
+    reaches outside the source, so both paddings show), a bf16 g giving
+    that f32 adjoint rounded once; and `warp_affine_op` equal to
+    `warp_flat_op` on the port's `affine_grid(theta)`, forward and
+    gradient."""
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat_adjoint,
+                                               warp_affine_op, warp_flat_op)
+
+    B, src, out = 2, (6, 8, 10), (5, 8, 9)
+    theta = _theta(rng, B) * np.float32(1.2)
+    flat = rng.standard_normal((B, C, int(np.prod(src)))).astype(np.float32)
+    g = rng.standard_normal((B, C, int(np.prod(out)))).astype(np.float32)
+    jvjp = jax.jit(lambda v, t, c: jax.vjp(lambda x: jgrid.grid_sample_flat(
+        x, src, jgrid.affine_grid(t, out), padding_mode=padding_mode),
+        v)[1](c)[0])
+    ref = np.asarray(jvjp(flat, theta, g))
+    tt, gt = torch.from_numpy(theta), torch.from_numpy(g)
+    before = warp_affine_flat_adjoint.launches
+    got = warp_affine_flat_adjoint(gt, src, tt, out, padding_mode)
+    assert warp_affine_flat_adjoint.launches == before  # the plain version
+    assert got.shape == flat.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    g16 = gt.to(torch.bfloat16)
+    got16 = warp_affine_flat_adjoint(g16, src, tt, out, padding_mode)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, warp_affine_flat_adjoint(
+        g16.float(), src, tt, out, padding_mode).to(torch.bfloat16))
+    grads = []
+    for op in ("affine", "grid"):
+        xt = torch.from_numpy(flat).requires_grad_(True)
+        y = (warp_affine_op(xt, src, tt, out, padding_mode) if op == "affine"
+             else warp_flat_op(xt, src, tgrid.affine_grid(tt, out),
+                               padding_mode))
+        (y * gt).sum().backward()
+        grads.append((y.detach(), xt.grad))
+    (ya, ga), (yg, gg) = grads
+    assert torch.equal(ya, yg) and torch.equal(ga, gg)
+    assert torch.equal(ga, got)
+
+
 # The forward kernel's bricks and the path each takes (staged source box or
 # gathers from device memory), as `warp_brick_paths` predicts them: the
 # card tests hold the kernel's counts to it.
-def _brick_paths_loop(src, grid, C, element_size, mode, align_corners):
-    """warp_brick_paths, brick by brick in numpy (f32 coordinates)."""
+def _brick_paths_loop(src, grid, C, element_size, mode, align_corners,
+                      adjoint=False):
+    """warp_brick_paths, brick by brick in numpy (f32 coordinates); with
+    `adjoint`, the exact adjoint's: ADJOINT_PLAN's bricks and buffer, f32
+    boxes, staged when one channel fits."""
+    bz, buffer = warp_plan(C, element_size)
+    if adjoint:
+        element_size, mode = 4, "trilinear"
+        bz, buffer = ADJOINT_PLAN
     D, H, W = src
     gx, gy, gz = (np.asarray(g, np.float32) for g in grid)
     B, Do, Ho, Wo = gx.shape
-    bz, (by, bx) = warp_plan(C, element_size)[0], BRICK_XY
+    by, bx = BRICK_XY
     vec = 16 // element_size
     paths = [0, 0]
     for b in range(B):
@@ -388,21 +441,28 @@ def _brick_paths_loop(src, grid, C, element_size, mode, align_corners):
                             box *= -(-(hi + 1 - lo) // vec) * vec
                         else:
                             box *= hi + 1 - lo
-                    paths[box * C * element_size
-                          > warp_plan(C, element_size)[1]] += 1
+                    paths[box * (1 if adjoint else C) * element_size
+                          > buffer] += 1
     return tuple(paths)
 
 
 @pytest.mark.parametrize("case", [
-    # C, element size, source, output, mode, align_corners, grid
-    (1, 4, (9, 21, 40), (9, 21, 40), "trilinear", False, "affine"),
-    (4, 2, (11, 17, 37), (6, 19, 45), "trilinear", False, "affine"),
-    (1, 4, (19, 13, 37), (19, 13, 37), "trilinear", True, "random"),
-    (1, 2, (19, 13, 37), (19, 13, 37), "trilinear", True, "random"),
-    (1, 4, (26, 30, 64), (9, 10, 33), "nearest", False, "patch"),
+    # C, element size, source, output, mode, align_corners, grid, adjoint
+    (1, 4, (9, 21, 40), (9, 21, 40), "trilinear", False, "affine", False),
+    (4, 2, (11, 17, 37), (6, 19, 45), "trilinear", False, "affine", False),
+    (1, 4, (19, 13, 37), (19, 13, 37), "trilinear", True, "random", False),
+    (1, 2, (19, 13, 37), (19, 13, 37), "trilinear", True, "random", False),
+    (1, 4, (26, 30, 64), (9, 10, 33), "nearest", False, "patch", False),
+    # the exact adjoint's bricks (f32 boxes, channels in passes): a bf16 g
+    # on an affine grid, a random grid, a W that takes no 16-byte chunks
+    (4, 2, (11, 17, 36), (6, 19, 45), "trilinear", False, "affine", True),
+    (3, 4, (19, 13, 40), (19, 13, 40), "trilinear", True, "random", True),
+    (12, 4, (9, 21, 37), (9, 21, 37), "trilinear", False, "affine", True),
+    (4, 4, (24, 40, 64), (24, 40, 64), "trilinear", False, "random", True),
+    (2, 4, (12, 40, 64), (12, 40, 64), "trilinear", False, "random", True),
 ])
 def test_warp_brick_paths_matches_a_loop_over_bricks(rng, case):
-    C, es, src, out, mode, align, kind = case
+    C, es, src, out, mode, align, kind, adjoint = case
     if kind == "random":
         ident = tgrid.identity_grid(out, align)
         grid = tuple(i[None] + torch.from_numpy(rng.normal(
@@ -414,9 +474,13 @@ def test_warp_brick_paths_matches_a_loop_over_bricks(rng, case):
     else:
         grid = tgrid.affine_grid(torch.from_numpy(_theta(rng, 2)), out)
     B = grid[0].shape[0]
-    got = warp_brick_paths(src, grid, C, es, B, mode, align)
-    assert got == _brick_paths_loop(src, grid, C, es, mode, align)
+    got = warp_brick_paths(src, grid, C, es, B, mode, align, adjoint=adjoint)
+    assert got == _brick_paths_loop(src, grid, C, es, mode, align, adjoint)
     depth = warp_plan(C, es)[0]
+    if adjoint:  # the same bricks whichever entry
+        assert warp_brick_paths(src, grid, C, es, B, mode, align, False,
+                                True) == got
+        depth = ADJOINT_PLAN[0]
     assert sum(got) == warp_bricks(B, out, depth) == B * np.prod(
         [-(-o // b) for o, b in zip(out, (depth, *BRICK_XY))])
     assert warp_brick_paths(src, grid, C, es, B, mode, align,
@@ -482,3 +546,26 @@ def test_tta_sites_stage_every_brick(dtype):
     assert warp_brick_paths((24, 32, 64), noisy, 1, es)[0] == 0
     assert warp_brick_paths((24, 32, 64), noisy, 1, es, affine=False) == \
         (0, 24 * 32 * 64 // GRID_BLOCK)
+
+
+def test_adjoint_sites_stage_every_brick():
+    """The exact adjoint at the logit site (C = n_opt, the full patch):
+    every brick stages its f32 box under 16 TTA draws of the inverse
+    affine and on a deformable branch's inverse grid, where the box of all
+    four channels overflows the buffer in about half of the bricks, so
+    the kernel takes them in passes (one channel always fits)."""
+    import chip_smoke as cs
+    from dg_tta_tpu_torch.core.fields import deformable_grids
+
+    P, C = cs.PATCH, cs.N_OPT
+    n = warp_bricks(1, P, ADJOINT_PLAN[0])
+    gen = torch.Generator().manual_seed(4)
+    _, grid_inv = deformable_grids(
+        torch.randn((1, *(s // 5 for s in P), 3), generator=gen), P)
+    assert warp_brick_paths(P, grid_inv, C, 4, adjoint=True) == (n, 0)
+    whole = warp_brick_paths(P, grid_inv, C, 4)   # all channels at once
+    assert 0.3 * n < whole[1] < 0.7 * n
+    for _ in range(16):
+        _, theta_inv = get_rand_affine(torch.randn((1, 3, 4), generator=gen))
+        grid = tgrid.affine_grid(theta_inv, P)
+        assert warp_brick_paths(P, grid, C, 2, adjoint=True) == (n, 0)
