@@ -84,6 +84,14 @@ Phases; any failure raises and the script exits non-zero:
      shared memory, or added into device memory) and held to
      `warp_brick_paths`, and timed against autograd of `F.grid_sample`
      with respect to its input;
+   * `warp` at the sites of a DG pretraining step
+     (`phase_warp_pretrain`, f32, batch 2 at the patch): the
+     augmentation's image (trilinear, border) and labels (nearest, zeros)
+     on the affine entry, its continuous low-resolution simulation
+     (trilinear, border) and the deep-supervision targets at 1/2 and 1/4
+     (nearest, border: every sample on a rounding tie) on the grid entry,
+     each against its plain version (nearest bit for bit) and timed
+     against it and `F.grid_sample`;
 4. reference, under PyTorch's default precision flags (asserted), as a
    user's run finds them: the full-width TS104_GIN U-Net on a small patch,
    its forward and one step's gradient, a stride-2 stage-entry conv
@@ -97,8 +105,25 @@ Phases; any failure raises and the script exits non-zero:
    a small patch, a deformable branch's displacement fields at the patch
    size from one noise tensor, and one deformable trained step's gradient
    of the full-width TS104_GIN net on a small patch, each on the card
-   against the same code on the CPU (plain versions);
-5. main path, seven times, each in a fresh workspace and under the
+   against the same code on the CPU (plain versions); and one DG
+   pretraining step of the full-width TS104_GIN_MIND net on a small patch
+   (every augmentation gate on, GIN, MIND, deep supervision, SGD) and
+   MultiRes's operators at the patch size with matmul TF32 turned on
+   around the call (`reference_pretrain`);
+5. DG pretraining (`phase_pretrain`, configs 4-5), f32: `run_pretraining`
+   on three synthetic 128 x 128 x 144 CTs at 1.5 mm with a 105-label
+   `dataset.json` (`obs/synthetic.make_pretrain_dataset`) at the full
+   TS104 width (patch 112 x 112 x 128, batch 2), nnUNetTrainer_GIN_MIND
+   for 2 epochs x 4 iterations, nnUNetTrainer_GIN_MultiRes for 1 x 2 (the
+   `c1` stem, the discrete low-resolution simulation), then the first
+   resumed for a third epoch, each with 2 validation batches an epoch;
+   checks every run's launches against `expected_pretrain_launches` (0
+   `cuda_core`, so no input-gradient conv for the stem; the warp's entries
+   as the augmentation and the deep supervision predict), a finite loss
+   per logged epoch, and `checkpoint_final.npz` read back by the port's
+   `run_tta` bundle loader; then profiles two steps (ms per step, device
+   busy share, kernels per step, peak memory);
+6. main path, seven times, each in a fresh workspace and under the
    default flags, f32 (the default), then bf16
    (`DGTTA_COMPUTE_DTYPE=bfloat16`), for each of two seeded full-width
    checkpoints (105 classes): TS104_GIN, then TS104_GIN_MIND (12 input
@@ -137,6 +162,7 @@ line naming the device.
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -213,6 +239,27 @@ ADJOINT_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # smoothing is ~1e-2; tests/test_torch_fields.py holds the CPU to the JAX
 # package at the same bound).
 FIELD_RTOL = 1e-4
+# DG pretraining (`phase_pretrain`): run_pretraining of
+# nnUNetTrainer_GIN_MIND (config 5) for PRETRAIN_EPOCHS epochs of
+# PRETRAIN_ITERS iterations and PRETRAIN_VAL_ITERS validation batches, then
+# nnUNetTrainer_GIN_MultiRes (the C = 1 stem, the discrete low-resolution
+# simulation) for one epoch of PRETRAIN_MULTIRES_ITERS, then the first run
+# resumed (`continue_training`) for one more epoch; the nnUNet defaults
+# are 250 and 50 a epoch, cut in depth only.
+PRETRAIN_EPOCHS = 2
+PRETRAIN_ITERS = 4
+PRETRAIN_MULTIRES_ITERS = 2
+PRETRAIN_VAL_ITERS = 2
+# One pretraining step of the full-width TS104_GIN_MIND net on a small
+# patch, card vs CPU: the loss, |diff| / |CPU| (summation order through the
+# net, as REF_RTOL); the step's update (new - old weights) over all
+# parameters at once at GRAD_RTOL of its norm (SGD's first update is the
+# gradient times -lr (1 + momentum), so the gradient's bound holds).
+PRETRAIN_LOSS_RTOL = 1e-4
+# MultiRes's per-axis operators at the patch size, card vs CPU, max |diff|
+# / max |CPU|: three f32 products of 112-128 terms summed in another order;
+# TF32 (~1e-3) would miss it.
+MULTIRES_RTOL = 1e-5
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3",
@@ -1437,24 +1484,15 @@ CONV_ROUTES = ("c1", "few", "wgmma", "wgmma_tf32x3", "cuda_core")
 WGRAD_ROUTES = ("c1", "few", "wgmma", "wgmma_tf32x3", "cuda_core")
 
 
-def expected_launches(spec, windows, members, plan, dtype="float32",
-                      exact=False):
-    """Kernel launches that `run_tta` must make for `plan` on a volume of
-    `windows` sliding windows with labels (one eval per epoch), in compute
-    type `dtype`, with `DGTTA_EXACT_WARP_GRAD` set if `exact`: the totals
-    of `conv3x3` and `conv3x3_wgrad`, their launches on each route
-    (`conv3x3_<route>`, `conv3x3_wgrad_<route>`, as `conv3x3_route` and
-    `conv3x3_wgrad_route` pick them) and on zero-padded channels
-    (`conv3x3_padded`, `conv3x3_wgrad_padded`: a MIND model's stem), and
-    those of the warp's affine entry (`warp_affine`), grid entry (`warp`)
-    and the exact adjoint's grid entry (`warp_adjoint`) and affine entry
-    (`warp_affine_adjoint`).  Per patch step, each branch the plan warps
-    makes one input warp and one unwarp, and each trained step one adjoint
-    of each unwarp: an affine plan's on the affine entry (with `exact`,
-    the exact adjoint's affine entry); a deformable plan's on the grid
-    entry, after the 10 field warps of its branch's displacement field (5
-    iterations, 2 warps each; with `exact`, the exact adjoint's grid
-    entry); each eval samples its labels on the affine entry."""
+def _conv_launches(spec, forwards, trained, dtype):
+    """The launches of `conv3x3` and `conv3x3_wgrad` for `forwards`
+    forwards and `trained` trained steps of `spec` in compute type
+    `dtype`: their totals, their launches on each route (`conv3x3_<route>`,
+    `conv3x3_wgrad_<route>`, as `conv3x3_route` and `conv3x3_wgrad_route`
+    pick them) and on zero-padded channels (`conv3x3_padded`,
+    `conv3x3_wgrad_padded`).  A trained step runs each stride-1 conv's
+    input gradient but the first's (its input takes none) and each one's
+    weight gradient."""
     import torch
 
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -1462,9 +1500,6 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
                                                   route_channels)
 
     dt = getattr(torch, dtype)
-    acc, epochs = plan["patches_to_be_accumulated"], plan["epochs"]
-    trained = acc * max(0, epochs - plan["start_tta_at_epoch"])
-    forwards = acc * epochs + epochs   # patch steps and one eval per epoch
     out = {f"conv3x3_{r}": 0 for r in CONV_ROUTES}
     out.update({f"conv3x3_wgrad_{r}": 0 for r in WGRAD_ROUTES})
     out["conv3x3_padded"] = out["conv3x3_wgrad_padded"] = 0
@@ -1475,15 +1510,36 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
             out[f"{kernel}_padded"] += n
 
     for c, co, dgrad in _stride1_convs(spec):
-        add("conv3x3", conv3x3_route(c, co, dt), c,
-            members * (forwards + windows))
+        add("conv3x3", conv3x3_route(c, co, dt), c, forwards)
         if dgrad:
-            add("conv3x3", conv3x3_route(co, c, dt), co, members * trained)
-        add("conv3x3_wgrad", conv3x3_wgrad_route(c, co, dt), c,
-            members * trained)
+            add("conv3x3", conv3x3_route(co, c, dt), co, trained)
+        add("conv3x3_wgrad", conv3x3_wgrad_route(c, co, dt), c, trained)
     out["conv3x3"] = sum(out[f"conv3x3_{r}"] for r in CONV_ROUTES)
     out["conv3x3_wgrad"] = sum(out[f"conv3x3_wgrad_{r}"]
                                for r in WGRAD_ROUTES)
+    return out
+
+
+def expected_launches(spec, windows, members, plan, dtype="float32",
+                      exact=False):
+    """Kernel launches that `run_tta` must make for `plan` on a volume of
+    `windows` sliding windows with labels (one eval per epoch), in compute
+    type `dtype`, with `DGTTA_EXACT_WARP_GRAD` set if `exact`: the conv
+    kernels' (`_conv_launches`), and those of the warp's affine entry
+    (`warp_affine`), grid entry (`warp`) and the exact adjoint's grid entry
+    (`warp_adjoint`) and affine entry (`warp_affine_adjoint`).  Per patch
+    step, each branch the plan warps makes one input warp and one unwarp,
+    and each trained step one adjoint
+    of each unwarp: an affine plan's on the affine entry (with `exact`,
+    the exact adjoint's affine entry); a deformable plan's on the grid
+    entry, after the 10 field warps of its branch's displacement field (5
+    iterations, 2 warps each; with `exact`, the exact adjoint's grid
+    entry); each eval samples its labels on the affine entry."""
+    acc, epochs = plan["patches_to_be_accumulated"], plan["epochs"]
+    trained = acc * max(0, epochs - plan["start_tta_at_epoch"])
+    forwards = acc * epochs + epochs   # patch steps and one eval per epoch
+    out = _conv_launches(spec, members * (forwards + windows),
+                         members * trained, dtype)
     branches = {"both": 2, "none": 0}.get(
         plan.get("do_spatial_aug_in", "both"), 1)
     steps = acc * epochs * branches        # branch warps of patch steps
@@ -1651,6 +1707,308 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     return launches
 
 
+def _pretrain_warp_sites(gen):
+    """The warps of one pretraining step at the TS104 patch, batch 2 (the
+    augmentation's draws with rotation, scale and the low-resolution
+    simulation on): (name, entry, mode, padding, output shape, theta or
+    grid).  The affine entry warps the image and the labels by one theta;
+    the grid entry takes the low-resolution grid and the deep-supervision
+    targets' identity grids at 1/2 and 1/4 (the 1/8 head has weight 0)."""
+    import torch
+
+    from dg_tta_tpu_torch.core.grid import identity_grid
+    from dg_tta_tpu_torch.train.augment import (DAConfig, _lowres_grid,
+                                                draw_sample,
+                                                rot_scale_affine)
+
+    cfg = DAConfig(p_rotation=1.0, p_scale=1.0, p_lowres=1.0)
+    draws = [draw_sample(gen, cfg, None) for _ in range(2)]
+    theta = torch.stack([rot_scale_affine(d) for d in draws]).cuda()
+    sites = [("augmentation image", "affine", "trilinear", "border", PATCH,
+              theta),
+             ("augmentation labels", "affine", "nearest", "zeros", PATCH,
+              theta),
+             ("low-resolution simulation", "grid", "trilinear", "border",
+              PATCH, _lowres_grid([d.lowres for d in draws], PATCH, "cuda"))]
+    for f in (2, 4):
+        out = tuple(p // f for p in PATCH)
+        sites.append((f"target 1/{f}", "grid", "nearest", "border", out,
+                      tuple(c[None] for c in identity_grid(out,
+                                                           device="cuda"))))
+    return sites
+
+
+def phase_warp_pretrain():
+    """The warp kernel at the sites of a pretraining step (C = 1, batch 2):
+    the augmentation's spatial transform on the affine entry (image
+    trilinear with border padding, labels nearest with zeros), the
+    low-resolution simulation and the deep-supervision targets (nearest
+    with border padding: every sample of a stride-2 target lies on a
+    rounding tie) on the grid entry; each against its plain version
+    (nearest bit for bit), timed against its plain version and
+    `F.grid_sample`.  Returns the step's totals per entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from dg_tta_tpu_torch.core.grid import affine_grid, pack_grid
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                               warp_affine_reference,
+                                               warp_bytes, warp_flat,
+                                               warp_flat_reference,
+                                               warp_flops,
+                                               warp_source_voxels)
+
+    gen = torch.Generator().manual_seed(5)
+    n_src = PATCH[0] * PATCH[1] * PATCH[2]
+    totals = {"affine": _new_totals(), "grid": _new_totals()}
+    for site, entry, mode, pad, out, where in _pretrain_warp_sites(gen):
+        n_out = out[0] * out[1] * out[2]
+        if mode == "nearest":
+            flat = torch.randint(0, N_CLASSES, (2, 1, n_src),
+                                 generator=gen).float().cuda()
+        else:
+            flat = torch.randn((2, 1, n_src), generator=gen).cuda()
+        kw = dict(mode=mode, padding_mode=pad)
+        if entry == "affine":
+            grid = affine_grid(where, out)
+
+            def kernel():
+                return warp_affine_flat(flat, PATCH, where, out, **kw)
+
+            def plain():
+                return warp_affine_reference(flat, PATCH, where, out, **kw)
+        else:
+            grid = where
+
+            def kernel():
+                return warp_flat(flat, PATCH, grid, **kw)
+
+            def plain():
+                return warp_flat_reference(flat, PATCH, grid, **kw)
+        got, ref = kernel(), plain()
+        err = (got - ref).abs().max().item()
+        tol = 0.0 if mode == "nearest" else \
+            WARP_RTOL["float32"] * ref.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"warp pretraining {site}: max abs err "
+                                 f"{err} > {tol}")
+        vol5 = flat.view(2, 1, *PATCH)
+        packed = pack_grid(tuple(c.expand(2, *out) for c in grid))
+        lib_mode = "bilinear" if mode == "trilinear" else "nearest"
+        with tf32_off():
+            p_ms = time_ms(plain)
+            l_ms = time_ms(lambda: F.grid_sample(
+                vol5, packed, mode=lib_mode, padding_mode=pad,
+                align_corners=False))
+        k_ms = time_ms(kernel)
+        n_need = warp_source_voxels(PATCH, grid, 2, mode, pad)
+        ops_ms = warp_flops(flat.shape, n_out, mode) \
+            / PEAK_OPS["float32"] * 1e3
+        # theta's 48 bytes a sample, or the grid's 3 f32 coordinates per
+        # output voxel of each of its samples (the targets' grid has one)
+        bytes_ms = warp_bytes(flat.shape, n_need, n_out, 4,
+                              2 * 48 if entry == "affine"
+                              else 12 * where[0].shape[0] * n_out) \
+            / PEAK_BYTES * 1e3
+        _record(totals[entry], err, k_ms, p_ms, l_ms, ops_ms, bytes_ms)
+        log(f"warp pretraining {site}: {entry} entry, {mode} {pad}, batch 2 "
+            f"{PATCH}->{out}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"library_ms={l_ms:.4f} bound_ms={max(ops_ms, bytes_ms):.4f}")
+    for entry, t in totals.items():
+        log(f"warp pretraining step, {entry} entry: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+            f"bound_ms={max(t['ops_ms'], t['bytes_ms']):.4f}")
+    return totals
+
+
+def reference_pretrain():
+    """One pretraining step of the full-width TS104_GIN_MIND net (config 5)
+    on a small patch, the card against the CPU under PyTorch's default
+    flags, on the same weights and draws (every augmentation gate on: both
+    warp entries, noise, blur, gamma; GIN, MIND with noise, deep
+    supervision, SGD); and MultiRes's operators at the patch size with
+    matmul TF32 turned on around the call (the function turns it off)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
+    from dg_tta_tpu_torch.obs.synthetic import synthetic_ct
+    from dg_tta_tpu_torch.train.augment import (MULTIRES_ZOOMS, DAConfig,
+                                                _discrete_lowres)
+    from dg_tta_tpu_torch.train.pretrain import (PretrainDraws, StepDraws,
+                                                 make_optimizer,
+                                                 make_train_step)
+
+    shape = (32, 48, 64)
+    model = ts104_model(patch_size=shape, trainer="nnUNetTrainer_GIN_MIND")
+    rng = np.random.default_rng(3)
+    vols, labels = zip(*(synthetic_ct(rng, shape) for _ in range(2)))
+    imgs = torch.from_numpy(np.stack(vols).astype(np.float32) / 500.0)
+    segs = torch.from_numpy(np.stack(labels).astype(np.float32))
+    cfg = DAConfig(p_rotation=1.0, p_scale=1.0, p_noise=1.0, p_blur=1.0,
+                   p_brightness=1.0, p_contrast=1.0, p_lowres=1.0,
+                   p_gamma_invert=1.0, p_gamma=1.0)
+    d = PretrainDraws(0).step(0, 0, 2, cfg, gin=True)
+
+    def fixed(t):
+        return lambda shape, device: t.to(device)
+
+    # the normal draws made once on the CPU and handed to both devices
+    draws = StepDraws(
+        da=tuple(dataclasses.replace(s, noise=fixed(s.noise((*shape, 1),
+                                                            "cpu")))
+                 for s in d.da),
+        gin=d.gin, mind_noise=fixed(d.mind_noise((2, *shape, 12), "cpu")))
+    step = make_train_step(model, cfg)
+    losses, updates = [], []
+    for dev in ("cpu", "cuda"):
+        net = seeded_net(model, 21, dev)
+        before = [p.detach().cpu().clone() for p in net.parameters()]
+        loss = step(net, make_optimizer(net), imgs[..., None].to(dev),
+                    segs[..., None].to(dev), draws, 1e-2)
+        losses.append(float(loss))
+        updates.append(torch.cat([(p.detach().cpu() - b).flatten()
+                                  for p, b in zip(net.parameters(), before)]))
+    l_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    u_rel = ((updates[1] - updates[0]).norm() / updates[0].norm()).item()
+    if not (np.isfinite(losses[1]) and torch.isfinite(updates[1]).all()
+            and l_rel <= PRETRAIN_LOSS_RTOL and u_rel <= GRAD_RTOL):
+        raise AssertionError(f"pretraining step card vs CPU: loss "
+                             f"{losses} ({l_rel}), update {u_rel}")
+    log(f"reference: pretraining step nnUNetTrainer_GIN_MIND full width, "
+        f"batch 2 x {shape}, every augmentation gate on, under default "
+        f"flags: loss {losses[1]:.6f} vs CPU {losses[0]:.6f} ({l_rel:.3e}, "
+        f"tol {PRETRAIN_LOSS_RTOL:.0e}); the SGD update {u_rel:.3e} of its "
+        f"norm (tol {GRAD_RTOL:.0e})")
+    x = torch.from_numpy(rng.standard_normal((*PATCH, 1)).astype(np.float32))
+    ref = _discrete_lowres(x, (0, 1, 2), MULTIRES_ZOOMS, PATCH)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = _discrete_lowres(x.cuda(), (0, 1, 2), MULTIRES_ZOOMS,
+                               PATCH).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    _card_vs_cpu("MultiRes operators, zooms 1/6, 1/4, 1/2, matmul TF32 on "
+                 "around the call", got, ref, MULTIRES_RTOL)
+
+
+def expected_pretrain_launches(spec, steps, val_batches, multires,
+                               dtype="float32"):
+    """Kernel launches of `steps` pretraining iterations and `val_batches`
+    validation batches of `spec` (batch 2: one launch a conv): the conv
+    kernels' (`_conv_launches`; the stem takes no input gradient); per
+    step, two of the warp's affine entry (the augmentation's image and
+    labels), one of its grid entry for the continuous low-resolution
+    simulation (none with MultiRes, a tensordot) and one for each
+    deep-supervision head of nonzero weight below full resolution (its
+    target); none of the exact adjoint."""
+    from dg_tta_tpu_torch.train.losses import deep_supervision_weights
+
+    out = _conv_launches(spec, steps + val_batches, steps, dtype)
+    heads = deep_supervision_weights(len(spec.n_conv_per_stage_decoder))
+    targets = sum(1 for w in heads[1:] if w)
+    out["warp_affine"] = 2 * steps
+    out["warp"] = steps * ((0 if multires else 1) + targets)
+    out["warp_adjoint"] = out["warp_affine_adjoint"] = 0
+    return out
+
+
+def phase_pretrain(work: Path):
+    """DG pretraining through `run_pretraining` on three synthetic CTs at
+    the full TS104 width (`obs/synthetic.make_pretrain_dataset`), f32: the
+    runs of the PRETRAIN_* constants, each with the counts zeroed before and
+    read after, held to `expected_pretrain_launches`; a finite logged loss
+    per epoch; the checkpoints read back by the port's `run_tta` bundle
+    loader; then a profiled step (ms, device busy share, kernels per step,
+    peak memory: `obs/profile_pretrain.profile_steps`).  Returns each run's
+    launch counts."""
+    import torch
+
+    from dg_tta_tpu_torch.models.convert import load_flat_npz
+    from dg_tta_tpu_torch.models.network import MULTIRES_TRAINERS, build_model
+    from dg_tta_tpu_torch.obs.profile_pretrain import profile_steps
+    from dg_tta_tpu_torch.obs.synthetic import make_pretrain_dataset
+    from dg_tta_tpu_torch.train.pretrain import run_pretraining
+    from dg_tta_tpu_torch.tta.driver import load_pretrained_bundle
+
+    t0 = time.perf_counter()
+    dataset_id, plans = make_pretrain_dataset(work)
+    dataset_json = {"labels": {f"c{i}": i for i in range(N_CLASSES)},
+                    "channel_names": {"0": "CT"}}
+    log(f"pretraining: dataset of 3 synthetic CTs written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gin_mind, multires = "nnUNetTrainer_GIN_MIND", "nnUNetTrainer_GIN_MultiRes"
+    runs = {}
+    for tag, trainer, epochs, iters, resume in (
+            ("GIN_MIND", gin_mind, (0, PRETRAIN_EPOCHS), PRETRAIN_ITERS,
+             False),
+            ("GIN_MultiRes", multires, (0, 1), PRETRAIN_MULTIRES_ITERS, False),
+            ("GIN_MIND resumed", gin_mind,
+             (PRETRAIN_EPOCHS, PRETRAIN_EPOCHS + 1), PRETRAIN_ITERS, True)):
+        model = build_model(plans, dataset_json, trainer)
+        n = epochs[1] - epochs[0]
+        expected = expected_pretrain_launches(
+            model.spec, n * iters, n * PRETRAIN_VAL_ITERS,
+            trainer in MULTIRES_TRAINERS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = run_pretraining(dataset_id, trainer_name=trainer,
+                              num_epochs=epochs[1], iters_per_epoch=iters,
+                              val_iters_per_epoch=PRETRAIN_VAL_ITERS,
+                              plans=plans, continue_training=resume,
+                              verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if launches != expected:
+            raise AssertionError(f"pretraining {tag}: kernel launches "
+                                 f"{launches}, expected {expected}")
+        for key in ("conv3x3_cuda_core", "conv3x3_wgrad_cuda_core",
+                    "conv3x3_padded", "conv3x3_wgrad_padded"):
+            if launches[key]:
+                raise AssertionError(f"pretraining {tag} launched {key} "
+                                     f"{launches[key]} times")
+        log_lines = (out / "training_log.jsonl").read_text().splitlines()
+        entries = [json.loads(line) for line in log_lines]
+        if [e["epoch"] for e in entries] != list(range(epochs[1])) or \
+                not all(math.isfinite(e["loss"]) for e in entries):
+            raise AssertionError(f"pretraining {tag}: log {entries}")
+        _, net, _, _ = load_pretrained_bundle(out / "checkpoint_final.npz",
+                                              device="cuda")
+        saved = load_flat_npz(out / "checkpoint_final.npz")
+        if not all(torch.equal(v.cpu(), saved[k]) and torch.isfinite(v).all()
+                   for k, v in net.state_dict().items()):
+            raise AssertionError(f"pretraining {tag}: checkpoint_final.npz "
+                                 f"does not load back")
+        new = entries[epochs[0]:]
+        train_s = sum(e["train_seconds"] for e in new)
+        log(f"pretraining {tag}: {trainer}, epochs {epochs[0]}..{epochs[1]} "
+            f"x {iters} iterations + {PRETRAIN_VAL_ITERS} validation batches "
+            f"(batch 2 x {PATCH}, f32): run_pretraining {wall:.2f} s wall, "
+            f"training {1e3 * train_s / (n * iters):.1f} ms/iteration "
+            f"(first iteration included), losses "
+            f"{[round(e['loss'], 5) for e in new]}, val pseudo-Dice "
+            f"{[round(e['val_pseudo_dice'], 5) for e in new]}, peak device "
+            f"memory {peak_gib:.2f} GiB; launches {launches} (expected "
+            f"{expected}); checkpoint_final.npz read by the run_tta bundle "
+            f"loader")
+        runs[f"pretrain {tag}", "float32"] = launches
+    prof = profile_steps(plans, gin_mind, steps=2)
+    log(f"pretraining profile: {gin_mind} {prof['ms_per_step']:.1f} ms/step, "
+        f"device busy {prof['busy_ms']:.1f} ms/step (busy share "
+        f"{1 - prof['idle_share']:.3f}), {prof['kernels_per_step']:.1f} "
+        f"device kernels per step, peak device memory "
+        f"{prof['peak_gib']:.2f} GiB")
+    return runs
+
+
 def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None,
          **extra):
     row = {"name": name, "route": "cuda", "source": source,
@@ -1692,10 +2050,14 @@ def main():
 
     phase_build()
     totals = {"conv3x3": phase_kernels(), "conv3x3_wgrad": phase_wgrad(),
-              "warp": phase_warp(), "warp_grid": phase_warp_deformable()}
+              "warp": phase_warp(), "warp_grid": phase_warp_deformable(),
+              "warp_pretrain": phase_warp_pretrain()}
     phase_reference()
+    reference_pretrain()
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # DG pretraining (configs 4-5): GIN_MIND, GIN_MultiRes, a resume
+        runs.update(phase_pretrain(Path(tmp) / "pretrain"))
         for dtype in ("float32", "bfloat16"):
             runs["TS104_GIN", dtype] = phase_main_path(
                 Path(tmp) / f"gin_{dtype}", dtype)
@@ -1723,6 +2085,12 @@ def main():
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
     w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
     wg32, wg16 = totals["warp_grid"]["float32"], totals["warp_grid"]["bfloat16"]
+    # the warp's sites in one pretraining step, per entry
+    pre = {e: {f"pretrain_step_{k}": t[k] for k in ("ms", "plain_ms",
+                                                     "library_ms")}
+           | {"pretrain_step_bound_ms": max(t["ops_ms"], t["bytes_ms"]),
+              "pretrain_step_max_abs_err": t["max_abs_err"]}
+           for e, t in totals["warp_pretrain"].items()}
     adj, adj_aff, adj_entry = ({k: totals["warp_grid"][f"{k}/adjoint/{site}"]
                                 for k in ("float32", "bfloat16")}
                                for site in ("deformable grid", "affine grid",
@@ -1750,7 +2118,7 @@ def main():
              bf16_affine_sites_ms=w16["grid"]["ms"],
              bf16_affine_sites_device_ms=w16["affine"]["grid_device_ms"],
              staged_share=wg32["staged_share"],
-             bf16_staged_share=wg16["staged_share"]),
+             bf16_staged_share=wg16["staged_share"], **pre["grid"]),
         # the exact adjoint's grid entry at the logit site on a deformable
         # grid, its times on an affine grid beside them; and its affine
         # entry at that affine
@@ -1778,7 +2146,7 @@ def main():
                  "library_affine_ms", "staged_share")},
              **{f"bf16_{k}": w16["affine"][k] for k in (
                  "device_ms", "host_us", "library_device_ms",
-                 "library_affine_ms", "staged_share")}),
+                 "library_affine_ms", "staged_share")}, **pre["affine"]),
         _row("conv3x3_wgmma", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgmma", "bfloat16"), c["bfloat16/wgmma"]),
         _row("conv3x3_wgrad_wgmma", conv3x3.WGRAD_WGMMA_SOURCE,

@@ -1,8 +1,11 @@
 """The `dgtta` command line of the PyTorch port:
-`python -m dg_tta_tpu_torch {prepare_tta,run_tta} ...`.
+`python -m dg_tta_tpu_torch {inject_trainers,pretrain,prepare_tta,run_tta}
+...`.
 
-The same arguments as `dg_tta_tpu`'s `dgtta`, plus `run_tta --device`
-(default `cuda`).  `pretrain` and `inject_trainers` belong to later slices.
+The same arguments as `dg_tta_tpu`'s `dgtta`, plus `--device` on
+`pretrain` and `run_tta` (default `cuda`).  `inject_trainers` injects
+nothing: the DG trainers are a built-in registry
+(`models/network.TRAINER_REGISTRY`), which it lists.
 """
 
 import argparse
@@ -10,6 +13,35 @@ import json
 import secrets
 import sys
 import time
+
+
+def _cmd_inject_trainers(args):
+    from dg_tta_tpu_torch.models.network import TRAINER_REGISTRY
+    print("Nothing to inject: DG trainers are a built-in registry "
+          "(no nnUNet package patching needed).")
+    print("Available trainers:")
+    for name in TRAINER_REGISTRY:
+        print(f"  {name}")
+    if args.num_epochs is not None:
+        print(f"(pretraining epochs are passed at `pretrain` time; "
+              f"requested default {args.num_epochs})")
+    return list(TRAINER_REGISTRY)
+
+
+def _cmd_pretrain(args):
+    from dg_tta_tpu_torch.train.pretrain import run_pretraining
+    return run_pretraining(
+        dataset_id=args.dataset_id,
+        configuration=args.configuration,
+        fold=args.fold,
+        trainer_name=args.trainer,
+        num_epochs=args.num_epochs,
+        val_iters_per_epoch=args.val_iters_per_epoch,
+        num_devices=args.num_devices,
+        plans_name=args.plans_name,
+        continue_training=args.continue_training,
+        device=args.device,
+    )
 
 
 def _cmd_prepare_tta(args):
@@ -81,9 +113,35 @@ def _cmd_run_tta(args):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="dgtta-torch",
-        description=("DG-TTA in PyTorch on NVIDIA GPUs: test-time adaptation "
-                     "and ensemble inference for 3D medical segmentation."))
+        description=("DG-TTA in PyTorch on NVIDIA GPUs: domain-generalized "
+                     "pretraining, test-time adaptation and ensemble "
+                     "inference for 3D medical segmentation."))
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("inject_trainers",
+                       help="No-op compatibility command (the trainer "
+                            "registry is built in)")
+    p.add_argument("--num_epochs", type=int, default=None)
+    p.set_defaults(fn=_cmd_inject_trainers)
+
+    p = sub.add_parser("pretrain", help="Run DG pretraining")
+    p.add_argument("dataset_id", help="nnUNet dataset id or name")
+    p.add_argument("configuration", nargs="?", default="3d_fullres")
+    p.add_argument("fold", nargs="?", default="0")
+    p.add_argument("-tr", "--trainer", default="nnUNetTrainer_GIN")
+    p.add_argument("--num_epochs", type=int, default=1000)
+    p.add_argument("--val_iters_per_epoch", type=int, default=50,
+                   help="Validation iterations per epoch (nnUNet default 50)")
+    p.add_argument("--num_devices", "-num_gpus", type=int, default=1,
+                   help="Data-parallel devices (the nnUNet -num_gpus analog; "
+                        "only 1 in this package)")
+    p.add_argument("-p", "--plans_name", default="nnUNetPlans",
+                   help="Plans identifier (nnUNet's -p)")
+    p.add_argument("--c", dest="continue_training", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu for the "
+                        "plain versions of the kernels)")
+    p.set_defaults(fn=_cmd_pretrain)
 
     p = sub.add_parser("prepare_tta", help="Prepare plan dir for TTA")
     p.add_argument("pretrained_dataset_id",
@@ -113,6 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Parse `argv` and run the subcommand; returns its result
-    (`run_tta`: the evaluation summaries by bucket)."""
+    (`run_tta`: the evaluation summaries by bucket; `pretrain`: the fold's
+    results directory; `inject_trainers`: the trainer names)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)

@@ -20,7 +20,8 @@ from dg_tta_tpu_torch.models.plans import (
     num_classes_from_dataset_json,
     patch_size_from_plans,
 )
-from dg_tta_tpu_torch.models.unet import PlainConvUNet, resolve_compute_dtype
+from dg_tta_tpu_torch.models.unet import (PlainConvUNet, init_unet_,
+                                          resolve_compute_dtype)
 from dg_tta_tpu_torch.ops.gin import gin_aug
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS, mind3d
 from dg_tta_tpu_torch.utils.device import resolve_device
@@ -35,6 +36,9 @@ TRAINER_REGISTRY = {
     "nnUNetTrainer_MIND_MultiRes": (False, True),
     "nnUNetTrainer_GIN_MIND_MultiRes": (True, True),
 }
+
+# the trainers whose pretraining simulates discrete low resolutions
+MULTIRES_TRAINERS = {t for t in TRAINER_REGISTRY if t.endswith("_MultiRes")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +66,15 @@ class Model:
         if state_dict is not None:
             net.load_state_dict(state_dict, strict=True)
         return net.to(device).eval()
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """He-initialized weights of this spec (`unet.init_unet_`: kaiming
+        with a = the leaky slope, the JAX package's `init_params` scheme)
+        drawn from `generator`, a CPU `torch.Generator`: a `state_dict` of
+        CPU tensors."""
+        net = PlainConvUNet(self.spec)
+        init_unet_(net, generator)
+        return net.state_dict()
 
     @property
     def needs_mind_noise(self) -> bool:

@@ -9,7 +9,10 @@ stride-2 downsampling x4, patch 112x112x128, 1.5mm spacing.
 """
 
 import dataclasses
-from typing import Tuple
+import json
+from typing import List, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +35,11 @@ class ArchSpec:
 
     def with_input_channels(self, c: int) -> "ArchSpec":
         return dataclasses.replace(self, num_input_channels=c)
+
+
+def load_plans(plans_path) -> dict:
+    with open(plans_path) as f:
+        return json.load(f)
 
 
 def arch_spec_from_plans(
@@ -69,3 +77,12 @@ def num_classes_from_dataset_json(dataset_json: dict) -> int:
         else:
             ids.append(int(v))
     return max(ids) + 1
+
+
+def deep_supervision_scales(spec: ArchSpec) -> List[Tuple[float, ...]]:
+    """Cumulative downsampling factors of each deep-supervision output
+    (nnUNet semantics: every decoder resolution but the lowest), highest
+    resolution first."""
+    cum = np.cumprod(np.vstack(spec.strides), axis=0)
+    scales = [tuple(1.0 / f for f in row) for row in cum]
+    return scales[: len(spec.n_conv_per_stage_decoder)]

@@ -104,12 +104,17 @@ class Decoder(nn.Module):
 
 @contextlib.contextmanager
 def _no_tf32():
-    saved = torch.backends.cudnn.allow_tf32
+    """Full f32 in cuDNN convs and in matmuls inside, both flags restored
+    after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 class _StridedConv3d(torch.autograd.Function):

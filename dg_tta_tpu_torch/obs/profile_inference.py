@@ -47,11 +47,8 @@ def ts104_model(patch_size=None, compute_dtype=None,
 def seeded_net(model, seed, device):
     """`model`'s network with weights drawn on the CPU from `seed`, then
     moved to `device`, so every device gets the same weights."""
-    from dg_tta_tpu_torch.models.unet import init_unet_
-
-    net = model.build_network(device="cpu")
-    init_unet_(net, torch.Generator().manual_seed(seed))
-    return net.to(device)
+    return model.build_network(
+        model.init_params(torch.Generator().manual_seed(seed)), device)
 
 
 def main(argv=None):

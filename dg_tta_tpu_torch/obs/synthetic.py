@@ -10,6 +10,11 @@ labels, laid out as `prepare_tta` / `run_tta` expect.
     cli(["prepare_tta", "TS104_GIN_MIND", ws.dataset_id])
 
 `chip_smoke.py` and `obs/profile_adaptation.py` build their runs on it.
+
+`make_pretrain_dataset` writes a labelled nnUNet raw dataset of synthetic
+CTs and the full-width TS104 plans for `dgtta pretrain`
+(`train/pretrain.run_pretraining`); `chip_smoke.py` and
+`obs/profile_pretrain.py` train on it.
 """
 
 import dataclasses
@@ -21,6 +26,10 @@ import numpy as np
 
 VOLUME_SHAPE = (224, 224, 256)   # voxels at the TS104 spacing of 1.5 mm
 DATASET_ID = "900"
+PRETRAIN_DATASET_ID = "901"
+# the pretraining cases: the TS104 patch (112 x 112 x 128) fits without
+# resampling or padding
+PRETRAIN_SHAPE = (128, 128, 144)
 TARGET_LABELS = {"background": 0, "liver": 1, "spleen": 2, "kidney_left": 3}
 
 
@@ -78,9 +87,7 @@ def make_workspace(work: Path, seed: int = 0, shape=VOLUME_SHAPE,
     os.environ.update(DG_TTA_ROOT=str(root), nnUNet_raw=str(raw),
                       nnUNet_results=str(results))
 
-    labels = {"background": 0, "spleen": 1, "kidney_right": 2,
-              "kidney_left": 3, "gallbladder": 4, "liver": 5}
-    labels.update({f"class_{i:03d}": i for i in range(6, N_CLASSES)})
+    labels = ts104_labels(N_CLASSES)
     trainer_dir = (root / "_pretrained_weights" /
                    f"{trainer}__nnUNetPlans__3d_fullres")
     (trainer_dir / "fold_0").mkdir(parents=True)
@@ -105,6 +112,57 @@ def make_workspace(work: Path, seed: int = 0, shape=VOLUME_SHAPE,
     return Workspace(root=root, raw=raw, results=results,
                      checkpoint=checkpoint,
                      n_params=sum(p.numel() for p in net.parameters()))
+
+
+def ts104_labels(n_classes: int):
+    """The label table of the synthetic TS104 checkpoints: five named
+    organs, then `class_006` ...; {name: id}."""
+    labels = {"background": 0, "spleen": 1, "kidney_right": 2,
+              "kidney_left": 3, "gallbladder": 4, "liver": 5}
+    labels.update({f"class_{i:03d}": i for i in range(6, n_classes)})
+    return labels
+
+
+def make_pretrain_dataset(work: Path, n_cases: int = 3, seed: int = 0,
+                          shape=PRETRAIN_SHAPE):
+    """Write `n_cases` synthetic CTs of `shape` at 1.5 mm with their labels
+    as the nnUNet raw dataset `Dataset901_SynthPretrain` under `work`
+    (`nnUNet_raw`, `nnUNet_results` and `nnUNet_preprocessed` point there),
+    labelled in the 105-class TS104 table: the phantom's organs as liver,
+    spleen and kidney_left, and its spine (the bone band, > 400 HU) as
+    class 10.  Returns (dataset id, the full-width TS104 plans)."""
+    from dg_tta_tpu_torch.data.io import write_image
+    from dg_tta_tpu_torch.obs.profile_inference import N_CLASSES
+    from dg_tta_tpu_torch.resources import materialize_scaffold
+
+    work = Path(work)
+    raw = work / "raw" / f"Dataset{PRETRAIN_DATASET_ID}_SynthPretrain"
+    (raw / "imagesTr").mkdir(parents=True)
+    (raw / "labelsTr").mkdir()
+    (work / "results").mkdir()
+    os.environ.update(nnUNet_raw=str(work / "raw"),
+                      nnUNet_results=str(work / "results"),
+                      nnUNet_preprocessed=str(work / "preprocessed"))
+    labels = ts104_labels(N_CLASSES)
+    with open(raw / "dataset.json", "w") as f:
+        json.dump({"labels": labels, "channel_names": {"0": "CT"},
+                   "numTraining": n_cases, "file_ending": ".nii.gz"}, f)
+    code = np.array([0, labels["liver"], labels["spleen"],
+                     labels["kidney_left"]], np.uint8)
+    rng = np.random.default_rng(seed)
+    props = {"spacing": (1.5, 1.5, 1.5)}
+    for i in range(n_cases):
+        vol, seg = synthetic_ct(rng, shape)
+        seg = code[seg]
+        seg[(vol > 400) & (seg == 0)] = 10
+        write_image(raw / "imagesTr" / f"case{i}_0000.nii.gz", vol, props,
+                    dtype=np.int16)
+        write_image(raw / "labelsTr" / f"case{i}.nii.gz", seg, props)
+    materialize_scaffold("nnUNetTrainer_GIN__nnUNetPlans__3d_fullres",
+                         work / "scaffold")
+    plans = json.loads((work / "scaffold" / "plans.json").read_text())
+    plans["dataset_name"] = raw.name
+    return PRETRAIN_DATASET_ID, plans
 
 
 def edit_plan(pretrained_config="TS104_GIN", **changes):

@@ -22,6 +22,9 @@ Tolerances, max |kernel - plain| over max |plain|:
 * the warp's adjoint: 1e-5 in f32 (the same products, added into each
   source voxel by atomics in an order that varies from run to run), 2^-7
   in bf16 (one rounding of the f32 sum);
+* the pretraining's deep-supervision targets: bit for bit; its
+  augmentation, card against CPU: the labels bit for bit, the image 1e-5
+  of its range (blur, gamma and products summed in another order);
 * the deformable fields, card against CPU: 1e-4 of their largest value
   (ten warps and the smoothing summed in another order; the field's
   normalization amplifies that ~100x, as against the JAX package).
@@ -1283,3 +1286,56 @@ def test_deformable_patch_step_on_card_matches_cpu(cuda_device, exact):
     assert sorted(g0) == sorted(g1)
     for name, ref in g0.items():
         assert _max_rel_err(g1[name], ref) <= 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [(8, 8, 8), (56, 56, 64), (28, 28, 32),
+                                 (14, 14, 16)])
+def test_downsample_target_kernel_equals_plain(cuda_device, out):
+    """The deep-supervision targets on the warp's grid entry, bit for bit
+    the plain version's: every sample of a stride-2 scale lies on a
+    rounding tie, which both break half to even on the same f32 point."""
+    from dg_tta_tpu_torch.train.losses import downsample_target
+
+    src = tuple(2 * n for n in out)
+    t = torch.randint(0, 105, (2, *src),
+                      generator=torch.Generator().manual_seed(0))
+    n = warp_flat.launches
+    got = downsample_target(t.to(cuda_device), out).cpu()
+    assert warp_flat.launches == n + 1
+    assert torch.equal(got, downsample_target(t, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multires", [False, True])
+def test_augment_batch_warps_on_card_match_cpu(cuda_device, multires):
+    """The pretraining augmentation with every gate on, card against CPU
+    on the same draws: the labels (the affine entry, nearest) bit for bit,
+    the image (the affine entry, the grid entry's low-resolution pass or
+    MultiRes's operators, blur, gamma) to 1e-5 of its range."""
+    import dataclasses
+
+    from dg_tta_tpu_torch.train.augment import (MULTIRES_ZOOMS, DAConfig,
+                                                augment_batch, draw_sample)
+
+    cfg = DAConfig(p_rotation=1.0, p_scale=1.0, p_noise=1.0, p_blur=1.0,
+                   p_brightness=1.0, p_contrast=1.0, p_lowres=1.0,
+                   p_gamma_invert=1.0, p_gamma=1.0,
+                   discrete_lowres_zooms=MULTIRES_ZOOMS if multires
+                   else None)
+    shape = (40, 48, 56)
+    g = torch.Generator().manual_seed(1)
+    noise = torch.randn((*shape, 1), generator=g)
+    draws = [dataclasses.replace(draw_sample(g, cfg, None),
+                                 noise=lambda s, d: noise.to(d))
+             for _ in range(2)]
+    imgs = torch.randn((2, *shape, 1), generator=g)
+    segs = torch.randint(0, 4, (2, *shape, 1), generator=g).float()
+    n_affine, n_grid = warp_affine_flat.launches, warp_flat.launches
+    got_i, got_s = augment_batch(draws, imgs.to(cuda_device),
+                                 segs.to(cuda_device), cfg)
+    assert warp_affine_flat.launches == n_affine + 2
+    assert warp_flat.launches == n_grid + (0 if multires else 1)
+    ref_i, ref_s = augment_batch(draws, imgs, segs, cfg)
+    assert torch.equal(got_s.cpu(), ref_s)
+    assert _max_rel_err(got_i.cpu(), ref_i) <= 1e-5

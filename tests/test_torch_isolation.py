@@ -105,3 +105,38 @@ def test_kernel_wrapper_refuses_non_cuda_devices():
     w = torch.zeros(3, 3, 3, 5, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3(x, w)
+
+
+def test_pretraining_on_cuda_without_gpu_raises(no_cuda, tmp_path,
+                                                monkeypatch):
+    """`run_pretraining` and the CLI's `pretrain` default to CUDA, and
+    refuse it before they read a dataset."""
+    from dg_tta_tpu_torch.cli.main import main
+    from dg_tta_tpu_torch.train.pretrain import run_pretraining
+
+    monkeypatch.setenv("nnUNet_raw", str(tmp_path))
+    monkeypatch.setenv("nnUNet_results", str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pretraining("Dataset999_None")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pretraining("Dataset999_None", device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["pretrain", "Dataset999_None"])
+
+
+def test_train_modules_import_no_jax():
+    """The pretraining package is among the port's sources the checks
+    above read, and imports alone."""
+    train = {p.name for p in PORT_FILES if p.parent.name == "train"}
+    assert {"augment.py", "dataset.py", "losses.py",
+            "pretrain.py"} <= train
+    code = ("import sys\n"
+            "import dg_tta_tpu_torch.train.pretrain\n"
+            "import dg_tta_tpu_torch.obs.profile_pretrain\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' "
+            "or k.startswith(('jax.', 'jaxlib', 'dg_tta_tpu.')) "
+            "or k == 'dg_tta_tpu')\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -9,8 +9,19 @@ Tolerances, f32 on the CPU:
 * `_ssc_shift_pairs`, `gaussian_kernel_1d`: bit-equal (the same numpy);
 * `smooth3d`: 1e-6 relative (the same taps summed in the same order; the
   port fuses each tap's multiply into its add);
-* `mind3d`: 1e-5 relative (channel means and the batch mean summed in
-  another order, then exp);
+* `mind3d`, against the JAX function under `jax.jit`: the exponent
+  x = -log(descriptor) = mind / mind_var within 1e-5 absolute, and the
+  descriptor within 1e-5 relative where x <= 1.  The error is absolute in
+  x (the sums behind mind and mind_var rounded in another order; `ssd -
+  min` cancels where x is near 0, so x has no relative bound there): JAX's
+  own eager and jitted forms differ by up to 4.3e-6 in x, and each side
+  lies within 3.4e-6 (port) and 2.6e-6 (JAX, jitted) of a float64
+  evaluation, under ATEN_CPU_CAPABILITY=default, avx2 and avx512 alike
+  (the port 1.5e-6 from JAX's jitted x under avx2 and avx512, 4.3e-6
+  under default); 1e-5 holds the sum of both with 1.7x to spare.  The
+  first `torch.exp` of a process, run while other processes load the CPU,
+  returned one element 1.49e-4 off (1 run in ~12; the same call again,
+  exact), so the module makes one warm-up call before it compares;
 * `Model.apply`: 1e-4 of the logits' range plus 1e-5, the bound of the
   port's U-Net parity tests, on MIND features that agree to 1e-5.
 """
@@ -66,21 +77,36 @@ def test_smooth3d_matches_jax(sigma):
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_exp_warmed_up():
+    """One `torch.exp` before any comparison (module docstring)."""
+    torch.exp(torch.zeros(4096))
+
+
 @pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("noisy", [False, True])
 def test_mind3d_matches_jax(batch, noisy):
     """With a batch of 2 the clip bound is the mean over both patches, in
-    either package."""
+    either package.  Bounds: the module docstring."""
     img = _image(2, (batch, 12, 14, 10, 1))
-    key = jax.random.PRNGKey(3) if noisy else None
-    ref = np.asarray(jmind.mind3d(jnp.asarray(img), key=key))
     noise = None
     if noisy:
+        key = jax.random.PRNGKey(3)
+        ref = jax.jit(lambda x, k: jmind.mind3d(x, key=k))(jnp.asarray(img),
+                                                           key)
         noise = torch.from_numpy(np.array(jax.random.normal(
             key, (*img.shape[:-1], 12), jnp.float32)))
+    else:
+        ref = jax.jit(jmind.mind3d)(jnp.asarray(img))
+    ref = np.asarray(ref)
     got = mind.mind3d(torch.from_numpy(img), noise=noise).numpy()
-    assert got.shape == (*img.shape[:-1], 12)
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0)
+    assert got.shape == ref.shape == (*img.shape[:-1], 12)
+    x_ref = -np.log(ref.astype(np.float64))
+    x_got = -np.log(got.astype(np.float64))
+    np.testing.assert_allclose(x_got, x_ref, rtol=0, atol=1e-5)
+    small = x_ref <= 1.0
+    assert small.sum() > 100
+    np.testing.assert_allclose(got[small], ref[small], rtol=1e-5, atol=0)
 
 
 def test_mind3d_clip_bound_is_batch_wide():
