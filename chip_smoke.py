@@ -92,6 +92,16 @@ Phases; any failure raises and the script exits non-zero:
      (nearest, border: every sample on a rounding tie) on the grid entry,
      each against its plain version (nearest bit for bit) and timed
      against it and `F.grid_sample`;
+   * the kernels at the grouped main-path runs' shapes
+     (`phase_grouped_kernels`, `GROUPED_RUNS`): `conv3x3`'s forward and
+     input gradient and `conv3x3_wgrad` at every stride-1 conv of a
+     trained step of 2 x 4 patches (f32) and 2 x 2 (bf16), among them
+     the f32 top level's weight gradient over 100352 dy rows (past grid
+     z's 65535: the tf32x3 pre-pass's row loop), and the warp's affine
+     entry at the three patch sites with 4 (f32) and 2 (bf16) patches a
+     branch, a theta each; each against its plain version at the
+     tolerance of its ungrouped check, its max abs error going into the
+     kernels line's row;
 4. reference, under PyTorch's default precision flags (asserted), as a
    user's run finds them: the full-width TS104_GIN U-Net on a small patch,
    its forward and one step's gradient, a stride-2 stage-entry conv
@@ -110,7 +120,13 @@ Phases; any failure raises and the script exits non-zero:
    (every augmentation gate on, GIN, MIND, deep supervision, SGD) and
    MultiRes's operators at the patch size with matmul TF32 turned on
    around the call (`reference_pretrain`);
-5. DG pretraining (`phase_pretrain`, configs 4-5), f32: `run_pretraining`
+5. remat (`phase_remat`): one trained step of the full-width TS104_GIN
+   net at the TS104 patch in f32, with and without `remat` (both branches
+   recomputed in the backward), on the same weights and draws: the
+   gradients held to each other (REMAT_GRAD_RTOL), each step's launches
+   to `expected_launches` (the recompute launches every forward kernel
+   again), and each variant's ms and peak device memory;
+6. DG pretraining (`phase_pretrain`, configs 4-5), f32: `run_pretraining`
    on three synthetic 128 x 128 x 144 CTs at 1.5 mm with a 105-label
    `dataset.json` (`obs/synthetic.make_pretrain_dataset`) at the full
    TS104 width (patch 112 x 112 x 128, batch 2), nnUNetTrainer_GIN_MIND
@@ -123,7 +139,7 @@ Phases; any failure raises and the script exits non-zero:
    per logged epoch, and `checkpoint_final.npz` read back by the port's
    `run_tta` bundle loader; then profiles two steps (ms per step, device
    busy share, kernels per step, peak memory);
-6. main path, seven times, each in a fresh workspace and under the
+7. main path, nine times, each in a fresh workspace and under the
    default flags, f32 (the default), then bf16
    (`DGTTA_COMPUTE_DTYPE=bfloat16`), for each of two seeded full-width
    checkpoints (105 classes): TS104_GIN, then TS104_GIN_MIND (12 input
@@ -131,7 +147,12 @@ Phases; any failure raises and the script exits non-zero:
    both branches); then TS104_GIN in f32 with `DGTTA_EXACT_WARP_GRAD=1`
    (the exact adjoint's affine entry); then TS104_GIN with a deformable
    plan (`spatial_aug_type: "deformable"`), in f32 with the fast adjoint
-   and in bf16 with `DGTTA_EXACT_WARP_GRAD=1`:
+   and in bf16 with `DGTTA_EXACT_WARP_GRAD=1`; then TS104_GIN with the
+   plan's `patch_group` at 4 in f32 (the 4 patches of an epoch in one step
+   of 8 patches through the network) and at 2 in bf16, each run's epoch-0
+   member losses (a forward-only epoch on the same weights and, by
+   `TorchDraws`' grouped draws, the same patches) held to the ungrouped
+   TS104_GIN run of its type (GROUPED_LOSS_RTOL):
    `prepare_tta` and `run_tta` through the port's CLI on a synthetic CT
    volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows), with no member
    files: `run_tta` adapts three members (Phase 1), then predicts and
@@ -139,7 +160,8 @@ Phases; any failure raises and the script exits non-zero:
    patches_to_be_accumulated=4, start_tta_at_epoch=1 (one warm-up and one
    trained epoch).  Checks the member files and the segmentation, that
    every kernel launched exactly as often as the plan says it must, on
-   each route and on padded channels (`expected_launches`), that the
+   each route and on padded channels (`expected_launches`: a grouped
+   run's launches per patch draw fall by its group), that the
    CUDA-core `conv3x3` and `conv3x3_wgrad` launched not at all, that no
    launch ran on padded channels (a MIND model's stem runs on "few"), and
    that
@@ -260,6 +282,26 @@ PRETRAIN_LOSS_RTOL = 1e-4
 # / max |CPU|: three f32 products of 112-128 terms summed in another order;
 # TF32 (~1e-3) would miss it.
 MULTIRES_RTOL = 1e-5
+# The grouped main-path runs' epoch-0 member losses (a forward-only epoch,
+# the same weights and, by `TorchDraws`' grouped draws, the same patches)
+# against the ungrouped run of the same type, |diff| / |ungrouped|: the
+# stride-1 convs compute each plane as at any batch, but cuDNN's stride-2
+# convs may pick another algorithm at another batch and the loss's means
+# sum in another order (f32: a few roundings of 1e-7; bf16: one bf16
+# rounding of some activations, 2^-8, averaged over 1.6M voxels).
+GROUPED_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# One full-width f32 trained step with and without `remat`, |g_remat - g| /
+# |g| over all parameters at once: the recompute runs the same kernels on
+# the same inputs (bit for bit equal on the CPU,
+# tests/test_torch_patch_group.py), but cuDNN's stride-2 gradients may sum
+# in a varying order, and the consistency loss's cancelling gradient
+# amplifies that f32 rounding.
+REMAT_GRAD_RTOL = 1e-3
+# The grouped main-path runs, (type, patch_group): the smoke plan's 4
+# patches in one step of 4 (f32: the top level's weight gradient has
+# 2 x 4 x 112 planes x 112 rows = 100352 dy rows, past grid z's 65535)
+# and in two steps of 2 (bf16).
+GROUPED_RUNS = (("float32", 4), ("bfloat16", 2))
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3",
@@ -622,6 +664,107 @@ def phase_wgrad():
         totals[name] = tot
     _log_routes("conv3x3_wgrad", "trained step", totals)
     return totals
+
+
+def phase_grouped_kernels(totals):
+    """The kernels at the shapes the grouped main-path runs give them
+    (`GROUPED_RUNS`, batch_size 1: a trained step puts 2 x group volumes
+    through the network and group patches through each branch's warps):
+    conv3x3's forward and input gradient and conv3x3_wgrad at every
+    stride-1 conv on the route of the type, and the warp's affine entry at
+    its three patch sites with a theta per patch, each held to its plain
+    version at the ungrouped checks' tolerances.  Their max abs errors go
+    into `totals` (the kernels line's rows)."""
+    import torch
+
+    from dg_tta_tpu_torch.core.fields import affine_abs_det, get_rand_affine
+    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_reference,
+                                                  conv3x3_route,
+                                                  conv3x3_wgrad,
+                                                  conv3x3_wgrad_reference,
+                                                  conv3x3_wgrad_route)
+    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
+                                               warp_affine_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def check(what, got, ref, rtol, totals_at):
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= rtol * scale:
+            raise AssertionError(f"{what}: max abs err {err} > "
+                                 f"{rtol * scale}")
+        totals_at["max_abs_err"] = max(totals_at["max_abs_err"], err)
+        return f"max_abs_err={err:.3e} (tol {rtol * scale:.3e})"
+
+    for name, group in GROUPED_RUNS:
+        dt = getattr(torch, name)
+        vols = 2 * group
+        for depth, H, W, C, CO, _ in TS104_CONV_SHAPES:
+            N = vols * depth
+            shape = f"N={N} depth={depth} {H}x{W}"
+            x = randn(N, H, W, C, dt=dt)
+            w = randn(3, 3, 3, C, CO, dt=dt, scale=(2.0 / (27 * C)) ** 0.5)
+            route = conv3x3_route(C, CO, dt)
+            with tf32_off():
+                ref = conv3x3_reference(x, w, depth=depth)
+            got = conv3x3(x, w, depth=depth)
+            torch.cuda.synchronize()
+            text = check(f"conv3x3 {name} grouped forward {shape} {C}->{CO}",
+                         got, ref, KERNEL_RTOL[name],
+                         totals["conv3x3"][f"{name}/{route}"])
+            log(f"conv3x3 {name} patch_group {group} step forward {shape} "
+                f"{C}->{CO} route={route}: {text} kernel_ms="
+                f"{time_ms(lambda: conv3x3(x, w, depth=depth)):.4f}")
+            dy = randn(N, H, W, CO, dt=dt)
+            if C > 1:
+                # the input gradient: dy through the kernel with the
+                # forward's weights flipped and their channels swapped
+                wd = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+                route = conv3x3_route(CO, C, dt)
+                with tf32_off():
+                    ref = conv3x3_reference(dy, wd, depth=depth)
+                got = conv3x3(dy, wd, depth=depth)
+                torch.cuda.synchronize()
+                text = check(f"conv3x3 {name} grouped dgrad {shape} "
+                             f"{CO}->{C}", got, ref, KERNEL_RTOL[name],
+                             totals["conv3x3"][f"{name}/{route}"])
+                log(f"conv3x3 {name} patch_group {group} step dgrad {shape} "
+                    f"{CO}->{C} route={route}: {text} kernel_ms="
+                    f"{time_ms(lambda: conv3x3(dy, wd, depth=depth)):.4f}")
+            route = conv3x3_wgrad_route(C, CO, dt)
+            with tf32_off():
+                ref = conv3x3_wgrad_reference(x, dy, depth=depth)
+            got = conv3x3_wgrad(x, dy, depth=depth)
+            torch.cuda.synchronize()
+            text = check(f"conv3x3_wgrad {name} grouped {shape} {C}->{CO}",
+                         got, ref, WGRAD_RTOL,
+                         totals["conv3x3_wgrad"][f"{name}/{route}"])
+            log(f"conv3x3_wgrad {name} patch_group {group} {shape} "
+                f"{C}->{CO} route={route} ({N * H} dy rows): {text} "
+                f"kernel_ms="
+                f"{time_ms(lambda: conv3x3_wgrad(x, dy, depth=depth)):.4f}")
+            del x, w, dy, ref, got
+        theta, theta_inv = get_rand_affine(
+            torch.randn((group, 3, 4), generator=gen, device="cuda"))
+        n = PATCH[0] * PATCH[1] * PATCH[2]
+        for site, C, th, scale, pad in (
+                ("border input warp", 1, theta, None, "border"),
+                ("zeros unwarp", N_OPT, theta_inv, None, "zeros"),
+                ("adjoint", N_OPT, theta, affine_abs_det(theta), "zeros")):
+            flat = randn(group, C, n, dt=dt)
+            kw = dict(scale=scale, padding_mode=pad)
+            ref = warp_affine_reference(flat, PATCH, th, PATCH, **kw)
+            got = warp_affine_flat(flat, PATCH, th, PATCH, **kw)
+            torch.cuda.synchronize()
+            text = check(f"warp {name} grouped {site}", got, ref,
+                         WARP_RTOL[name], totals["warp"][name]["affine"])
+            log(f"warp {name} patch_group {group} {site} B={group} C={C} "
+                f"{PATCH}, a theta per patch: {text}")
 
 
 def _warp_sites(gen, device):
@@ -1521,13 +1664,17 @@ def _conv_launches(spec, forwards, trained, dtype):
 
 
 def expected_launches(spec, windows, members, plan, dtype="float32",
-                      exact=False):
+                      exact=False, evals=1):
     """Kernel launches that `run_tta` must make for `plan` on a volume of
-    `windows` sliding windows with labels (one eval per epoch), in compute
-    type `dtype`, with `DGTTA_EXACT_WARP_GRAD` set if `exact`: the conv
-    kernels' (`_conv_launches`), and those of the warp's affine entry
-    (`warp_affine`), grid entry (`warp`) and the exact adjoint's grid entry
-    (`warp_adjoint`) and affine entry (`warp_affine_adjoint`).  Per patch
+    `windows` sliding windows with labels (`evals` evaluations per epoch),
+    in compute type `dtype`, with `DGTTA_EXACT_WARP_GRAD` set if `exact`:
+    the conv kernels' (`_conv_launches`), and those of the warp's affine
+    entry (`warp_affine`), grid entry (`warp`) and the exact adjoint's grid
+    entry (`warp_adjoint`) and affine entry (`warp_affine_adjoint`).  An
+    epoch runs patches_to_be_accumulated / patch_group patch steps (each
+    launch carries patch_group patch draws), and with `remat` each trained
+    step runs its forward twice (both branches recomputed in the backward:
+    the convs, the input warps, the fields and the unwarps).  Per patch
     step, each branch the plan warps makes one input warp and one unwarp,
     and each trained step one adjoint
     of each unwarp: an affine plan's on the affine entry (with `exact`,
@@ -1535,23 +1682,27 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
     entry, after the 10 field warps of its branch's displacement field (5
     iterations, 2 warps each; with `exact`, the exact adjoint's grid
     entry); each eval samples its labels on the affine entry."""
-    acc, epochs = plan["patches_to_be_accumulated"], plan["epochs"]
+    acc = (plan["patches_to_be_accumulated"]
+           // plan.get("patch_group", 1))   # patch steps per epoch
+    epochs = plan["epochs"]
     trained = acc * max(0, epochs - plan["start_tta_at_epoch"])
-    forwards = acc * epochs + epochs   # patch steps and one eval per epoch
+    # patch-step forwards, the trained ones' recomputes, the evals
+    runs = acc * epochs + (trained if plan.get("remat") else 0)
+    forwards = runs + evals * epochs
     out = _conv_launches(spec, members * (forwards + windows),
                          members * trained, dtype)
     branches = {"both": 2, "none": 0}.get(
         plan.get("do_spatial_aug_in", "both"), 1)
-    steps = acc * epochs * branches        # branch warps of patch steps
+    steps = runs * branches                # branch warps of patch steps
     adjoints = trained * branches
     fast = 0 if exact else adjoints
     deformable = plan.get("spatial_aug_type", "affine") == "deformable"
     if deformable:
         out["warp"] = members * (steps * 12 + fast)
-        out["warp_affine"] = members * epochs
+        out["warp_affine"] = members * evals * epochs
     else:
         out["warp"] = 0
-        out["warp_affine"] = members * (steps * 2 + fast + epochs)
+        out["warp_affine"] = members * (steps * 2 + fast + evals * epochs)
     exact_adjoints = members * adjoints if exact else 0
     out["warp_adjoint"] = exact_adjoints if deformable else 0
     out["warp_affine_adjoint"] = 0 if deformable else exact_adjoints
@@ -1596,7 +1747,8 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     """`run_tta` of a seeded `pretrained` checkpoint through the CLI with
     `DGTTA_COMPUTE_DTYPE=dtype` (and `DGTTA_EXACT_WARP_GRAD=1` if `exact`),
     the smoke plan changed by `plan_changes`; returns the kernels' launch
-    counts of that run."""
+    counts of that run and each member's per-epoch losses (from its
+    `*_tta_results.json`)."""
     import numpy as np
     import torch
 
@@ -1617,7 +1769,9 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     results_dir, plan = edit_plan(pretrained, **SMOKE_PLAN, **plan_changes)
     n_members = plan["ensemble_count"]
     tag = (f"main path {pretrained} {plan['spatial_aug_type']} {dtype}"
-           f"{' exact warp gradient' if exact else ''}")
+           f"{' exact warp gradient' if exact else ''}"
+           + (f" patch_group {plan['patch_group']}"
+              if plan.get("patch_group", 1) > 1 else ""))
     log(f"{tag}: {ws.n_params} parameters, {N_CLASSES} classes, "
         f"{model.spec.num_input_channels} input channels, volume "
         f"{VOLUME_SHAPE}, {n_members} members adapted from scratch; plan "
@@ -1672,8 +1826,11 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
                              f"times")
     (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
     pretrained = load_flat_npz(ws.checkpoint)
+    losses = []
     for i in range(n_members):
         path = get_parameters_save_path(run_dir / "tta_outputTs", "case", i)
+        losses.append(json.loads((path.parent / f"case__ensemble_idx_{i}"
+                                  "_tta_results.json").read_text())["losses"])
         sd = load_flat_npz(path)
         if not all(torch.isfinite(v).all() for v in sd.values()):
             raise AssertionError(f"member {i}: non-finite parameters")
@@ -1703,8 +1860,83 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
         f"{60.0 / infer_s:.2f} vol/min ({windows} windows x {n_members} "
         f"members), peak device memory {peak_gib:.2f} GiB; launches "
         f"{launches} (expected {expected}); foreground Dice "
-        f"{summaries['Ts']['foreground_mean']['Dice']:.4f} (random weights)")
-    return launches
+        f"{summaries['Ts']['foreground_mean']['Dice']:.4f} (random weights)"
+        f"; member losses {losses}")
+    return launches, np.asarray(losses)
+
+
+def phase_remat():
+    """One trained step of the full-width TS104_GIN net at the TS104 patch
+    in f32, with and without `remat` (both branches recomputed in the
+    backward, `torch.utils.checkpoint`): the same seeded weights and
+    draws, the gradients held to each other at REMAT_GRAD_RTOL, each
+    step's launches to `expected_launches` (a recomputed forward per
+    trained step), and the ms and peak device memory of each printed.
+    Each variant runs once to warm up, then once measured."""
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import make_tta_functions
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    model = ts104_model()
+    rng = np.random.default_rng(4)
+    vols = torch.from_numpy(rng.normal(0.0, 0.3, size=(1, *VOLUME_SHAPE, 1))
+                            .astype(np.float32)).cuda()
+    vols[0, 60:140, 80:160, 90:190] += 2.0
+    shapes = [list(map(float, VOLUME_SHAPE))]
+    idx = np.arange(N_OPT)
+    draws = TorchDraws(seed=9).patch(0, 1, 0, 1, 1)
+    net0 = seeded_net(model, 13, "cuda")
+    out = {}
+    for remat in (False, True):
+        plan = TTAPlan(patches_to_be_accumulated=1)
+        fns = make_tta_functions(model, plan, idx, idx, remat=remat)
+        net = copy.deepcopy(net0)
+        for measured in (False, True):
+            net.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            loss = fns.draw_and_loss(net, draws, vols, shapes)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        expected = expected_launches(
+            model.spec, 0, 1, dict(patches_to_be_accumulated=1, epochs=1,
+                                   start_tta_at_epoch=0, remat=remat),
+            evals=0)
+        if launches != expected:
+            raise AssertionError(f"remat={remat} step: launches {launches}, "
+                                 f"expected {expected}")
+        grads = {k: p.grad.detach().clone() for k, p in net.named_parameters()
+                 if p.grad is not None}
+        out[remat] = (loss.item(), grads, ms,
+                      torch.cuda.max_memory_allocated() / 2 ** 30, launches)
+    (l0, g0, ms0, gib0, n0), (l1, g1, ms1, gib1, n1) = out[False], out[True]
+    if sorted(g0) != sorted(g1):
+        raise AssertionError("remat: another set of parameters got a "
+                             "gradient")
+    diff = math.sqrt(sum((g1[k] - g).double().norm().item() ** 2
+                         for k, g in g0.items()))
+    norm = math.sqrt(sum(g.double().norm().item() ** 2 for g in g0.values()))
+    worst = max((g1[k] - g).norm().item() / max(g.norm().item(), 1e-30)
+                for k, g in g0.items())
+    if not (math.isfinite(l1) and diff <= REMAT_GRAD_RTOL * norm):
+        raise AssertionError(f"remat: gradient off by {diff / norm:.3e} of "
+                             f"its norm (tol {REMAT_GRAD_RTOL}), loss {l1} vs "
+                             f"{l0}")
+    log(f"remat: TS104_GIN one trained step at {model.patch_size}, f32, "
+        f"batch 2 (both branches): loss {l1!r} vs {l0!r} without; gradient "
+        f"off by {diff / norm:.3e} of its norm (tol {REMAT_GRAD_RTOL}), "
+        f"largest per parameter {worst:.3e}; {ms1:.1f} ms vs {ms0:.1f} ms, "
+        f"peak device memory {gib1:.2f} GiB vs {gib0:.2f} GiB without; "
+        f"conv3x3 launches {n1['conv3x3']} vs {n0['conv3x3']}, warp_affine "
+        f"{n1['warp_affine']} vs {n0['warp_affine']} (expected)")
 
 
 def _pretrain_warp_sites(gen):
@@ -2044,6 +2276,7 @@ def _c1_extra(totals):
 
 def main():
     phase_device()
+    import numpy as np
     import torch
 
     from dg_tta_tpu_torch.kernels import conv3x3, warp
@@ -2052,30 +2285,51 @@ def main():
     totals = {"conv3x3": phase_kernels(), "conv3x3_wgrad": phase_wgrad(),
               "warp": phase_warp(), "warp_grid": phase_warp_deformable(),
               "warp_pretrain": phase_warp_pretrain()}
+    phase_grouped_kernels(totals)
     phase_reference()
     reference_pretrain()
-    runs = {}
+    phase_remat()
+    runs, losses = {}, {}
+
+    def main_path(key, *args, **kw):
+        runs[key], losses[key] = phase_main_path(*args, **kw)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # DG pretraining (configs 4-5): GIN_MIND, GIN_MultiRes, a resume
         runs.update(phase_pretrain(Path(tmp) / "pretrain"))
         for dtype in ("float32", "bfloat16"):
-            runs["TS104_GIN", dtype] = phase_main_path(
-                Path(tmp) / f"gin_{dtype}", dtype)
+            main_path(("TS104_GIN", dtype), Path(tmp) / f"gin_{dtype}", dtype)
         # MIND in every forward, GIN in both branches of every step
         for dtype in ("float32", "bfloat16"):
-            runs["TS104_GIN_MIND", dtype] = phase_main_path(
-                Path(tmp) / f"gin_mind_{dtype}", dtype, "TS104_GIN_MIND",
-                do_intensity_aug_in="both")
+            main_path(("TS104_GIN_MIND", dtype),
+                      Path(tmp) / f"gin_mind_{dtype}", dtype,
+                      "TS104_GIN_MIND", do_intensity_aug_in="both")
         # affine TTA with the exact adjoint (its affine entry)
-        runs["TS104_GIN exact", "float32"] = phase_main_path(
-            Path(tmp) / "exact_float32", "float32", exact=True)
+        main_path(("TS104_GIN exact", "float32"),
+                  Path(tmp) / "exact_float32", "float32", exact=True)
         # deformable TTA: f32 with the fast adjoint, bf16 with the exact one
-        runs["TS104_GIN deformable", "float32"] = phase_main_path(
-            Path(tmp) / "deformable_float32", "float32",
-            spatial_aug_type="deformable")
-        runs["TS104_GIN deformable exact", "bfloat16"] = phase_main_path(
-            Path(tmp) / "deformable_exact_bfloat16", "bfloat16", exact=True,
-            spatial_aug_type="deformable")
+        main_path(("TS104_GIN deformable", "float32"),
+                  Path(tmp) / "deformable_float32", "float32",
+                  spatial_aug_type="deformable")
+        main_path(("TS104_GIN deformable exact", "bfloat16"),
+                  Path(tmp) / "deformable_exact_bfloat16", "bfloat16",
+                  exact=True, spatial_aug_type="deformable")
+        # patch_group: the smoke plan's 4 patches in one step of 4 (f32)
+        # and in two steps of 2 (bf16), each held to the ungrouped run
+        for dtype, group in GROUPED_RUNS:
+            key = (f"TS104_GIN patch_group {group}", dtype)
+            main_path(key, Path(tmp) / f"group{group}_{dtype}", dtype,
+                      patch_group=group)
+            got, ref = losses[key][:, 0], losses["TS104_GIN", dtype][:, 0]
+            err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+            if not err <= GROUPED_LOSS_RTOL[dtype]:
+                raise AssertionError(f"{key}: epoch-0 member losses {got} "
+                                     f"vs {ref} ungrouped (rel err {err})")
+            log(f"main path TS104_GIN {dtype} patch_group {group}: epoch-0 "
+                f"member losses {got.tolist()} vs {ref.tolist()} ungrouped, "
+                f"rel err {err:.3e} (tol {GROUPED_LOSS_RTOL[dtype]}); "
+                f"epoch-1 {losses[key][:, 1].tolist()} vs "
+                f"{losses['TS104_GIN', dtype][:, 1].tolist()}")
 
     def both(key, dtype=None):
         # launches over the main-path runs (of one type)

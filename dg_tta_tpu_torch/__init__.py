@@ -4,12 +4,13 @@ The JAX package `dg_tta_tpu` stays the reference.  This package imports
 `torch`, numpy and scipy and nothing of JAX or of `dg_tta_tpu`; what it needs
 from that package's host-only modules it keeps as its own copies.
 
-It covers `dgtta prepare_tta` and `run_tta` for the six TS104 model
-families (GIN, MIND, GIN_MIND and their MultiRes variants): model and
-checkpoint loading, preprocessing, affine TTA (Phase 1, GIN in a branch
-included), Gaussian sliding-window ensemble inference, export and
-evaluation.  Deformable TTA and pretraining come in later slices and raise
-`NotImplementedError` here.
+It covers `dgtta pretrain`, `prepare_tta` and `run_tta` for the six TS104
+model families (GIN, MIND, GIN_MIND and their MultiRes variants): model
+and checkpoint loading, preprocessing, affine and deformable TTA (Phase
+1, GIN in a branch included, `patch_group` and `remat`), Gaussian
+sliding-window ensemble inference, export and evaluation, wandb logging
+and the loss plots.  Several-GPU runs (`parallel/`) and the JAX
+package's split engine raise `NotImplementedError` here.
 
 Layout: every public function takes and returns channels-last tensors,
 `(B, D, H, W, C)` for batches and `(D, H, W, C)` for volumes, as the JAX

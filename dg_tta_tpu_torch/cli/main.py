@@ -65,6 +65,7 @@ def _cmd_run_tta(args):
         get_tta_folders,
         load_current_modifier_functions,
     )
+    from dg_tta_tpu_torch.obs.wandb_log import wandb_run
     from dg_tta_tpu_torch.tta.driver import tta_main
     from dg_tta_tpu_torch.tta.plan import TTAPlan
     from dg_tta_tpu_torch.utils.device import resolve_device
@@ -105,9 +106,12 @@ def _cmd_run_tta(args):
             sys.exit(f"No existing run with number {run_no} in {results_dir}")
         run_name = matches[-1].name
 
-    return tta_main(run_name, plan, tta_data_dir=tta_data_dir,
-                    save_base_path=results_dir, label_mapping=label_mapping,
-                    modifier_fn_module=modifier_mod, device=device)
+    # inside a wandb run of the plan's wandb_mode where wandb is installed
+    return wandb_run(
+        "dg_tta", lambda run_name, plan, **kw: tta_main(run_name, plan, **kw),
+        run_name=run_name, plan=plan, tta_data_dir=tta_data_dir,
+        save_base_path=results_dir, label_mapping=label_mapping,
+        modifier_fn_module=modifier_mod, device=device)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -95,7 +95,8 @@ def padded_shape(volume_shape, patch_size, bucket_multiple: int = 32):
 def predict_volume(model, members: Sequence[torch.nn.Module],
                    vol: torch.Tensor, modify_input_fn=None,
                    modify_output_fn=None, bucket_multiple: int = 32,
-                   window_batch: int = 1, draws=None) -> torch.Tensor:
+                   window_batch: int = 1, draws=None,
+                   step_fraction: float = 0.5) -> torch.Tensor:
     """Ensemble-mean logits of a (D, H, W, C) volume, (D, H, W, C_out) f32
     on the volume's device.
 
@@ -110,6 +111,8 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
     of a MIND model's noise (`window_mind_noise`); required for one.
     With `window_batch=1` a source that gives JAX's per-window keys
     reproduces the JAX `predict_volume(..., window_batch=1)`.
+    `step_fraction`: the window stride as a fraction of the patch
+    (`compute_steps_for_sliding_window`; nnUNet's default 0.5).
     """
     members = list(members)
     if not members:
@@ -127,7 +130,8 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
     pads = [(lo, t - s - lo) for lo, s, t in zip(pads, (D, H, W), covered)]
     volp = F.pad(vol, (0, 0, *pads[2], *pads[1], *pads[0]),
                  value=float(vol.min()))
-    origins, valid = window_origins(volp.shape[:3], patch, pad_multiple=1)
+    origins, valid = window_origins(volp.shape[:3], patch, step_fraction,
+                                    pad_multiple=1)
     origins = origins[valid > 0].tolist()
 
     dtype = (torch.bfloat16 if model.compute_dtype == "bfloat16"

@@ -90,27 +90,32 @@ constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 // dyT_hi[n,h,co,w] = tf32(dy[n,h,w,co]) and dyT_lo = dy - dyT_hi, rows of Wp
 // floats (Wp = W rounded up to 4, so that TMA's row stride is a multiple of
 // 16 bytes).  A 32 x 32 (w, co) tile per block through shared memory: the
-// reads are coalesced along co, the writes along w.
+// reads are coalesced along co, the writes along w.  The N * H rows stride
+// over blockIdx.z (at most 65535 blocks there: a grouped TTA step's top
+// level has 8 x 112 x 112 rows).
 __global__ void __launch_bounds__(256)
 split_transpose_kernel(const float* __restrict__ dy, float* __restrict__ hi,
-                       float* __restrict__ lo, int W, int CO, int Wp) {
+                       float* __restrict__ lo, int W, int CO, int Wp,
+                       long long NH) {
   __shared__ float t[32][33];
-  const size_t nh = blockIdx.z;  // n * H + h
   const int w0 = blockIdx.x * 32, co0 = blockIdx.y * 32;
-  const float* src = dy + nh * W * CO;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int w = w0 + i, co = co0 + threadIdx.x;
-    t[i][threadIdx.x] = (w < W && co < CO) ? src[(size_t)w * CO + co] : 0.f;
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int co = co0 + i, w = w0 + threadIdx.x;
-    if (co >= CO || w >= Wp) continue;
-    const float v = t[threadIdx.x][i];
-    const float h = __uint_as_float(cvt_tf32(v));
-    const size_t o = (nh * CO + co) * Wp + w;
-    hi[o] = h;
-    lo[o] = __fsub_rn(v, h);
+  for (size_t nh = blockIdx.z; nh < (size_t)NH; nh += gridDim.z) {
+    const float* src = dy + nh * W * CO;   // row n * H + h
+    for (int i = threadIdx.y; i < 32; i += 8) {
+      const int w = w0 + i, co = co0 + threadIdx.x;
+      t[i][threadIdx.x] = (w < W && co < CO) ? src[(size_t)w * CO + co] : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.y; i < 32; i += 8) {
+      const int co = co0 + i, w = w0 + threadIdx.x;
+      if (co >= CO || w >= Wp) continue;
+      const float v = t[threadIdx.x][i];
+      const float h = __uint_as_float(cvt_tf32(v));
+      const size_t o = (nh * CO + co) * Wp + w;
+      hi[o] = h;
+      lo[o] = __fsub_rn(v, h);
+    }
+    __syncthreads();
   }
 }
 
@@ -292,15 +297,19 @@ extern "C" int dgtta_conv3x3_wgrad_tf32x3(const void* x, const void* dy,
   if (N <= 0 || depth <= 0 || N % depth != 0 || H <= 0 || W <= 0 || C <= 0 ||
       C % 8 != 0 || CO <= 0 || CO % 8 != 0 || (KZ != 1 && KZ != 3) ||
       splits <= 0 || (splits > 1 && scratch == nullptr) ||
-      (long long)N * H > 65535 || misaligned(x) || misaligned(dy) ||
+      (long long)N * ((H + kTileH - 1) / kTileH) *
+              ((W + kTileW - 1) / kTileW) > 2147483647LL ||
+      misaligned(x) || misaligned(dy) ||
       dyt == nullptr || misaligned(dyt) || misaligned(dw))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* hi = static_cast<float*>(dyt);
   float* lo = hi + (size_t)N * H * CO * Wp;
-  const dim3 tgrid((Wp + 31) / 32, (CO + 31) / 32, N * H);
+  const long long nh = (long long)N * H;
+  const dim3 tgrid((Wp + 31) / 32, (CO + 31) / 32,
+                   (unsigned)(nh < 65535 ? nh : 65535));
   split_transpose_kernel<<<tgrid, dim3(32, 8), 0, s>>>(
-      static_cast<const float*>(dy), hi, lo, W, CO, Wp);
+      static_cast<const float*>(dy), hi, lo, W, CO, Wp, nh);
 
   constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap tmx, tmhi, tmlo;

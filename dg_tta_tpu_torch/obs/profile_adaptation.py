@@ -2,30 +2,38 @@
 default plan through the CLI.
 
     python -m dg_tta_tpu_torch.obs.profile_adaptation
-        [--dtype float32|bfloat16] [--pretrained TS104_GIN|TS104_GIN_MIND|...]
-        [--spatial-aug affine|deformable ...] [--exact-warp-grad]
-        [--trace trace.json] [--no-cli]
+        [--dtype float32|bfloat16 ...]
+        [--pretrained TS104_GIN|TS104_GIN_MIND|...]
+        [--spatial-aug affine|deformable ...] [--patch-group N ...]
+        [--remat] [--exact-warp-grad] [--trace trace.json] [--no-cli]
 
-Each plan of `--spatial-aug` (default: affine; `--spatial-aug affine
-deformable` profiles both back to back, for the deformable premium per
-step and per volume from one call) runs both parts;
-`--exact-warp-grad` gives the unwarps their exact adjoint
-(`DGTTA_EXACT_WARP_GRAD`) in both:
+Each combination of `--dtype`, `--spatial-aug` (default: affine;
+`--spatial-aug affine deformable` profiles both back to back, for the
+deformable premium per step and per volume from one call) and
+`--patch-group` (default 1; `--patch-group 1 2 4` folds 1, 2 and 4 patch
+draws into each step, so that one call compares them on one card) runs
+both parts; `--remat` recomputes both branches in the backward
+(`DGTTA_REMAT`) and `--exact-warp-grad` gives the unwarps their exact
+adjoint (`DGTTA_EXACT_WARP_GRAD`) in both.  The last lines print one
+JSON object per profiled combination (`summary:`):
 
 1. Profile: the full-width U-Net of `--pretrained` (TS104_GIN by default;
    a MIND family computes its descriptor in every forward; 105 classes,
    seeded random weights) adapts on a 224 x 224 x 256 volume at patch
    112 x 112 x 128.
-   One training epoch of `STEPS` accumulated patch steps runs once to
-   warm up, then once under `torch.profiler`: prints the wall time per
-   step, the device time summed per kernel name (top 15), the device's
+   One training epoch of `DRAWS` patch draws (DRAWS / N trained steps of
+   N draws each at patch group N) runs once to warm up, then once under
+   `torch.profiler`: prints the wall time per trained step and per patch
+   draw, the device time summed per kernel name (top 15), the device's
    idle share (one minus the summed device time over the wall time; one
    stream, so device intervals do not overlap), the device kernels per
-   step (every kernel the profiler saw, library ones included), the
-   launches of the port's kernels and the peak device memory.
+   step and per draw (every kernel the profiler saw, library ones
+   included), the launches of the port's kernels and the peak device
+   memory.
 2. CLI (unless --no-cli): `prepare_tta` and `run_tta` of the default
-   TEMPLATE_PLAN (12 epochs x 16 patches x 3 members) on the synthetic
-   workspace of `obs/synthetic.py`, with no member files, in `--dtype`
+   TEMPLATE_PLAN (12 epochs x 16 patches x 3 members; the plan's
+   patch_group and remat set as given) on the synthetic workspace of
+   `obs/synthetic.py`, with no member files, in `--dtype`
    (`DGTTA_COMPUTE_DTYPE`, and `DGTTA_EXACT_WARP_GRAD` with
    `--exact-warp-grad`, are set for the call and restored after it);
    prints the phases of `timings.json`, tta_sec_per_volume (adaptation +
@@ -44,8 +52,9 @@ from pathlib import Path
 import torch
 
 VOLUME_SHAPE = (224, 224, 256)
-# accumulated patch steps of the profiled epoch
-STEPS = 4
+# patch draws of the profiled epoch (every patch group of --patch-group
+# divides it)
+DRAWS = 8
 
 
 def _counters():
@@ -76,7 +85,9 @@ def _trainer(pretrained):
 
 
 def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
-                  spatial_aug="affine", exact=False):
+                  spatial_aug="affine", exact=False, patch_group=1,
+                  remat=False):
+    """Profile one epoch of DRAWS patch draws; returns its summary."""
     from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
     from dg_tta_tpu_torch.obs.synthetic import synthetic_ct
     from dg_tta_tpu_torch.tta.draws import TorchDraws
@@ -90,8 +101,9 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
     model = ts104_model(
         compute_dtype=None if dtype == "float32" else dtype,
         trainer=_trainer(pretrained))
-    plan = TTAPlan(patches_to_be_accumulated=STEPS,
+    plan = TTAPlan(patches_to_be_accumulated=DRAWS,
                    spatial_aug_type=spatial_aug)
+    steps = DRAWS // patch_group
     net = seeded_net(model, 0, device)
     opt = make_optimizer(plan, list(net.parameters()))
     vol, _ = synthetic_ct(np.random.default_rng(0), VOLUME_SHAPE)
@@ -100,7 +112,8 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
     vols = vols.to(device)
     shapes = [list(map(float, VOLUME_SHAPE))]
     idx = np.arange(4)
-    fns = make_tta_functions(model, plan, idx, idx, exact_warp_grad=exact)
+    fns = make_tta_functions(model, plan, idx, idx, exact_warp_grad=exact,
+                             patch_group=patch_group, remat=remat)
     draws = TorchDraws(seed=0)
 
     fns.epoch_train(net, opt, draws, 0, 0, vols, shapes)
@@ -123,25 +136,38 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
             per_name[evt.name] += evt.time_range.elapsed_us() / 1e3
             counts[evt.name] += 1
     busy = sum(per_name.values())
+    kernels = sum(counts.values())
     launches = {k: c.launches - before[k] for k, c in counters.items()}
     print(f"profile: device {torch.cuda.get_device_name(0)}; {pretrained}; "
           f"{spatial_aug}{' exact warp gradient' if exact else ''}; "
-          f"{dtype}; one epoch of {STEPS} patch steps (batch 2 x 112x112x128, both "
-          f"branches) + AdamW; loss {float(loss):.5f}")
-    print(f"profile: wall {wall * 1e3:.1f} ms = {wall * 1e3 / STEPS:.1f} "
-          f"ms/step (profiled), device busy {busy:.1f} ms, idle share "
-          f"{1 - busy / (wall * 1e3):.3f}, device kernels per step "
-          f"{sum(counts.values()) / STEPS:.1f}, peak device memory "
-          f"{peak:.2f} GiB, launches {launches}")
+          f"{dtype}; patch_group {patch_group}{'; remat' if remat else ''}; "
+          f"one epoch of {DRAWS} patch draws in {steps} trained steps "
+          f"(batch {2 * patch_group} x 112x112x128: both branches) + AdamW;"
+          f" loss {float(loss):.5f}")
+    print(f"profile: wall {wall * 1e3:.1f} ms = {wall * 1e3 / steps:.1f} "
+          f"ms/step = {wall * 1e3 / DRAWS:.1f} ms/draw (profiled), device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+          f"device kernels per step {kernels / steps:.1f} = per draw "
+          f"{kernels / DRAWS:.1f}, peak device memory {peak:.2f} GiB, "
+          f"launches {launches}")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"{ms:10.1f} ms {100 * ms / busy:5.1f}% x{counts[name]:<6d} "
               f"{name[:110]}")
     if trace:
         prof.export_chrome_trace(trace)
+    return {"dtype": dtype, "pretrained": pretrained,
+            "spatial_aug": spatial_aug, "exact": exact,
+            "patch_group": patch_group, "remat": remat,
+            "ms_per_step": wall * 1e3 / steps, "ms_per_draw": wall * 1e3 / DRAWS,
+            "idle_share": 1 - busy / (wall * 1e3),
+            "kernels_per_step": kernels / steps,
+            "kernels_per_draw": kernels / DRAWS, "peak_gib": peak,
+            "loss": float(loss)}
 
 
 def run_default_plan(dtype="float32", pretrained="TS104_GIN",
-                     spatial_aug="affine", exact=False):
+                     spatial_aug="affine", exact=False, patch_group=1,
+                     remat=False):
     from dg_tta_tpu_torch.cli.main import main as cli
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
 
@@ -150,7 +176,8 @@ def run_default_plan(dtype="float32", pretrained="TS104_GIN",
                             trainer=_trainer(pretrained))
         cli(["prepare_tta", pretrained, ws.dataset_id])
         results_dir, plan = edit_plan(pretrained,
-                                      spatial_aug_type=spatial_aug)
+                                      spatial_aug_type=spatial_aug,
+                                      patch_group=patch_group, remat=remat)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = _route_counts()
@@ -180,7 +207,8 @@ def run_default_plan(dtype="float32", pretrained="TS104_GIN",
     adapt = phases["adaptation"]["total_s"]
     infer = phases["inference"]["total_s"]
     print(f"cli: {pretrained} default plan, {spatial_aug}"
-          f"{' exact warp gradient' if exact else ''} "
+          f"{' exact warp gradient' if exact else ''}"
+          f"{' remat' if remat else ''} patch_group {patch_group} "
           f"({plan['epochs']} epochs x "
           f"{plan['patches_to_be_accumulated']} patches x "
           f"{plan['ensemble_count']} members, {dtype}) on "
@@ -199,23 +227,36 @@ def main(argv=None):
     from dg_tta_tpu_torch.utils.device import resolve_device
 
     p = argparse.ArgumentParser()
-    p.add_argument("--dtype", default="float32",
+    p.add_argument("--dtype", nargs="+", default=["float32"],
                    choices=["float32", "bfloat16"])
     p.add_argument("--pretrained", default="TS104_GIN",
                    choices=sorted(TS104_ALIASES))
     p.add_argument("--spatial-aug", nargs="+", default=["affine"],
                    choices=["affine", "deformable"])
+    p.add_argument("--patch-group", nargs="+", type=int, default=[1])
+    p.add_argument("--remat", action="store_true")
     p.add_argument("--exact-warp-grad", action="store_true")
     p.add_argument("--trace", default=None)
     p.add_argument("--no-cli", action="store_true")
     args = p.parse_args(argv)
+    bad = [g for g in args.patch_group if g < 1 or DRAWS % g]
+    if bad:
+        p.error(f"--patch-group must divide {DRAWS}, got {bad}")
     resolve_device("cuda")
-    for aug in args.spatial_aug:
-        profile_steps(args.dtype, args.trace, args.pretrained, aug,
-                      args.exact_warp_grad)
+    combos = [(dt, aug, g) for dt in args.dtype for aug in args.spatial_aug
+              for g in args.patch_group]
+    summaries = []
+    for dt, aug, g in combos:
+        trace = args.trace
+        if trace and len(combos) > 1:   # one file per combination
+            trace = str(Path(trace).with_suffix(f".{dt}_{aug}_g{g}.json"))
+        summaries.append(profile_steps(dt, trace, args.pretrained, aug,
+                                       args.exact_warp_grad, g, args.remat))
         if not args.no_cli:
-            run_default_plan(args.dtype, args.pretrained, aug,
-                             args.exact_warp_grad)
+            run_default_plan(dt, args.pretrained, aug, args.exact_warp_grad,
+                             g, args.remat)
+    for s in summaries:
+        print("summary: " + json.dumps(s))
 
 
 if __name__ == "__main__":

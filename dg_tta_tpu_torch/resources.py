@@ -11,6 +11,10 @@ table comes from the checkpoint bundle the user places beside it.
 import json
 from pathlib import Path
 
+# Where the package looks for upstream resource files that it does not
+# ship (the TS104 orientation view of `obs/views.py`).
+RESOURCES = Path(__file__).resolve().parent / "__resources__"
+
 TRAINER_DIRS = [
     "nnUNetTrainer_GIN__nnUNetPlans__3d_fullres",
     "nnUNetTrainer_MIND__nnUNetPlans__3d_fullres",

@@ -276,3 +276,16 @@ def get_parameters_save_path(save_path, sample_id, ensemble_idx) -> Path:
     sample_id = str(sample_id).split("/")[-1]
     return Path(save_path) / \
         f"{sample_id}__ensemble_idx_{ensemble_idx}_tta_parameters.npz"
+
+
+def get_global_idx(list_of_tuple_idx_max):
+    """A global step id packed in decimal digits from (index, maximum)
+    pairs, the last pair in the lowest digits (config_log_utils.py:353-362
+    of the reference): each pair takes as many digits as its maximum
+    has."""
+    global_idx = 0
+    next_multiplier = 1
+    for idx, max_of_idx in reversed(list_of_tuple_idx_max):
+        global_idx += next_multiplier * idx
+        next_multiplier *= 10 ** len(str(int(max_of_idx)))
+    return global_idx

@@ -8,7 +8,8 @@ source built from the JAX package's own draws to hold both packages to the
 same patches, augmentations and noise.
 
 A source gives, for ensemble member `member`, epoch `epoch` and
-accumulation step `step`, a `PatchDraws`:
+accumulation step `step` of `group` x `batch` patches (`patch_group`:
+`group` patch draws folded into one step), a `PatchDraws`:
   * `vol_idx` (B,): the volume of each patch (`tta_across_all_samples`
     stacks several volumes);
   * `uniforms` (B, 3): the patch offset draws in [0, 1), (D, H, W) order
@@ -28,6 +29,12 @@ and for sliding-window inference the MIND noise of window `window` (its
 index in the window grid) through member `member`
 (`window_mind_noise`).  A warm-up epoch and a training epoch read the same
 draws.
+
+`group_draws` concatenates the draws of `group` ungrouped steps into the
+draws of one grouped step, in the forward's layout: `TorchDraws` gives
+group-g step s the draws of its ungrouped steps g*s .. g*s + g - 1, so a
+grouped run adapts on exactly the patches and augmentations of the
+ungrouped one.
 """
 
 import dataclasses
@@ -53,6 +60,58 @@ class PatchDraws:
     mind_noise: Optional[Callable] = None
     field_a: Optional[Callable] = None
     field_b: Optional[Callable] = None
+
+
+def _cat_gin(parts: list) -> Optional[GinDraws]:
+    """The GIN nets of consecutive groups as one net of their patches: the
+    per-patch kernels, shifts and blend weights of each group in turn (a
+    layer's kernel rows are sample-major), each group keeping its own
+    centre-tap masks."""
+    if parts[0] is None:
+        return None
+    layers = tuple(
+        (torch.cat([p.layers[i][0] for p in parts]),
+         torch.cat([p.layers[i][1] for p in parts]))
+        for i in range(len(parts[0].layers)))
+    return GinDraws(layers=layers,
+                    alphas=torch.cat([p.alphas for p in parts]))
+
+
+def group_draws(parts: list) -> PatchDraws:
+    """One step's draws from the draws of `len(parts)` ungrouped steps of
+    `batch` patches each: the per-patch arrays and GIN nets of each group
+    in turn; the MIND noise of the one forward of both branches (2 x
+    group x batch patches) as the a-branch rows of every group, then the
+    b-branch rows (the forward is cat([xa, xb])); each branch's field
+    noise as the rows of each group in turn."""
+    if len(parts) == 1:
+        return parts[0]
+    g = len(parts)
+
+    def cat(key):
+        return np.concatenate([getattr(p, key) for p in parts])
+
+    def mind(shape, device):
+        b = shape[0] // (2 * g)
+        noise = [p.mind_noise((2 * b, *shape[1:]), device) for p in parts]
+        return torch.cat([n[:b] for n in noise] + [n[b:] for n in noise])
+
+    def field(key):
+        def draw(shape, device):
+            b = shape[0] // g
+            return torch.cat([getattr(p, key)((b, *shape[1:]), device)
+                              for p in parts])
+        return draw
+
+    first = parts[0]
+    return PatchDraws(
+        vol_idx=cat("vol_idx"), uniforms=cat("uniforms"),
+        noise_a=cat("noise_a"), noise_b=cat("noise_b"),
+        gin_a=_cat_gin([p.gin_a for p in parts]),
+        gin_b=_cat_gin([p.gin_b for p in parts]),
+        mind_noise=None if first.mind_noise is None else mind,
+        field_a=None if first.field_a is None else field("field_a"),
+        field_b=None if first.field_b is None else field("field_b"))
 
 
 class TorchDraws:
@@ -87,9 +146,16 @@ class TorchDraws:
         return torch.randn(tuple(shape), generator=g, device=device)
 
     def patch(self, member: int, epoch: int, step: int, n_vols: int,
-              batch: int, gin_branches=(), channels: int = 1) -> PatchDraws:
+              batch: int, gin_branches=(), channels: int = 1,
+              group: int = 1) -> PatchDraws:
         """`gin_branches`: the branches ("branch_a", "branch_b") that run
-        GIN on the `channels`-channel patches."""
+        GIN on the `channels`-channel patches.  With `group` > 1, the
+        draws of ungrouped steps group*step .. group*step + group - 1
+        (`group_draws`)."""
+        if group > 1:
+            return group_draws([
+                self.patch(member, epoch, group * step + i, n_vols, batch,
+                           gin_branches, channels) for i in range(group)])
         parts = (member, epoch, "step", step)
         g = self._generator(*parts)
         out = dict(

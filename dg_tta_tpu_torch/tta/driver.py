@@ -7,8 +7,12 @@ missing (`tta/engine.tta_one_volume`); members whose file exists are
 skipped, so an interrupted run resumes member by member.  Each member is
 saved as soon as it finishes, as an `.npz` archive in the JAX package's
 format, so members adapted by either package load in both.  Its per-epoch
-losses and Dices go to the log and, beside the member file, to
-`{id}__ensemble_idx_{m}_tta_results.json`.  Members run one after another
+losses and Dices go to the log, to wandb where a run is active
+(`obs/wandb_log.py`: per epoch and, after evaluation, per bucket), and,
+beside the member file, to `{id}__ensemble_idx_{m}_tta_results.json` and
+the JAX package's loss plot `{id}__ensemble_idx_{m}_tta_results.png`
+(`obs/plots.py`; where matplotlib cannot be imported the run prints one
+line and writes no plot).  Members run one after another
 (the plan's `ensemble_chunk` schedules nothing here).  Phase 2 predicts
 each sample with its members, Phase 3 evaluates against the labels.
 
@@ -17,12 +21,12 @@ wall-clock seconds of every phase (`obs/timers.PhaseTimer`): "adaptation",
 "inference" and the rest.
 
 `DGTTA_EXACT_WARP_GRAD` (any non-empty value, as in the JAX driver) gives
-the unwarp its exact adjoint (`tta/engine.make_tta_functions`).
-
-Not in this slice, and raising `NotImplementedError`: wandb logging, the
-loss plots (`obs/plots.py`; ROADMAP A.6), the JAX driver's environment
-overrides DGTTA_PATCH_GROUP, DGTTA_REMAT and DGTTA_ENGINE, and the
-adaptation features that `tta/engine.check_supported` names.
+the unwarp its exact adjoint (`tta/engine.make_tta_functions`).  The
+plan's `patch_group` and `remat` reach the engine, overridden by
+`DGTTA_PATCH_GROUP` (an int) and `DGTTA_REMAT` (0 or 1) as in the JAX
+driver.  The split engine (the plan's `engine: "split"` or
+`DGTTA_ENGINE=split`) raises `NotImplementedError`
+(`tta/engine.check_supported`).
 """
 
 import dataclasses
@@ -47,10 +51,14 @@ from dg_tta_tpu_torch.models.convert import (load_flat_npz,
                                              load_torch_checkpoint,
                                              save_flat_npz)
 from dg_tta_tpu_torch.models.network import build_model
+from dg_tta_tpu_torch.obs.plots import matplotlib_available, plot_run_results
 from dg_tta_tpu_torch.obs.timers import PhaseTimer
-from dg_tta_tpu_torch.tta.config import get_parameters_save_path
+from dg_tta_tpu_torch.obs.wandb_log import wandb_log, wandb_run_is_available
+from dg_tta_tpu_torch.tta.config import (get_global_idx,
+                                         get_parameters_save_path)
 from dg_tta_tpu_torch.tta.draws import TorchDraws
-from dg_tta_tpu_torch.tta.engine import check_supported, tta_one_volume
+from dg_tta_tpu_torch.tta.engine import (check_patch_group, check_supported,
+                                         tta_one_volume)
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 from dg_tta_tpu_torch.utils.device import resolve_device
 
@@ -170,19 +178,18 @@ def _to_device_volume(sample: TTASample, bucket_shape, device):
     return padded, lab, [float(s) for s in vol.shape[:3]]
 
 
-def _check_driver_supported(plan: TTAPlan):
-    """The adaptation knobs of the JAX driver that this slice does not run
-    raise instead of being ignored."""
-    later = []
-    if plan.wandb_mode != "disabled":
-        later.append(f"wandb logging (wandb_mode={plan.wandb_mode!r}; "
-                     "ROADMAP A.6)")
-    for env in ("DGTTA_PATCH_GROUP", "DGTTA_REMAT", "DGTTA_ENGINE"):
-        if os.environ.get(env):
-            later.append(f"{env} (ROADMAP A.5, left out)")
-    if later:
-        raise NotImplementedError(
-            "not ported to dg_tta_tpu_torch yet: " + "; ".join(later))
+def adaptation_knobs(plan: TTAPlan) -> TTAPlan:
+    """The plan with the JAX driver's environment overrides applied:
+    `DGTTA_PATCH_GROUP` (an int), `DGTTA_REMAT` (0 or 1) and
+    `DGTTA_ENGINE` ("fused" or "split")."""
+    changes = {}
+    if os.environ.get("DGTTA_PATCH_GROUP"):
+        changes["patch_group"] = int(os.environ["DGTTA_PATCH_GROUP"])
+    if os.environ.get("DGTTA_REMAT"):
+        changes["remat"] = bool(int(os.environ["DGTTA_REMAT"]))
+    if os.environ.get("DGTTA_ENGINE"):
+        changes["engine"] = os.environ["DGTTA_ENGINE"]
+    return dataclasses.replace(plan, **changes) if changes else plan
 
 
 def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
@@ -196,6 +203,10 @@ def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
         groups = [samples] if samples else []
     else:
         groups = [[s] for s in samples]
+    plots = matplotlib_available()
+    if not plots and groups and verbose:
+        print("matplotlib cannot be imported: the loss plots are skipped "
+              "(the losses and Dices are in the *_tta_results.json files)")
     for smp_idx, group in enumerate(groups):
         group_id = ("all_samples" if plan.tta_across_all_samples
                     else group[0].sample_id)
@@ -216,9 +227,17 @@ def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
         labs = (torch.stack([p[1] for p in parts])
                 if all(p[1] is not None for p in parts) else None)
 
-        def log_fn(member, epoch, loss, dice):
-            print(f"  member {member} epoch {epoch:3d} loss={loss:.4f} "
-                  f"pseudo-dice={100 * dice:.1f}%")
+        def log_fn(member, epoch, loss, dice, smp_idx=smp_idx,
+                   param_id=param_id, n_groups=len(groups)):
+            if verbose:
+                print(f"  member {member} epoch {epoch:3d} loss={loss:.4f} "
+                      f"pseudo-dice={100 * dice:.1f}%")
+            if wandb_run_is_available():
+                step = get_global_idx([(smp_idx, n_groups),
+                                       (member, plan.ensemble_count),
+                                       (epoch, plan.epochs)])
+                wandb_log({f"losses/loss__{param_id}": loss,
+                           f"scores/eval_dice__{param_id}": dice}, step=step)
 
         def save_member(m, net_m, loss_m, dice_m, member_paths=member_paths,
                         param_id=param_id):
@@ -228,6 +247,9 @@ def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
             results.write_text(json.dumps({
                 "losses": [float(v) for v in loss_m],
                 "eval_dices": [float(v) for v in dice_m]}, indent=2))
+            if plots:
+                plot_run_results(member_paths[m].parent, param_id, m, loss_m,
+                                 dice_m)
 
         if verbose:
             print(f"# TTA {group_id} (members {missing})")
@@ -240,9 +262,10 @@ def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
                 modify_input_fn=modify_input_fn,
                 modify_output_fn=modify_output_fn,
                 modify_after_mapping_fn=modify_after_mapping_fn,
-                log_fn=log_fn if verbose else None, member_indices=missing,
+                log_fn=log_fn, member_indices=missing,
                 save_member_fn=save_member,
-                exact_warp_grad=bool(os.environ.get("DGTTA_EXACT_WARP_GRAD")))
+                exact_warp_grad=bool(os.environ.get("DGTTA_EXACT_WARP_GRAD")),
+                patch_group=plan.patch_group, remat=plan.remat)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
 
@@ -259,7 +282,9 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
     save_path.mkdir(exist_ok=True, parents=True)
     plan.save(save_path / "tta_plan.json")
 
-    _check_driver_supported(plan)
+    plan = adaptation_knobs(plan)
+    check_supported(plan)
+    check_patch_group(plan, plan.patch_group)
     mod = getattr(modifier_fn_module, "ModifierFunctions", None)
     modify_input_fn = getattr(mod, "modify_tta_input_fn", None)
     # adaptation folds the label mapping into the seg head, so there the
@@ -277,7 +302,6 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
     with timer.phase("load_model"):
         model, net, plans, _ = load_pretrained_bundle(
             plan.pretrained_weights_filepath, device)
-    check_supported(model, plan)
 
     with timer.phase("preprocess"):
         samples = load_tta_data(plan, tta_data_dir, plans)
@@ -351,6 +375,9 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
         if verbose:
             print(f"summary_{bucket}: foreground mean Dice = "
                   f"{summary['foreground_mean']['Dice']:.4f}")
+        if wandb_run_is_available():
+            wandb_log({f"scores/tta_dice_mean_{bucket}":
+                       summary["foreground_mean"]["Dice"]})
 
     with open(save_path / "timings.json", "w") as f:
         json.dump({"device": str(device), "phases": timer.summary()}, f,

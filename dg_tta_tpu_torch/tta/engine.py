@@ -35,9 +35,26 @@ Reference quirks kept, as in the JAX package:
   zero band defines the common-content mask of the loss.
 * Epochs before `start_tta_at_epoch` compute the loss but do not update.
 
-Not in this slice; each raises `NotImplementedError` (`check_supported`):
-`patch_group > 1`, `remat` and the split engine (ROADMAP A.5).
-The plan's `ensemble_chunk` schedules nothing: members run one after
+`patch_group` folds that many accumulation steps into the batch, as in
+the JAX package: each trained or warm-up step runs B = batch_size x
+patch_group patches (2B in the forward), an epoch takes
+patches_to_be_accumulated // patch_group steps, and their summed gradient
+is divided by that count; the evaluation stays at batch_size.  The loss
+and the mean gradient average per patch, so a grouped run equals the
+ungrouped one up to the order of its sums, except where an operation
+couples the patches of one call (MIND's clip bound, the loss's
+all-zero-denominator guard; ROADMAP C).  `remat` runs both branches
+(augmentation, forward, unwarps) under `torch.utils.checkpoint`, as the
+JAX package runs them under `jax.checkpoint(both_branches)`: the forward
+keeps only their inputs and the backward recomputes them.  As one
+segment it does not lower the peak memory, since the recompute holds
+every activation again before the backward frees any (ROADMAP C).  The
+draws are handed in and the noise callables are seeded per call, so the
+recompute redraws nothing.
+
+The split engine (a TPU dispatch workaround) raises
+`NotImplementedError` (`check_supported`; ROADMAP "Not ported").  The
+plan's `ensemble_chunk` schedules nothing: members run one after
 another.
 """
 
@@ -47,6 +64,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from dg_tta_tpu_torch.core.fields import (affine_abs_det, deformable_grids,
                                           get_rand_affine)
@@ -65,14 +83,25 @@ def _in_branch(setting: str, branch_id: str) -> bool:
     return setting in (branch_id, "both")
 
 
-def check_supported(model: Model, plan: TTAPlan):
-    """Raise `NotImplementedError`, naming the slice that brings it, for
-    every adaptation feature of the plan or model this slice does not
-    run."""
-    if plan.patch_group != 1 or plan.remat or plan.engine == "split":
+def check_supported(plan: TTAPlan):
+    """Raise `NotImplementedError` for the split engine, which the port
+    does not run."""
+    if plan.engine == "split":
         raise NotImplementedError(
-            "not ported to dg_tta_tpu_torch yet: patch_group > 1, remat and "
-            "the split engine (ROADMAP A.5, left out)")
+            "the split engine is not ported to dg_tta_tpu_torch: a TPU "
+            "dispatch workaround (ROADMAP \"Not ported\"); use the fused "
+            "engine")
+
+
+def check_patch_group(plan: TTAPlan, patch_group: int) -> int:
+    """`patch_group` as an int >= 1 that divides the plan's
+    patches_to_be_accumulated, or ValueError."""
+    group = int(patch_group)
+    if group < 1 or plan.patches_to_be_accumulated % group:
+        raise ValueError(f"patch_group {patch_group} must be >= 1 and "
+                         f"divide patches_to_be_accumulated="
+                         f"{plan.patches_to_be_accumulated}")
+    return group
 
 
 class _WarpWithInverse(torch.autograd.Function):
@@ -175,16 +204,22 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
                        map_idxs_tta,
                        modify_input_fn: Optional[Callable] = None,
                        modify_output_fn: Optional[Callable] = None,
-                       exact_warp_grad: bool = False) -> TTAFunctions:
+                       exact_warp_grad: bool = False,
+                       patch_group: int = 1,
+                       remat: bool = False) -> TTAFunctions:
     """The engine's functions.  modify_input_fn runs after the branch
     augmentation, before the model; modify_output_fn on the mapped logits
     (the user's modifier functions, config_log_utils.py:44-69 of the
     reference).  exact_warp_grad: the unwarp's backward is the exact
-    adjoint of its warp (a scatter-add), not the inverse-map resample."""
-    check_supported(model, plan)
+    adjoint of its warp (a scatter-add), not the inverse-map resample.
+    patch_group, remat: as in the module docstring (the JAX package's
+    keyword arguments; the driver reads them from the plan)."""
+    check_supported(plan)
+    group = check_patch_group(plan, patch_group)
     patch_size = tuple(model.patch_size)
-    B = plan.batch_size
-    n_acc = plan.patches_to_be_accumulated
+    B = plan.batch_size * group
+    B_eval = plan.batch_size
+    n_acc = plan.patches_to_be_accumulated // group
     map_pre = [int(i) for i in np.asarray(map_idxs_pretrain).tolist()]
     n_opt = len(map_pre)
     grads_enabled = plan.have_grad_in in ("branch_a", "both")
@@ -195,9 +230,9 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
     mind_shape = (2 * B, *patch_size, MIND_OUT_CHANNELS)
 
     def patch_draws(draw_source, member, epoch, step, vols):
-        return draw_source.patch(member, epoch, step, vols.shape[0], B,
-                                 gin_branches=gin_branches,
-                                 channels=vols.shape[-1])
+        return draw_source.patch(member, epoch, step, vols.shape[0],
+                                 plan.batch_size, gin_branches=gin_branches,
+                                 channels=vols.shape[-1], group=group)
 
     deformable = plan.spatial_aug_type == "deformable"
     # the deformable fields' interpolation factor (JAX engine.py:281-285)
@@ -257,7 +292,7 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         return _warp_with_inverse(logits_flat, theta_inv, theta, adj_scale,
                                   patch_size, "zeros")
 
-    def both_branches(net, draws, imgs):
+    def both_branches_once(net, draws, imgs):
         """Both branches through one network forward of batch 2B; returns
         the unwarped channels-first flat (B, n_opt, N) logits of each."""
         xa, ctx_a = branch_aug(draws, imgs, "branch_a")
@@ -275,6 +310,14 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         return (branch_unwarp_flat(lf[:B], ctx_a),
                 branch_unwarp_flat(lf[B:], ctx_b))
 
+    def both_branches(net, draws, imgs):
+        """`both_branches_once`; with `remat` (and a gradient to take)
+        recomputed in the backward."""
+        if remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                both_branches_once, net, draws, imgs, use_reentrant=False)
+        return both_branches_once(net, draws, imgs)
+
     def patch_loss(net, draws, imgs):
         la, lb = both_branches(net, draws, imgs)
         return consistency_loss_flat(la, lb, start_class=1)
@@ -285,8 +328,9 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         return patch_loss(net, draws, imgs)
 
     def epoch_train(net, opt, draw_source, member, epoch, vols, shapes):
-        """n_acc patch steps, their summed gradient over n_acc, one AdamW
-        step.  Returns the mean loss (a 0-d tensor)."""
+        """n_acc patch steps (of B patches each), their summed gradient
+        over n_acc, one AdamW step.  Returns the mean loss (a 0-d
+        tensor)."""
         params = [p for g in opt.param_groups for p in g["params"]]
         for p in params:
             p.grad = None
@@ -321,13 +365,14 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
                   labels):
         """Centre-patch Dice against the ground truth (tta.py:283-338 of
         the reference), nanmean over the foreground classes."""
-        idx = draw_source.eval_volumes(member, epoch, rep, vols.shape[0], B)
-        imgs, labs = extract_batch(idx, None, vols, shapes, patch_size, B,
-                                   labels_padded=labels, fixed=True)
+        idx = draw_source.eval_volumes(member, epoch, rep, vols.shape[0],
+                                       B_eval)
+        imgs, labs = extract_batch(idx, None, vols, shapes, patch_size,
+                                   B_eval, labels_padded=labels, fixed=True)
         if modify_input_fn is not None:
             imgs = modify_input_fn(imgs)
         noise = (draw_source.eval_mind_noise(
-            member, epoch, rep, (B, *patch_size, MIND_OUT_CHANNELS),
+            member, epoch, rep, (B_eval, *patch_size, MIND_OUT_CHANNELS),
             imgs.device) if model.needs_mind_noise else None)
         logits = model.apply(net, imgs, head_channel_idx=map_pre,
                              mind_noise=noise)
@@ -394,7 +439,8 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
                    modify_after_mapping_fn: Optional[Callable] = None,
                    log_fn: Optional[Callable] = None, member_indices=None,
                    save_member_fn: Optional[Callable] = None,
-                   exact_warp_grad: bool = False):
+                   exact_warp_grad: bool = False,
+                   patch_group: int = 1, remat: bool = False):
     """Adapt the ensemble members of one volume (or, with
     tta_across_all_samples, of a stack of volumes), one after another on
     the volumes' device.
@@ -405,7 +451,7 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
     member's draws depend on its id only (`draw_source`), so a resume
     subset redraws what the full run would have.  save_member_fn(member,
     net, losses, dices) runs as soon as a member finishes.
-    exact_warp_grad: the unwarp's exact adjoint (`make_tta_functions`).
+    exact_warp_grad, patch_group, remat: as in `make_tta_functions`.
 
     Returns (adapted networks in member_indices order, losses (epochs, M),
     dices (epochs, M)).
@@ -420,7 +466,8 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
     fns = make_tta_functions(model, plan, map_idxs_pretrain, map_idxs_tta,
                              modify_input_fn=modify_input_fn,
                              modify_output_fn=out_fn,
-                             exact_warp_grad=exact_warp_grad)
+                             exact_warp_grad=exact_warp_grad,
+                             patch_group=patch_group, remat=remat)
     members = (list(range(plan.ensemble_count)) if member_indices is None
                else list(member_indices))
     nets, losses, dices = [], [], []

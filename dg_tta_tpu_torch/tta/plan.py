@@ -50,8 +50,10 @@ class TTAPlan:
     num_processes: int = 1
     wandb_mode: str = "disabled"
     # --- adaptation knobs of the JAX package's plan (extensions over the
-    # reference plan).  Kept so plan files round-trip between the two
-    # packages; the port's inference path reads none of them. -------------
+    # reference plan), so plan files round-trip between the two packages.
+    # The driver hands patch_group and remat to the engine; ensemble_chunk
+    # schedules nothing (members run one after another) and the split
+    # engine raises. --------------------------------------------------------
     ensemble_chunk: Optional[int] = None
     patch_group: int = 1
     remat: bool = False

@@ -559,7 +559,11 @@ def test_wgrad_c1_is_deterministic(cuda_device, dtype):
 # halo row, the 7 x 8 level, C = 512, CO = 320, one z-tap) and a longer sum
 # over many splits, each past the accumulator's promotion.
 WGRAD_TF32X3_CASES = dict(TF32X3_CASES,
-                          long_sum_c32=(16, 8, 56, 64, 32, 32, 3))
+                          long_sum_c32=(16, 8, 56, 64, 32, 32, 3),
+                          # N * H > 65535 rows for the dy pre-pass, past one
+                          # grid dimension (a patch_group = 4 TTA step's top
+                          # level has 896 x 112)
+                          many_rows=(600, 8, 112, 8, 16, 16, 3))
 
 
 @pytest.mark.cuda

@@ -56,6 +56,18 @@ from dg_tta_tpu_torch.tta.engine import (make_tta_functions,
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 from tests.test_torch_mind import jax_gin_draws
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads for the module's torch work, restored after:
+    the suite runs six workers on one machine, where torch's default of a
+    thread per core made deformable cases of tests/test_torch_patch_group.py
+    (which imports this fixture) 10-45x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 SPEC = dict(features_per_stage=(8, 16), kernel_sizes=((3, 3, 3),) * 2,
             strides=((1, 1, 1), (2, 2, 2)), n_conv_per_stage_encoder=(1, 1),
             n_conv_per_stage_decoder=(1,), num_input_channels=1,
@@ -112,7 +124,11 @@ def synth_labels(shape=VOL_SHAPE):
 
 class JaxDraws:
     """The draws of the JAX engine's `member_run` for base key `key` (the
-    key `tta_one_volume` gets), in the port's draw-source interface."""
+    key `tta_one_volume` gets), in the port's draw-source interface.
+    `n_acc` is the engine's steps per epoch: at `patch_group` g, the JAX
+    engine draws step s from split(k_tr, n_acc // g)[s] at batch B * g,
+    so a grouped run takes JaxDraws(key, n_acc // g), whose `patch`
+    draws `group` x `batch` patches from that key."""
 
     def __init__(self, key, n_acc):
         self.key, self.n_acc = key, n_acc
@@ -125,7 +141,8 @@ class JaxDraws:
         return jax.random.split(k_tr, self.n_acc)[step]
 
     def patch(self, member, epoch, step, n_vols, batch, gin_branches=(),
-              channels=1):
+              channels=1, group=1):
+        batch = batch * group
         k_patch, k_aug = jax.random.split(self.step_key(member, epoch, step))
         k_idx, k_p = jax.random.split(k_patch)
         idx = np.asarray(jax.random.randint(k_idx, (batch,), 0, n_vols))
@@ -493,31 +510,28 @@ def test_gin_and_mind_draws_stable_under_member_subsets(setup):
     assert not torch.equal(d1.gin_a.layers[0][0], d1.gin_b.layers[0][0])
 
 
-@pytest.mark.parametrize("change", [
-    dict(patch_group=2), dict(remat=True), dict(engine="split")])
+@pytest.mark.parametrize("change", [dict(engine="split")])
 def test_features_of_later_slices_raise(setup, change):
+    """The split engine, a TPU dispatch workaround, is not ported: it
+    raises, naming ROADMAP's "Not ported" list (patch_group and remat run:
+    tests/test_torch_patch_group.py)."""
     plan = TTAPlan(epochs=1, patches_to_be_accumulated=1, ensemble_count=1,
                    **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Not ported"):
         _run(plan, setup)
 
 
-@pytest.mark.parametrize("env", ["DGTTA_REMAT"])
+@pytest.mark.parametrize("env", ["DGTTA_ENGINE"])
 def test_driver_knobs_of_later_slices_raise(tmp_path, monkeypatch, env):
-    from dg_tta_tpu_torch.obs.plots import plot_run_results
+    """DGTTA_ENGINE=split raises before anything loads; wandb_mode and
+    the other knobs run (tests/test_torch_patch_group.py)."""
     from dg_tta_tpu_torch.tta.driver import tta_main
 
     plan = TTAPlan(optimized_labels=("background",))
-    monkeypatch.setenv(env, "1")
-    with pytest.raises(NotImplementedError, match=env):
+    monkeypatch.setenv(env, "split")
+    with pytest.raises(NotImplementedError, match="Not ported"):
         tta_main("run", plan, tmp_path, tmp_path, {"background": (0, 0)},
                  device="cpu")
-    monkeypatch.delenv(env)
-    with pytest.raises(NotImplementedError, match="wandb"):
-        tta_main("run", dataclasses.replace(plan, wandb_mode="online"),
-                 tmp_path, tmp_path, {"background": (0, 0)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="plots"):
-        plot_run_results(tmp_path, "case", 0, [0.1], [0.5])
 
 
 def test_bf16_adaptation_tracks_f32(setup):

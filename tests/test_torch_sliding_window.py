@@ -187,3 +187,34 @@ def test_predict_volume_mind_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="draw source"):
         tsw.predict_volume(tm, nets, torch.from_numpy(vol))
+
+
+def test_predict_volume_step_fraction_matches_jax(monkeypatch):
+    """`step_fraction` reaches the window grid: at 0.75 the port runs the
+    JAX package's windows (fewer than at 0.5) and matches its logits at
+    the tolerance above."""
+    nets, stacked = _members((1, 2))
+    vol = np.random.default_rng(10).normal(size=(40, 19, 33, 1)).astype(
+        np.float32)
+    covered = tsw.padded_shape(vol.shape[:3], MODEL.patch_size)
+    counts = {}
+    for f in (0.5, 0.75):
+        _, tv = tsw.window_origins(covered, MODEL.patch_size, f)
+        _, jv = jsw.window_origins(covered, JAX_MODEL.patch_size, f)
+        counts[f] = int(tv.sum())
+        assert counts[f] == int(jv.sum())
+    assert counts[0.75] < counts[0.5]
+    calls = []
+    apply = Model.apply
+
+    def counted(self, net, x, **kw):
+        calls.append(x.shape[0])
+        return apply(self, net, x, **kw)
+
+    ref = np.asarray(jsw.predict_volume(JAX_MODEL, stacked, jnp.asarray(vol),
+                                        step_fraction=0.75, window_batch=1))
+    monkeypatch.setattr(Model, "apply", counted)
+    got = tsw.predict_volume(MODEL, nets, torch.from_numpy(vol),
+                             step_fraction=0.75)
+    assert sum(calls) == counts[0.75] * len(nets)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
