@@ -167,7 +167,16 @@ Phases; any failure raises and the script exits non-zero:
    that
    the warp's grid entry and the exact adjoint's two entries launched
    where the plan and the flag put them (the affine runs: no grid entry,
-   the exact one the adjoint's affine entry only).
+   the exact one the adjoint's affine entry only);
+8. several processes (`phase_parallel`, `parallel/`), sharing this one
+   card over gloo: `run_tta` of the TS104_GIN f32 smoke plan with Phase
+   1 over 3 ranks (`--num_devices 3 --backend gloo`, a member each), its
+   launches this process's and the ranks' summed (`DGTTA_RANK_STATS_DIR`)
+   and held to `expected_launches`, its epoch-0 member losses to the
+   serial run's; one data-parallel pretraining step of the full-width
+   TS104_GIN_MIND net over 2 ranks x batch 1 against the one-process step
+   at batch 2; window-sharded `predict_volume` over 2 ranks against the
+   unsharded call; and a one-rank NCCL group with an all-reduce.
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
 beside them where a kernel serves both types; the CUDA-core rows at the
@@ -177,8 +186,9 @@ and bounds on the CUDA-core kernels (forced); the
 MIND stem's rows on "few" with the forced padded-route and CUDA-core
 times beside them; the warp's
 grid entry per deformable branch of a trained step, the exact adjoint's
-grid entry on a deformable grid and its affine entry) and, last, one JSON
-line naming the device.
+grid entry on a deformable grid and its affine entry; each row's launches
+count the main-path runs, `phase_parallel`'s ranks included) and, last,
+one JSON line naming the device.
 """
 
 import contextlib
@@ -302,6 +312,26 @@ REMAT_GRAD_RTOL = 1e-3
 # 2 x 4 x 112 planes x 112 rows = 100352 dy rows, past grid z's 65535)
 # and in two steps of 2 (bf16).
 GROUPED_RUNS = (("float32", 4), ("bfloat16", 2))
+# phase_parallel: the ranks of its run_tta (one member each, sharing the
+# card), and its tolerances against the serial run: the epoch-0 member
+# losses (a warm-up epoch: the same forwards in another process) at
+# PARALLEL_LOSS_RTOL, the later ones at PARALLEL_LATER_RTOL and each
+# parameter's update (adapted - pretrained) at PARALLEL_UPDATE_RTOL of its
+# norm (the dry run's card tolerances, `parallel/dryrun.CARD_TOL`: AdamW
+# steps ~lr x sign(gradient), so a gradient summed in another order flips
+# the entries near zero); the data-parallel step's and the data-parallel
+# run_pretraining's logged losses, their updates of all parameters
+# together (of its norm) and each parameter's difference per entry (of
+# the update's RMS: `parallel/dryrun.update_errors`), at DP_STEP_RTOL
+# against the one-process run's (sums over the batch in another order)
+PARALLEL_RANKS = 3
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_LATER_RTOL = 1e-2
+PARALLEL_UPDATE_RTOL = 0.3
+DP_STEP_RTOL = 1e-3
+DP_LEAF_RTOL = 5e-2
+# the data-parallel run_pretraining: 2 ranks x batch 1
+DP_RANKS = 2
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3",
@@ -1710,45 +1740,29 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
 
 
 def _read_counts():
-    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
-                                                  route_launches)
-    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
-                                               warp_affine_flat_adjoint,
-                                               warp_flat, warp_flat_adjoint)
+    from dg_tta_tpu_torch.kernels.counts import read_counts
 
-    out = {"conv3x3": conv3x3.launches,
-           "conv3x3_wgrad": conv3x3_wgrad.launches,
-           "conv3x3_padded": conv3x3.padded_launches,
-           "conv3x3_wgrad_padded": conv3x3_wgrad.padded_launches,
-           "warp": warp_flat.launches,
-           "warp_affine": warp_affine_flat.launches,
-           "warp_adjoint": warp_flat_adjoint.launches,
-           "warp_affine_adjoint": warp_affine_flat_adjoint.launches}
-    for fn, prefix in ((conv3x3, "conv3x3"), (conv3x3_wgrad, "conv3x3_wgrad")):
-        out.update({f"{prefix}_{r}": n for r, n in route_launches(fn).items()})
-    return out
+    return read_counts()
 
 
 def _zero_counts():
-    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_wgrad,
-                                                  zero_launches)
-    from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat,
-                                               warp_affine_flat_adjoint,
-                                               warp_flat, warp_flat_adjoint)
+    from dg_tta_tpu_torch.kernels.counts import zero_counts
 
-    zero_launches(conv3x3)
-    zero_launches(conv3x3_wgrad)
-    warp_flat.launches = warp_affine_flat.launches = 0
-    warp_flat_adjoint.launches = warp_affine_flat_adjoint.launches = 0
+    zero_counts()
 
 
 def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
-                    exact: bool = False, **plan_changes):
+                    exact: bool = False, cli_args=(), ranks: int = 1,
+                    **plan_changes):
     """`run_tta` of a seeded `pretrained` checkpoint through the CLI with
     `DGTTA_COMPUTE_DTYPE=dtype` (and `DGTTA_EXACT_WARP_GRAD=1` if `exact`),
-    the smoke plan changed by `plan_changes`; returns the kernels' launch
-    counts of that run and each member's per-epoch losses (from its
-    `*_tta_results.json`)."""
+    the smoke plan changed by `plan_changes`, `cli_args` appended; returns
+    the kernels' launch counts of that run, each member's per-epoch
+    losses (from its `*_tta_results.json`) and the member files' paths
+    and the pretrained checkpoint's.  With `ranks` > 1 (Phase 1
+    spread over that many processes by `cli_args`), the launches are this
+    process's and the ranks' (`DGTTA_RANK_STATS_DIR`) summed, and
+    `timings.json` must name the ranks."""
     import numpy as np
     import torch
 
@@ -1771,7 +1785,8 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     tag = (f"main path {pretrained} {plan['spatial_aug_type']} {dtype}"
            f"{' exact warp gradient' if exact else ''}"
            + (f" patch_group {plan['patch_group']}"
-              if plan.get("patch_group", 1) > 1 else ""))
+              if plan.get("patch_group", 1) > 1 else "")
+           + (f" over {ranks} ranks" if ranks > 1 else ""))
     log(f"{tag}: {ws.n_params} parameters, {N_CLASSES} classes, "
         f"{model.spec.num_input_channels} input channels, volume "
         f"{VOLUME_SHAPE}, {n_members} members adapted from scratch; plan "
@@ -1784,18 +1799,30 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
     if exact:
         os.environ["DGTTA_EXACT_WARP_GRAD"] = "1"
+    stats = work / "rank_stats"
+    stats.mkdir(parents=True, exist_ok=True)
+    os.environ["DGTTA_RANK_STATS_DIR"] = str(stats)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         t0 = time.perf_counter()
-        summaries = cli(["run_tta", pretrained, ws.dataset_id])
+        summaries = cli(["run_tta", pretrained, ws.dataset_id,
+                         *cli_args])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
     finally:
         del os.environ["DGTTA_COMPUTE_DTYPE"]
+        del os.environ["DGTTA_RANK_STATS_DIR"]
         os.environ.pop("DGTTA_EXACT_WARP_GRAD", None)
+    rank_stats = [json.loads(p.read_text())
+                  for p in sorted(stats.glob("rank*.json"))]
+    if len(rank_stats) != (ranks if ranks > 1 else 0):
+        raise AssertionError(f"{tag}: {len(rank_stats)} ranks wrote their "
+                             f"stats, expected {ranks}")
+    for r in rank_stats:
+        launches = {k: v + r["launches"][k] for k, v in launches.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if launches != expected:
@@ -1826,9 +1853,10 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
                              f"times")
     (run_dir,) = [p for p in results_dir.iterdir() if p.is_dir()]
     pretrained = load_flat_npz(ws.checkpoint)
-    losses = []
+    losses, member_paths = [], []
     for i in range(n_members):
         path = get_parameters_save_path(run_dir / "tta_outputTs", "case", i)
+        member_paths.append(path)
         losses.append(json.loads((path.parent / f"case__ensemble_idx_{i}"
                                   "_tta_results.json").read_text())["losses"])
         sd = load_flat_npz(path)
@@ -1848,8 +1876,14 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
     timings = json.loads((run_dir / "timings.json").read_text())
     phases = timings["phases"]
     if not (timings["device"].startswith("cuda") and "adaptation" in phases
-            and "inference" in phases):
+            and "inference" in phases and timings["ranks"] == ranks):
         raise AssertionError(f"timings.json: {timings}")
+    if rank_stats:
+        log(f"{tag}: ranks {[r['device'] for r in rank_stats]}, "
+            f"{[round(r['seconds'], 2) for r in rank_stats]} s each, peak "
+            f"device memory "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in rank_stats]} "
+            f"GiB; this process's launches (Phase 2) and the ranks' summed")
     adapt_s = phases["adaptation"]["total_s"]
     infer_s = phases["inference"]["total_s"]
     log(f"{tag}: run_tta {wall:.2f} s wall; phases "
@@ -1862,7 +1896,7 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
         f"{launches} (expected {expected}); foreground Dice "
         f"{summaries['Ts']['foreground_mean']['Dice']:.4f} (random weights)"
         f"; member losses {losses}")
-    return launches, np.asarray(losses)
+    return launches, np.asarray(losses), (member_paths, ws.checkpoint)
 
 
 def phase_remat():
@@ -2157,7 +2191,10 @@ def phase_pretrain(work: Path):
     per epoch; the checkpoints read back by the port's `run_tta` bundle
     loader; then a profiled step (ms, device busy share, kernels per step,
     peak memory: `obs/profile_pretrain.profile_steps`).  Returns each run's
-    launch counts."""
+    launch counts, and what `phase_parallel`'s data-parallel runs are held
+    to: the dataset, its plans and the GIN_MIND run's initial weights, and
+    its logs and final weights after PRETRAIN_EPOCHS and after the
+    resumed epoch ("runs")."""
     import torch
 
     from dg_tta_tpu_torch.models.convert import load_flat_npz
@@ -2175,6 +2212,8 @@ def phase_pretrain(work: Path):
         f"{time.perf_counter() - t0:.1f} s")
     gin_mind, multires = "nnUNetTrainer_GIN_MIND", "nnUNetTrainer_GIN_MultiRes"
     runs = {}
+    ref = dict(work=Path(work), dataset_id=dataset_id, plans=plans,
+               dataset_json=dataset_json, runs=[])
     for tag, trainer, epochs, iters, resume in (
             ("GIN_MIND", gin_mind, (0, PRETRAIN_EPOCHS), PRETRAIN_ITERS,
              False),
@@ -2232,12 +2271,222 @@ def phase_pretrain(work: Path):
             f"{expected}); checkpoint_final.npz read by the run_tta bundle "
             f"loader")
         runs[f"pretrain {tag}", "float32"] = launches
+        if trainer == gin_mind:
+            ref["runs"].append((entries, saved))
+            # run_pretraining's initial weights (its default seed, 0)
+            ref["init"] = model.init_params(torch.Generator().manual_seed(0))
     prof = profile_steps(plans, gin_mind, steps=2)
     log(f"pretraining profile: {gin_mind} {prof['ms_per_step']:.1f} ms/step, "
         f"device busy {prof['busy_ms']:.1f} ms/step (busy share "
         f"{1 - prof['idle_share']:.3f}), {prof['kernels_per_step']:.1f} "
         f"device kernels per step, peak device memory "
         f"{prof['peak_gib']:.2f} GiB")
+    return runs, ref
+
+
+def _dp_pretraining(work: Path, pre):
+    """`run_pretraining(num_devices=DP_RANKS, backend="gloo")` of
+    TS104_GIN_MIND on `phase_pretrain`'s dataset, at its PRETRAIN_EPOCHS x
+    PRETRAIN_ITERS (batch 2, one patch a rank), then resumed for one more
+    epoch; each run held to the one-process run's (`pre`): launches
+    summed over the ranks (`DGTTA_RANK_STATS_DIR`) to DP_RANKS times
+    `expected_pretrain_launches`, the logged losses and
+    `checkpoint_final.npz`'s whole update at DP_STEP_RTOL, its parameters'
+    at DP_LEAF_RTOL (`parallel/dryrun.update_errors`).  Returns each run's
+    launch counts."""
+    from dg_tta_tpu_torch.models.convert import load_flat_npz
+    from dg_tta_tpu_torch.models.network import build_model
+    from dg_tta_tpu_torch.parallel import dryrun
+    from dg_tta_tpu_torch.train.pretrain import run_pretraining
+
+    gin_mind = "nnUNetTrainer_GIN_MIND"
+    model = build_model(pre["plans"], pre["dataset_json"], gin_mind)
+    results, stats = work / "results", work / "rank_stats"
+    results.mkdir(parents=True)
+    stats.mkdir()
+    pwork = pre["work"]
+    os.environ.update(nnUNet_raw=str(pwork / "raw"),
+                      nnUNet_preprocessed=str(pwork / "preprocessed"),
+                      nnUNet_results=str(results),
+                      DGTTA_RANK_STATS_DIR=str(stats))
+    runs = {}
+    try:
+        for tag, epochs, resume, (ref_log, ref_final) in (
+                ("", (0, PRETRAIN_EPOCHS), False, pre["runs"][0]),
+                (" resumed", (PRETRAIN_EPOCHS, PRETRAIN_EPOCHS + 1), True,
+                 pre["runs"][1])):
+            for f in stats.glob("rank*.json"):
+                f.unlink()
+            n = epochs[1] - epochs[0]
+            expected = {k: DP_RANKS * v for k, v in expected_pretrain_launches(
+                model.spec, n * PRETRAIN_ITERS, n * PRETRAIN_VAL_ITERS,
+                False).items()}
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = run_pretraining(pre["dataset_id"], trainer_name=gin_mind,
+                                  num_epochs=epochs[1],
+                                  iters_per_epoch=PRETRAIN_ITERS,
+                                  val_iters_per_epoch=PRETRAIN_VAL_ITERS,
+                                  plans=pre["plans"],
+                                  continue_training=resume, verbose=False,
+                                  device="cuda", num_devices=DP_RANKS,
+                                  backend="gloo")
+            wall = time.perf_counter() - t0
+            launches = _read_counts()
+            ranks = [json.loads(f.read_text())
+                     for f in sorted(stats.glob("rank*.json"))]
+            if len(ranks) != DP_RANKS:
+                raise AssertionError(f"data-parallel pretraining{tag}: "
+                                     f"{len(ranks)} ranks wrote their stats")
+            for r in ranks:
+                launches = {k: v + r["launches"][k]
+                            for k, v in launches.items()}
+            entries = [json.loads(line) for line in
+                       (out / "training_log.jsonl").read_text().splitlines()]
+            got = [e["loss"] for e in entries]
+            want = [e["loss"] for e in ref_log]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            e = dryrun.update_errors(load_flat_npz(out / "checkpoint_final"
+                                                   ".npz"), ref_final,
+                                     pre["init"])
+            log(f"parallel: data-parallel run_pretraining{tag}, {gin_mind}, "
+                f"epochs {epochs[0]}..{epochs[1]} x {PRETRAIN_ITERS} "
+                f"iterations + {PRETRAIN_VAL_ITERS} validation batches, "
+                f"{DP_RANKS} ranks x batch 1 (gloo, one card): {wall:.2f} s "
+                f"wall (ranks {[round(r['seconds'], 2) for r in ranks]} s, "
+                f"peak {[round(r['peak_bytes'] / 2 ** 30, 2) for r in ranks]}"
+                f" GiB); logged losses {got} vs {want} one process (rel "
+                f"{loss_err:.3e}, tol {DP_STEP_RTOL}); val pseudo-Dice "
+                f"{[x['val_pseudo_dice'] for x in entries]} vs "
+                f"{[x['val_pseudo_dice'] for x in ref_log]}; "
+                f"checkpoint_final.npz: {dryrun.update_report(e)} (tol "
+                f"{DP_STEP_RTOL}, a parameter {DP_LEAF_RTOL}); launches "
+                f"{launches} (expected {expected})")
+            if launches != expected:
+                raise AssertionError(f"data-parallel pretraining{tag}: "
+                                     f"launches {launches}, expected "
+                                     f"{expected}")
+            if [x["epoch"] for x in entries] != list(range(epochs[1])) \
+                    or not (loss_err <= DP_STEP_RTOL
+                            and e["whole"] <= DP_STEP_RTOL
+                            and e["worst"] <= DP_LEAF_RTOL):
+                raise AssertionError(f"data-parallel pretraining{tag} "
+                                     f"misses the one-process run")
+            runs[f"pretrain GIN_MIND over {DP_RANKS} ranks{tag}",
+                 "float32"] = launches
+    finally:
+        del os.environ["DGTTA_RANK_STATS_DIR"]
+    return runs
+
+
+def phase_parallel(work: Path, serial_losses, serial_members, pre):
+    """The several-process paths (`parallel/`) on this one card, its ranks
+    sharing it over gloo, each against its one-process run:
+
+    * `run_tta` of the smoke plan (TS104_GIN, f32) with Phase 1 over
+      PARALLEL_RANKS ranks (`--num_devices 3 --backend gloo`, one member
+      each): every check of `phase_main_path`, its launches this
+      process's and the ranks' summed; the member losses held to the
+      serial run's (`serial_losses`: epoch 0, a warm-up epoch, at
+      PARALLEL_LOSS_RTOL, the trained epoch at PARALLEL_LATER_RTOL), and
+      each member's parameter file to the serial run's
+      (`serial_members`), each parameter's update at PARALLEL_UPDATE_RTOL;
+    * `run_pretraining` over DP_RANKS ranks, and resumed
+      (`_dp_pretraining`), against `phase_pretrain`'s runs (`pre`);
+    * one data-parallel pretraining step of the full-width TS104_GIN_MIND
+      net, 2 ranks x batch 1, against the one-process step at batch 2
+      (`parallel/dryrun.dp_step_rank`, every augmentation gate on): the
+      loss and the SGD update of all parameters together within
+      DP_STEP_RTOL, each parameter's update but those zero to rounding
+      (`parallel/dryrun.update_errors`) within DP_LEAF_RTOL, the replicas
+      equal;
+    * window-sharded `predict_volume` (3 TS104_GIN members, the 224 x 224 x
+      256 volume) over 2 ranks against the unsharded call in rank 0
+      (`parallel/dryrun.predict_rank`: rtol 1e-4, atol 1e-5);
+    * a one-rank NCCL group on cuda:0 and an all-reduce
+      (`parallel/dryrun.all_reduce_rank`), so that the NCCL path starts
+      on this machine too.
+
+    Returns the main-path runs' launch counts."""
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.models.convert import load_flat_npz
+    from dg_tta_tpu_torch.obs.profile_inference import ts104_model
+    from dg_tta_tpu_torch.parallel import dryrun
+    from dg_tta_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    launches, losses, (paths, checkpoint) = phase_main_path(
+        work / "tta", "float32", ranks=PARALLEL_RANKS,
+        cli_args=["--num_devices", str(PARALLEL_RANKS), "--backend", "gloo"])
+    runs = {("TS104_GIN parallel", "float32"): launches}
+    rel = np.abs(losses - serial_losses) / np.abs(serial_losses)
+    init = load_flat_npz(checkpoint)
+    upd, bit = 0.0, True
+    for a, b in zip(paths, serial_members[0]):
+        got, ref = load_flat_npz(a), load_flat_npz(b)
+        upd = max(upd, dryrun.leaf_update_rel(got, ref, init))
+        bit &= all(torch.equal(got[k], ref[k]) for k in ref)
+    log(f"parallel: run_tta over {PARALLEL_RANKS} ranks on one card "
+        f"{time.perf_counter() - t0:.1f} s; member losses "
+        f"{losses.tolist()} vs {serial_losses.tolist()} serial, rel err "
+        f"epoch 0 {rel[:, 0].max():.3e} (tol {PARALLEL_LOSS_RTOL}), later "
+        f"{rel[:, 1:].max():.3e} (tol {PARALLEL_LATER_RTOL}); member files "
+        f"against the serial run's: worst parameter update rel {upd:.3e} "
+        f"(tol {PARALLEL_UPDATE_RTOL}), bit-equal {bit}")
+    if not (rel[:, 0].max() <= PARALLEL_LOSS_RTOL
+            and rel[:, 1:].max() <= PARALLEL_LATER_RTOL
+            and upd <= PARALLEL_UPDATE_RTOL):
+        raise AssertionError("parallel run_tta: the members miss the "
+                             "serial run's")
+
+    runs.update(_dp_pretraining(work / "pretrain", pre))
+
+    t0 = time.perf_counter()
+    model = ts104_model(trainer="nnUNetTrainer_GIN_MIND")
+    job = dryrun.step_job(model, 2, 1, 5, full=True)
+    ref_losses, ref = dryrun.one_process_steps(job, "cuda")
+    ref = {k: v.cpu() for k, v in ref.items()}
+    torch.cuda.empty_cache()
+    got = launch(dryrun.dp_step_rank, 2, "cuda", "gloo", args=(job,))
+    (dp_losses, state, _), (_, other, _) = got
+    replicas = all(torch.equal(a, b) for a, b in zip(state.values(),
+                                                     other.values()))
+    loss_err = abs(dp_losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    e = dryrun.update_errors(state, ref, job.state)
+    log(f"parallel: data-parallel step, TS104_GIN_MIND, 2 ranks x batch 1 "
+        f"vs one process at batch 2: loss {dp_losses[0]:.6f} vs "
+        f"{ref_losses[0]:.6f} (rel {loss_err:.3e}), replicas equal "
+        f"{replicas}; {dryrun.update_report(e)} (tol {DP_STEP_RTOL}, a "
+        f"parameter {DP_LEAF_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (replicas and loss_err <= DP_STEP_RTOL
+            and e["whole"] <= DP_STEP_RTOL and e["worst"] <= DP_LEAF_RTOL):
+        raise AssertionError("parallel: the data-parallel step misses the "
+                             "one-process step")
+
+    t0 = time.perf_counter()
+    model = ts104_model()
+    vol = dryrun.synthetic_volume(3, VOLUME_SHAPE, full=True)[0][0]
+    job = dryrun.PredictJob(model, [dryrun.seeded_state(model, 20 + m)
+                                    for m in range(3)], vol,
+                            return_output=False)
+    res = launch(dryrun.predict_rank, 2, "cuda", "gloo", args=(job,))[0]
+    log(f"parallel: predict_volume over 2 ranks {res['sharded_s']:.2f} s vs "
+        f"{res['serial_s']:.2f} s unsharded (rank 0); max abs err "
+        f"{res['max_abs_err']:.3e} of {res['ref_max_abs']:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not res["close"]:
+        raise AssertionError(f"parallel: window-sharded predict_volume {res}")
+
+    t0 = time.perf_counter()
+    ok, ms = launch(dryrun.all_reduce_rank, 1, "cuda", "nccl",
+                    args=(1 << 20,))[0]
+    log(f"parallel: NCCL, one rank on cuda:0: all-reduce of 4 MiB {ms:.3f} "
+        f"ms, sum right {ok}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("parallel: the NCCL all-reduce is wrong")
     return runs
 
 
@@ -2291,12 +2540,15 @@ def main():
     phase_remat()
     runs, losses = {}, {}
 
+    members = {}
+
     def main_path(key, *args, **kw):
-        runs[key], losses[key] = phase_main_path(*args, **kw)
+        runs[key], losses[key], members[key] = phase_main_path(*args, **kw)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # DG pretraining (configs 4-5): GIN_MIND, GIN_MultiRes, a resume
-        runs.update(phase_pretrain(Path(tmp) / "pretrain"))
+        pre_runs, pre_ref = phase_pretrain(Path(tmp) / "pretrain")
+        runs.update(pre_runs)
         for dtype in ("float32", "bfloat16"):
             main_path(("TS104_GIN", dtype), Path(tmp) / f"gin_{dtype}", dtype)
         # MIND in every forward, GIN in both branches of every step
@@ -2330,6 +2582,11 @@ def main():
                 f"rel err {err:.3e} (tol {GROUPED_LOSS_RTOL[dtype]}); "
                 f"epoch-1 {losses[key][:, 1].tolist()} vs "
                 f"{losses['TS104_GIN', dtype][:, 1].tolist()}")
+        # Phase 1 over 3 ranks sharing the card, a data-parallel step,
+        # window-sharded inference, NCCL
+        runs.update(phase_parallel(
+            Path(tmp) / "parallel", losses["TS104_GIN", "float32"],
+            members["TS104_GIN", "float32"], pre_ref))
 
     def both(key, dtype=None):
         # launches over the main-path runs (of one type)

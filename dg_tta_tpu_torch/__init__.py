@@ -9,8 +9,10 @@ model families (GIN, MIND, GIN_MIND and their MultiRes variants): model
 and checkpoint loading, preprocessing, affine and deformable TTA (Phase
 1, GIN in a branch included, `patch_group` and `remat`), Gaussian
 sliding-window ensemble inference, export and evaluation, wandb logging
-and the loss plots.  Several-GPU runs (`parallel/`) and the JAX
-package's split engine raise `NotImplementedError` here.
+and the loss plots, and runs over several GPUs, one process each
+(`parallel/`: ensemble members in `run_tta`, data-parallel `pretrain`,
+window-sharded inference).  The JAX package's split engine raises
+`NotImplementedError` here.
 
 Layout: every public function takes and returns channels-last tensors,
 `(B, D, H, W, C)` for batches and `(D, H, W, C)` for volumes, as the JAX

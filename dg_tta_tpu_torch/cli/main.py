@@ -3,7 +3,9 @@
 ...`.
 
 The same arguments as `dg_tta_tpu`'s `dgtta`, plus `--device` on
-`pretrain` and `run_tta` (default `cuda`).  `inject_trainers` injects
+`pretrain` and `run_tta` (default `cuda`), and `--backend` on both and
+`--num_devices` on `run_tta` for runs over several processes
+(`parallel/`).  `inject_trainers` injects
 nothing: the DG trainers are a built-in registry
 (`models/network.TRAINER_REGISTRY`), which it lists.
 """
@@ -41,6 +43,7 @@ def _cmd_pretrain(args):
         plans_name=args.plans_name,
         continue_training=args.continue_training,
         device=args.device,
+        backend=args.backend,
     )
 
 
@@ -111,7 +114,13 @@ def _cmd_run_tta(args):
         "dg_tta", lambda run_name, plan, **kw: tta_main(run_name, plan, **kw),
         run_name=run_name, plan=plan, tta_data_dir=tta_data_dir,
         save_base_path=results_dir, label_mapping=label_mapping,
-        modifier_fn_module=modifier_mod, device=device)
+        modifier_fn_module=modifier_mod, device=device,
+        num_devices=args.num_devices, backend=args.backend)
+
+
+BACKEND_HELP = ("torch.distributed backend of a run over several processes "
+                "(default nccl on cuda, gloo on cpu; gloo lets the "
+                "processes share one GPU)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,14 +146,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_iters_per_epoch", type=int, default=50,
                    help="Validation iterations per epoch (nnUNet default 50)")
     p.add_argument("--num_devices", "-num_gpus", type=int, default=1,
-                   help="Data-parallel devices (the nnUNet -num_gpus analog; "
-                        "only 1 in this package)")
+                   help="Data-parallel devices, one process each (the nnUNet "
+                        "-num_gpus analog); must divide the batch size")
     p.add_argument("-p", "--plans_name", default="nnUNetPlans",
                    help="Plans identifier (nnUNet's -p)")
     p.add_argument("--c", dest="continue_training", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu for the "
                         "plain versions of the kernels)")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help=BACKEND_HELP)
     p.set_defaults(fn=_cmd_pretrain)
 
     p = sub.add_parser("prepare_tta", help="Prepare plan dir for TTA")
@@ -169,6 +180,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu for the "
                         "plain versions of the kernels)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="Devices to spread the ensemble members over, one "
+                        "process each (default: every visible GPU; "
+                        "CUDA_VISIBLE_DEVICES restricts them; 1 with "
+                        "--device cpu)")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help=BACKEND_HELP)
     p.set_defaults(fn=_cmd_run_tta)
     return parser
 

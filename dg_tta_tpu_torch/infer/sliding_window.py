@@ -18,6 +18,13 @@ A MIND model computes its descriptor of each window batch with noise on
 the grid) through member m come from a draw source
 (`tta/draws.TorchDraws.window_mind_noise`), and the descriptor's clip
 bound is a mean over the window batch, as in the JAX package.
+
+With a process group (`group`, the port of the JAX `mesh=`), each rank
+runs a contiguous block of the valid window origins
+(`parallel/mesh.shard`) into its own accumulators, an all-reduce of each
+(`parallel/mesh.all_reduce_pieces`) sums them, and every rank normalizes
+the sum.  A window keeps its
+index in the grid, so its MIND noise is the unsharded run's.
 """
 
 import math
@@ -25,11 +32,13 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from scipy.ndimage import gaussian_filter
 
 from dg_tta_tpu_torch.core.patches import bucket_shape_for
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
+from dg_tta_tpu_torch.parallel.mesh import all_reduce_pieces, shard
 
 
 def compute_gaussian(patch_size, sigma_scale: float = 1.0 / 8,
@@ -96,7 +105,7 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
                    vol: torch.Tensor, modify_input_fn=None,
                    modify_output_fn=None, bucket_multiple: int = 32,
                    window_batch: int = 1, draws=None,
-                   step_fraction: float = 0.5) -> torch.Tensor:
+                   step_fraction: float = 0.5, group=None) -> torch.Tensor:
     """Ensemble-mean logits of a (D, H, W, C) volume, (D, H, W, C_out) f32
     on the volume's device.
 
@@ -113,6 +122,11 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
     reproduces the JAX `predict_volume(..., window_batch=1)`.
     `step_fraction`: the window stride as a fraction of the patch
     (`compute_steps_for_sliding_window`; nnUNet's default 0.5).
+    `group`: a `torch.distributed` process group (or
+    `dist.group.WORLD`) whose every rank calls this with the same
+    arguments: each runs its block of the windows, in ascending order and
+    `window_batch` at a time, and all return the sum over the ranks,
+    normalized (the module docstring).
     """
     members = list(members)
     if not members:
@@ -132,7 +146,10 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
                  value=float(vol.min()))
     origins, valid = window_origins(volp.shape[:3], patch, step_fraction,
                                     pad_multiple=1)
-    origins = origins[valid > 0].tolist()
+    windows = list(enumerate(origins[valid > 0].tolist()))
+    if group is not None:
+        windows = shard(windows, dist.get_rank(group),
+                        dist.get_world_size(group))
 
     dtype = (torch.bfloat16 if model.compute_dtype == "bfloat16"
              else torch.float32)
@@ -145,28 +162,30 @@ def predict_volume(model, members: Sequence[torch.nn.Module],
     pd, ph, pw = patch
 
     noise_shape = (1, *patch, MIND_OUT_CHANNELS)
-    for g0 in range(0, len(origins), wb):
-        group = origins[g0:g0 + wb]
+    for g0 in range(0, len(windows), wb):
+        batch = windows[g0:g0 + wb]
         patches = torch.stack([volp[z:z + pd, y:y + ph, x:x + pw]
-                               for z, y, x in group])
+                               for _, (z, y, x) in batch])
         total = None
         for m, net in enumerate(members):
             x = patches if modify_input_fn is None else modify_input_fn(patches)
             noise = None
             if model.needs_mind_noise:
                 noise = torch.cat([
-                    draws.window_mind_noise(g0 + i, m, noise_shape,
-                                            vol.device)
-                    for i in range(len(group))])
+                    draws.window_mind_noise(w, m, noise_shape, vol.device)
+                    for w, _ in batch])
             logits = model.apply(net, x, mind_noise=noise)
             if modify_output_fn is not None:
                 logits = modify_output_fn(logits)
             total = logits.float() if total is None else total + logits.float()
         mean = total / len(members)
-        for i, (z, y, x) in enumerate(group):
+        for i, (_, (z, y, x)) in enumerate(batch):
             acc[z:z + pd, y:y + ph, x:x + pw] += (mean[i] * gauss).to(dtype)
             wacc[z:z + pd, y:y + ph, x:x + pw] += gauss_acc
 
+    if group is not None:
+        all_reduce_pieces(acc, group)
+        all_reduce_pieces(wacc, group)
     out = acc.float() / wacc.float()
     return out[pads[0][0]:pads[0][0] + D, pads[1][0]:pads[1][0] + H,
                pads[2][0]:pads[2][0] + W]

@@ -25,6 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# every kernel source of the package
+SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
+
 _LOADED = {}
 
 
@@ -76,6 +79,12 @@ def build(names) -> dict:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_all() -> dict:
+    """`build(SOURCES)`: every kernel, before several processes would each
+    start the same `nvcc`s (`parallel/mesh.launch`)."""
+    return build(SOURCES)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -84,14 +84,17 @@ class Model:
 
     def apply(self, net: PlainConvUNet, x: torch.Tensor,
               deep_supervision: bool = False, internal_aug: bool = False,
-              head_channel_idx=None, gin_draws=None, mind_noise=None):
+              head_channel_idx=None, gin_draws=None, mind_noise=None,
+              group=None):
         """Forward pass including the trainer's input transforms.
 
         x: (B, D, H, W, C_img) channels-last image.  internal_aug is True
         only during DG pretraining: GIN then runs with `gin_draws`
         (`ops/gin.GinDraws`, required).  A MIND model computes the
         descriptor of x in x's type, with `mind_noise` (standard normal,
-        (B, D, H, W, 12)) on its edge maps; None adds no noise.
+        (B, D, H, W, 12)) on its edge maps; None adds no noise.  `group`:
+        the process group of a data-parallel step, for MIND's clip bound
+        (`ops/mind.mind3d`).
         """
         if internal_aug and self.uses_gin_internal:
             if gin_draws is None:
@@ -99,7 +102,7 @@ class Model:
             x = gin_aug(x, gin_draws)
         if self.uses_mind:
             x = mind3d(x, noise=mind_noise,
-                       noise_scale=self.mind_noise_scale)
+                       noise_scale=self.mind_noise_scale, group=group)
         return net(x, deep_supervision=deep_supervision,
                    compute_dtype=self.compute_dtype,
                    head_channel_idx=head_channel_idx)

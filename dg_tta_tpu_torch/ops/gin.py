@@ -40,6 +40,15 @@ class GinDraws:
     layers: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     alphas: torch.Tensor
 
+    def rows(self, lo: int, hi: int) -> "GinDraws":
+        """The nets of samples lo..hi-1 (a layer's rows are sample-major:
+        sample b's are b * cout .. b * cout + cout - 1)."""
+        nb = self.alphas.shape[0]
+        layers = tuple((k[lo * (k.shape[0] // nb):hi * (k.shape[0] // nb)],
+                        s[lo * (s.shape[0] // nb):hi * (s.shape[0] // nb)])
+                       for k, s in self.layers)
+        return GinDraws(layers=layers, alphas=self.alphas[lo:hi])
+
 
 def _rand_layer_params(generator, nb, cin, cout, ndim, dtype):
     """(kernel (nb * cout, cin, 3, ..), shift (nb * cout,)) of one layer,

@@ -16,7 +16,10 @@ JAX package keeps, and the port with it:
   standard-normal draws (`noise`), None for none;
 * the clip bound is a mean over the whole batch, so the result depends on
   which patches share a call: every caller passes the batch its JAX
-  counterpart passes;
+  counterpart passes; a data-parallel step (`group`, its ranks each
+  holding an equal share of the batch) takes the mean over the ranks
+  with a differentiable all-reduce (`parallel/mesh.all_reduce_sum`), the
+  global batch's, as the JAX package's sharded step computes it;
 * the descriptor computes in the input's type (f32 on every path: MIND
   runs before the U-Net casts to its compute type).
 
@@ -33,7 +36,10 @@ from the host.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from dg_tta_tpu_torch.parallel.mesh import all_reduce_sum
 
 MIND_OUT_CHANNELS = 12
 
@@ -87,11 +93,12 @@ def smooth3d(img: torch.Tensor, sigma: float) -> torch.Tensor:
 
 
 def mind3d(img: torch.Tensor, noise=None, delta: int = 1, sigma: float = 1.0,
-           noise_scale: float = 0.05) -> torch.Tensor:
+           noise_scale: float = 0.05, group=None) -> torch.Tensor:
     """The 12-channel MIND-SSC descriptor of (B, D, H, W, 1) `img`, in
     (0, 1], (B, D, H, W, 12).  `noise`: standard-normal draws of shape
     (B, D, H, W, 12), added to the edge maps times `noise_scale`; None
-    (or noise_scale 0) adds none."""
+    (or noise_scale 0) adds none.  `group`: the process group of a
+    data-parallel step (module docstring), None for one process."""
     B, D, H, W, C = img.shape
     if C != 1:
         raise ValueError(f"MIND expects a single-channel volume, got "
@@ -114,5 +121,8 @@ def mind3d(img: torch.Tensor, noise=None, delta: int = 1, sigma: float = 1.0,
     mind = ssd - ssd.amin(dim=-1, keepdim=True)
     mind_var = mind.mean(dim=-1, keepdim=True)
     global_mean = mind_var.mean()
+    if group is not None:
+        global_mean = (all_reduce_sum(global_mean, group)
+                       / dist.get_world_size(group))
     mind_var = torch.clamp(mind_var, global_mean * 0.001, global_mean * 1000)
     return torch.exp(-(mind / mind_var))

@@ -19,6 +19,15 @@ divides first and, at the TS104 patch's 1/2 scale, picks the other
 neighbour for one target voxel in ten).  `downsample_target` computes that
 index on the host and hands the kernel the picked voxel's centre, which
 its nearest rounding maps back to that voxel with no tie.
+
+Under data parallelism (`group`: the process group whose ranks each hold
+an equal share of the batch) the batch Dice sums its true positives,
+false positives and false negatives over the ranks with a differentiable
+all-reduce (`parallel/mesh.all_reduce_sum`), so every rank's Dice is the
+global batch's; the cross-entropy stays a mean over the rank's share,
+and the ranks' mean of it is the global mean.  With the gradients then
+averaged over the ranks, a step equals the one-process step on the whole
+batch (nnUNet's DDP Dice, its AllGatherGrad).
 """
 
 from typing import Sequence
@@ -26,15 +35,17 @@ from typing import Sequence
 import torch
 
 from dg_tta_tpu_torch.core.grid import _base_coords, grid_sample
+from dg_tta_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def soft_dice_ce(logits, target, batch_dice: bool = True,
-                 smooth: float = 1e-5):
+                 smooth: float = 1e-5, group=None):
     """Dice + CE of one resolution: logits (B, D, H, W, C) in any float
     type (the loss is computed in f32), target (B, D, H, W) int labels.  A
     label outside [0, C) (the preprocessing's -1 outside the nonzero mask)
     has an all-zero one-hot row, as `jax.nn.one_hot` gives it: it adds to
-    no class and to no cross-entropy term, but counts in the mean."""
+    no class and to no cross-entropy term, but counts in the mean.
+    `group`: as in the module docstring (None: one process)."""
     C = logits.shape[-1]
     logits = logits.float()
     target = target.long()
@@ -47,6 +58,8 @@ def soft_dice_ce(logits, target, batch_dice: bool = True,
     tp = torch.sum(sm * onehot, dim=dims)
     fp = torch.sum(sm * (1.0 - onehot), dim=dims)
     fn = torch.sum((1.0 - sm) * onehot, dim=dims)
+    if group is not None and batch_dice:
+        tp, fp, fn = all_reduce_sum(torch.stack([tp, fp, fn]), group)
     dc = (2.0 * tp + smooth) / (2.0 * tp + fp + fn + smooth)
     dice_loss = -torch.mean(dc[..., 1:])   # background excluded
 
@@ -93,16 +106,19 @@ def deep_supervision_weights(n_outputs: int):
     return [x / s for x in w]
 
 
-def deep_supervised_loss(outputs: Sequence, target, batch_dice: bool = True):
+def deep_supervised_loss(outputs: Sequence, target, batch_dice: bool = True,
+                         group=None):
     """Weighted Dice + CE over the deep-supervision heads (highest
-    resolution first); a head of weight 0 is not computed."""
+    resolution first); a head of weight 0 is not computed.  `group`: as
+    in `soft_dice_ce`."""
     weights = deep_supervision_weights(len(outputs))
     total = 0.0
     for w, out in zip(weights, outputs):
         if w == 0.0:
             continue
         tgt = downsample_target(target, out.shape[1:4])
-        total = total + w * soft_dice_ce(out, tgt, batch_dice=batch_dice)
+        total = total + w * soft_dice_ce(out, tgt, batch_dice=batch_dice,
+                                         group=group)
     return total
 
 

@@ -1,5 +1,5 @@
-"""DG pretraining: the nnUNet training loop on one GPU (the port of
-`dg_tta_tpu/train/pretrain.py`, `dgtta pretrain`).
+"""DG pretraining: the nnUNet training loop on one GPU or data-parallel on
+several (the port of `dg_tta_tpu/train/pretrain.py`, `dgtta pretrain`).
 
 Per iteration (`make_train_step`): the augmentation (`train/augment.py`:
 the warp kernel's affine entry for rotation and scale, its grid entry for
@@ -34,6 +34,20 @@ Outputs land in the nnUNet results layout
 either package read, `checkpoint_latest_optimizer.npz` (the momentum
 buffers in the same layout), `training_log.jsonl`, `training_state.json`,
 and beside the fold the plans, dataset and fingerprint JSONs.
+
+With `num_devices` N > 1 (`batch_size % N == 0`, as the JAX package
+asserts), N processes train one copy each (`parallel/mesh.launch`: rank r
+on cuda:r over NCCL, or the caller's backend), rank 0's parameters
+broadcast at the start and after a resume.  Every rank samples the same
+global batch and makes the same draws (the same samplers and draw source
+from the same seed) and takes its rows r B/N .. (r + 1) B/N - 1 of both
+(`StepDraws.rows`), so neither depends on N.  The step's batch Dice and
+MIND's clip bound sum over the ranks (`train/losses.py`, `ops/mind.py`),
+one all-reduce averages the gradients and the loss after the backward,
+and the update then equals the one-process step on the global batch.
+Validation splits its batches alike and sums its counts over the ranks
+once an epoch.  Rank 0 alone writes the checkpoints, the log and the
+state, and the ranks meet at a barrier after each epoch.
 """
 
 import dataclasses
@@ -49,12 +63,15 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dg_tta_tpu_torch.models.convert import load_flat_npz, save_flat_npz
 from dg_tta_tpu_torch.models.network import (MULTIRES_TRAINERS,
                                              TRAINER_REGISTRY, build_model)
 from dg_tta_tpu_torch.ops.gin import GinDraws, draw_gin
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
+from dg_tta_tpu_torch.parallel.mesh import (broadcast_state, default_backend,
+                                            launch)
 from dg_tta_tpu_torch.train.augment import (MULTIRES_ZOOMS, DAConfig,
                                             SampleDraws, augment_batch,
                                             draw_sample)
@@ -84,6 +101,29 @@ class StepDraws:
     da: Tuple[SampleDraws, ...]
     gin: Optional[GinDraws] = None
     mind_noise: Optional[Callable] = None
+
+    def rows(self, lo: int, hi: int) -> "StepDraws":
+        """The draws of batch rows lo..hi-1 (a data-parallel rank's
+        share): those samples' augmentation draws and GIN nets, and the
+        MIND noise drawn at the whole batch's shape, cut to those rows."""
+        return StepDraws(
+            da=self.da[lo:hi],
+            gin=None if self.gin is None else self.gin.rows(lo, hi),
+            mind_noise=None if self.mind_noise is None else _RowsOf(
+                self.mind_noise, len(self.da), lo, hi))
+
+
+@dataclasses.dataclass(frozen=True)
+class _RowsOf:
+    """`(shape, device)` -> rows lo..hi-1 of `draw` at batch `batch`."""
+
+    draw: Callable
+    batch: int
+    lo: int
+    hi: int
+
+    def __call__(self, shape, device):
+        return self.draw((self.batch, *shape[1:]), device)[self.lo:self.hi]
 
 
 class PretrainDraws(TorchDraws):
@@ -115,11 +155,30 @@ def make_optimizer(net: torch.nn.Module) -> torch.optim.SGD:
                            weight_decay=WEIGHT_DECAY)
 
 
-def make_train_step(model, da_cfg: DAConfig, batch_dice: bool = True):
+def _average_grads(params, loss, group):
+    """Average each parameter's gradient and the loss over the ranks of
+    `group`, by one all-reduce of them all flattened; returns the mean
+    loss."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.detach().reshape(1).to(grads[0].dtype)])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1]
+
+
+def make_train_step(model, da_cfg: DAConfig, batch_dice: bool = True,
+                    group=None):
     """`step(net, optimizer, imgs, segs, draws, lr)`: one iteration on a
     (B, D, H, W, C) f32 image batch and its (B, D, H, W, 1) f32 labels,
     with `draws` (`StepDraws`); returns the loss (a 0-d tensor on the
-    device, not synchronized)."""
+    device, not synchronized).  `group`: the process group of a
+    data-parallel step, each rank calling it on its share of the batch
+    and of the draws; the loss returned is then the global batch's."""
 
     def step(net, optimizer, imgs, segs, draws: StepDraws, lr: float):
         imgs_aug, segs_aug = augment_batch(draws.da, imgs, segs, da_cfg)
@@ -129,27 +188,31 @@ def make_train_step(model, da_cfg: DAConfig, batch_dice: bool = True):
                 (*imgs.shape[:-1], MIND_OUT_CHANNELS), imgs.device)
         outputs = model.apply(net, imgs_aug, deep_supervision=True,
                               internal_aug=True, gin_draws=draws.gin,
-                              mind_noise=noise)
+                              mind_noise=noise, group=group)
         loss = deep_supervised_loss(outputs, segs_aug[..., 0].long(),
-                                    batch_dice=batch_dice)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+                                    batch_dice=batch_dice, group=group)
+        for param_group in optimizer.param_groups:
+            param_group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for p in net.parameters():
+        params = list(net.parameters())
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            loss = _average_grads(params, loss, group)
         optimizer.step()
         return loss.detach()
 
     return step
 
 
-def make_val_step(model):
+def make_val_step(model, group=None):
     """`val_step(net, imgs, segs)`: per foreground class, the true
     positives, false positives and false negatives of the argmax of the
     un-augmented batch (MIND without noise), int64 tensors of
-    (num_classes - 1,)."""
+    (num_classes - 1,).  `group`: as in `make_train_step` (MIND's clip
+    bound over the global batch); the counts stay the rank's own."""
     n_cls = model.spec.num_classes
 
     def count(v):
@@ -159,7 +222,8 @@ def make_val_step(model):
 
     @torch.no_grad()
     def val_step(net, imgs, segs):
-        pred = torch.argmax(model.apply(net, imgs), dim=-1).flatten()
+        pred = torch.argmax(model.apply(net, imgs, group=group),
+                            dim=-1).flatten()
         gt = segs[..., 0].long().flatten()
         tp = count(gt[pred == gt])
         return tp, count(pred) - tp, count(gt) - tp
@@ -317,6 +381,29 @@ def _next_batch(q):
     return item
 
 
+@dataclasses.dataclass(frozen=True)
+class _Training:
+    """A pretraining run, set up: what every rank needs."""
+
+    out_dir: Path
+    store: Path
+    train_cases: list
+    val_cases: list
+    patch_size: tuple
+    model: object
+    trainer_name: str
+    da_cfg: DAConfig
+    batch_dice: bool
+    batch_size: int
+    n_img_channels: int
+    num_epochs: int
+    iters_per_epoch: int
+    val_iters_per_epoch: int
+    continue_training: bool
+    seed: int
+    verbose: bool
+
+
 def run_pretraining(dataset_id, configuration: str = "3d_fullres",
                     fold=0, trainer_name: str = "nnUNetTrainer_GIN",
                     num_epochs: int = 1000, continue_training: bool = False,
@@ -325,17 +412,19 @@ def run_pretraining(dataset_id, configuration: str = "3d_fullres",
                     val_iters_per_epoch: int = VAL_ITERS_PER_EPOCH,
                     batch_size: Optional[int] = None,
                     num_devices: int = 1, plans_name: str = "nnUNetPlans",
-                    seed: int = 0, verbose: bool = True, device=None):
+                    seed: int = 0, verbose: bool = True, device=None,
+                    backend: Optional[str] = None):
     """The `dgtta pretrain` entry: trains `trainer_name` on the nnUNet raw
-    dataset `dataset_id` on `device` (CUDA unless "cpu").  Returns the
-    fold's results directory."""
+    dataset `dataset_id` on `device` (CUDA unless "cpu"), data-parallel
+    over `num_devices` processes (module docstring; `backend`: as in
+    `parallel/mesh.launch`, default NCCL on CUDA, gloo on the CPU).
+    Returns the fold's results directory."""
     if trainer_name not in TRAINER_REGISTRY:
         raise KeyError(f"unknown trainer {trainer_name!r}; one of "
                        f"{sorted(TRAINER_REGISTRY)}")
-    if num_devices != 1:
-        raise NotImplementedError(
-            "not ported to dg_tta_tpu_torch yet: data-parallel pretraining "
-            "over several GPUs (num_devices > 1; ROADMAP A.10)")
+    num_devices = int(num_devices)
+    if num_devices < 1:
+        raise ValueError(f"num_devices must be >= 1, got {num_devices}")
     device = resolve_device(device)
     dataset_name = maybe_convert_to_dataset_name(dataset_id)
     fold = int(fold) if str(fold).isnumeric() else fold
@@ -348,6 +437,9 @@ def run_pretraining(dataset_id, configuration: str = "3d_fullres",
     patch_size = tuple(cfg["patch_size"])
     if batch_size is None:
         batch_size = int(cfg.get("batch_size", 2))
+    if batch_size % num_devices:
+        raise ValueError(f"batch size {batch_size} is not divisible by "
+                         f"num_devices {num_devices}")
 
     out_dir = (nnunet_results() / dataset_name /
                f"{trainer_name}__{plans_name}__{configuration}" /
@@ -369,25 +461,59 @@ def run_pretraining(dataset_id, configuration: str = "3d_fullres",
     else:
         train_cases = splits[fold]["train"]
         val_cases = splits[fold]["val"] or train_cases
-    sampler = PatchSampler(store, train_cases, patch_size, seed=seed)
-    val_sampler = PatchSampler(store, val_cases, patch_size,
-                               oversample_fg=1.0, seed=seed + 1)
 
-    model = build_model(plans, dataset_json, trainer_name, configuration)
-    da_cfg = DAConfig(discrete_lowres_zooms=(
-        MULTIRES_ZOOMS if trainer_name in MULTIRES_TRAINERS else None))
-    step = make_train_step(model, da_cfg,
-                           batch_dice=bool(cfg.get("batch_dice", True)))
-    val_step = make_val_step(model)
+    run = _Training(
+        out_dir=out_dir, store=store, train_cases=list(train_cases),
+        val_cases=list(val_cases), patch_size=patch_size,
+        model=build_model(plans, dataset_json, trainer_name, configuration),
+        trainer_name=trainer_name,
+        da_cfg=DAConfig(discrete_lowres_zooms=(
+            MULTIRES_ZOOMS if trainer_name in MULTIRES_TRAINERS else None)),
+        batch_dice=bool(cfg.get("batch_dice", True)), batch_size=batch_size,
+        n_img_channels=len(dataset_json.get("channel_names", {"0": "CT"})),
+        num_epochs=num_epochs, iters_per_epoch=iters_per_epoch,
+        val_iters_per_epoch=val_iters_per_epoch,
+        continue_training=continue_training, seed=seed, verbose=verbose)
+    if num_devices == 1:
+        _train(run, device)
+    else:
+        launch(_train_rank, num_devices, device.type,
+               backend or default_backend(device.type), args=(run,))
+    if verbose:
+        print(f"Training done -> {out_dir / 'checkpoint_final.npz'}")
+    return out_dir
+
+
+def _train_rank(rank, ranks, device, run: _Training):
+    """A rank of a data-parallel run (`parallel/mesh.launch`)."""
+    _train(run, device, dist.group.WORLD)
+
+
+def _train(run: _Training, device, group=None):
+    """The training loop of `run` on `device`: alone (`group` None) or as
+    one rank of `group` (the module docstring)."""
+    rank = dist.get_rank(group) if group is not None else 0
+    ranks = dist.get_world_size(group) if group is not None else 1
+    lead = rank == 0
+    share = run.batch_size // ranks
+    lo, hi = rank * share, (rank + 1) * share
+    model, seed, out_dir = run.model, run.seed, run.out_dir
+    sampler = PatchSampler(run.store, run.train_cases, run.patch_size,
+                           seed=seed)
+    val_sampler = PatchSampler(run.store, run.val_cases, run.patch_size,
+                               oversample_fg=1.0, seed=seed + 1)
+    step = make_train_step(model, run.da_cfg, batch_dice=run.batch_dice,
+                           group=group)
+    val_step = make_val_step(model, group=group)
     draws = PretrainDraws(seed)
-    n_img_channels = len(dataset_json.get("channel_names", {"0": "CT"}))
+    verbose = run.verbose and lead
 
     ckpt_latest = out_dir / "checkpoint_latest.npz"
     ckpt_best = out_dir / "checkpoint_best.npz"
     ckpt_opt = out_dir / "checkpoint_latest_optimizer.npz"
     state_path = out_dir / "training_state.json"
     start_epoch, ema_dice, best_ema = 0, None, None
-    resume = continue_training and ckpt_latest.is_file()
+    resume = run.continue_training and ckpt_latest.is_file()
     if resume:
         net = model.build_network(load_flat_npz(ckpt_latest), device)
         meta = json.loads(state_path.read_text())
@@ -396,6 +522,8 @@ def run_pretraining(dataset_id, configuration: str = "3d_fullres",
     else:
         net = model.build_network(
             model.init_params(torch.Generator().manual_seed(seed)), device)
+    if group is not None:
+        broadcast_state(net, 0, group)
     optimizer = make_optimizer(net)
     if resume:
         if ckpt_opt.is_file():
@@ -406,35 +534,41 @@ def run_pretraining(dataset_id, configuration: str = "3d_fullres",
         if verbose:
             print(f"Resuming from epoch {start_epoch}")
 
-    q, stop, producer = _prefetch(sampler, batch_size, seed,
-                                  range(start_epoch, num_epochs),
-                                  iters_per_epoch, device)
+    q, stop, producer = _prefetch(sampler, run.batch_size, seed,
+                                  range(start_epoch, run.num_epochs),
+                                  run.iters_per_epoch, device)
     log_path = out_dir / "training_log.jsonl"
     try:
-        for epoch in range(start_epoch, num_epochs):
-            lr = poly_lr(INITIAL_LR, epoch, num_epochs)
+        for epoch in range(start_epoch, run.num_epochs):
+            lr = poly_lr(INITIAL_LR, epoch, run.num_epochs)
             t0 = time.perf_counter()
             losses = []
-            for it in range(iters_per_epoch):
-                imgs, segs = (t.to(device, non_blocking=True)
+            for it in range(run.iters_per_epoch):
+                imgs, segs = (t[lo:hi].to(device, non_blocking=True)
                               for t in _next_batch(q))
-                d = draws.step(epoch, it, batch_size, da_cfg,
+                d = draws.step(epoch, it, run.batch_size, run.da_cfg,
                                gin=model.uses_gin_internal,
-                               channels=n_img_channels)
+                               channels=run.n_img_channels)
+                if ranks > 1:
+                    d = d.rows(lo, hi)
                 losses.append(step(net, optimizer, imgs, segs, d, lr))
             mean_loss = float(torch.stack(losses).float().mean())
             train_s = time.perf_counter() - t0
             # nnUNet's validation: a fixed number of batches, counts summed
-            # over all of them, the EMA of the global pseudo-Dice
+            # over all of them (and over the ranks), the EMA of the global
+            # pseudo-Dice
             val_sampler.reseed(seed + 1, epoch)
             acc = None
-            for _ in range(val_iters_per_epoch):
-                vi, vs = val_sampler.batch(batch_size)
-                counts = val_step(net, torch.from_numpy(vi).to(device),
-                                  torch.from_numpy(
-                                      vs.astype(np.float32)).to(device))
+            for _ in range(run.val_iters_per_epoch):
+                vi, vs = val_sampler.batch(run.batch_size)
+                counts = val_step(net, torch.from_numpy(vi[lo:hi]).to(device),
+                                  torch.from_numpy(vs[lo:hi].astype(
+                                      np.float32)).to(device))
                 acc = counts if acc is None else tuple(
                     a + c for a, c in zip(acc, counts))
+            if group is not None:
+                acc = torch.stack(acc)
+                dist.all_reduce(acc, group=group)
             val_dice, _ = _global_pseudo_dice(*(a.cpu().numpy()
                                                 for a in acc))
             ema_dice = (val_dice if ema_dice is None
@@ -444,27 +578,30 @@ def run_pretraining(dataset_id, configuration: str = "3d_fullres",
                 print(f"epoch {epoch:4d}  loss={mean_loss:.4f}  "
                       f"val_pseudo_dice={val_dice:.4f}  ema={ema_dice:.4f}"
                       f"  lr={lr:.2e}  {dt:.1f}s")
-            with open(log_path, "a") as f:
-                f.write(json.dumps({"epoch": epoch, "loss": mean_loss,
-                                    "val_pseudo_dice": val_dice,
-                                    "ema_dice": ema_dice, "lr": lr,
-                                    "seconds": dt,
-                                    "train_seconds": train_s}) + "\n")
-            save_flat_npz(net.state_dict(), ckpt_latest)
-            if best_ema is None or ema_dice > best_ema:
-                best_ema = ema_dice
-                save_flat_npz(net.state_dict(), ckpt_best)
-                if verbose:
-                    print(f"  new best EMA pseudo-Dice {best_ema:.4f} "
-                          f"-> checkpoint_best")
-            _save_momentum(optimizer, net, ckpt_opt)
-            state_path.write_text(json.dumps({
-                "epoch": epoch, "trainer": trainer_name, "seed": seed,
-                "ema_dice": ema_dice, "best_ema": best_ema}))
+            new_best = best_ema is None or ema_dice > best_ema
+            best_ema = ema_dice if new_best else best_ema
+            if lead:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps({"epoch": epoch, "loss": mean_loss,
+                                        "val_pseudo_dice": val_dice,
+                                        "ema_dice": ema_dice, "lr": lr,
+                                        "seconds": dt,
+                                        "train_seconds": train_s}) + "\n")
+                save_flat_npz(net.state_dict(), ckpt_latest)
+                if new_best:
+                    save_flat_npz(net.state_dict(), ckpt_best)
+                _save_momentum(optimizer, net, ckpt_opt)
+                state_path.write_text(json.dumps({
+                    "epoch": epoch, "trainer": run.trainer_name,
+                    "seed": seed, "ema_dice": ema_dice,
+                    "best_ema": best_ema}))
+            if new_best and verbose:
+                print(f"  new best EMA pseudo-Dice {best_ema:.4f} "
+                      f"-> checkpoint_best")
+            if group is not None:
+                dist.barrier(group)
     finally:
         stop.set()
         producer.join()
-    save_flat_npz(net.state_dict(), out_dir / "checkpoint_final.npz")
-    if verbose:
-        print(f"Training done -> {out_dir / 'checkpoint_final.npz'}")
-    return out_dir
+    if lead:
+        save_flat_npz(net.state_dict(), out_dir / "checkpoint_final.npz")

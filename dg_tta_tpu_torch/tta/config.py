@@ -261,7 +261,13 @@ def prepare_tta(pretrained_dataset_id, tta_dataset_id, pretrainer=None,
 
 def load_current_modifier_functions(plan_dir):
     """Import the plan dir's modifier_functions.py."""
-    mod_path = Path(plan_dir) / "modifier_functions.py"
+    return load_modifier_functions_file(Path(plan_dir) /
+                                        "modifier_functions.py")
+
+
+def load_modifier_functions_file(mod_path):
+    """Import a modifier functions file (a process of a sharded run
+    reloads the run's file by its path)."""
     name = "dg_tta_tpu_torch.current_modifier_functions"
     spec = importlib.util.spec_from_file_location(name, mod_path)
     dyn_mod = importlib.util.module_from_spec(spec)

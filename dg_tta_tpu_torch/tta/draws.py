@@ -187,3 +187,54 @@ class TorchDraws:
                           device) -> torch.Tensor:
         return self._normal(self._seed("window", window, member, "mind"),
                             shape, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Recorded:
+    """`(shape, device) -> tensor`: a normal draw made once by another
+    source, replayed (picklable, unlike the sources' own closures)."""
+
+    value: torch.Tensor
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        if tuple(shape) != tuple(self.value.shape):
+            raise ValueError(f"recorded draw of shape "
+                             f"{tuple(self.value.shape)}, asked for "
+                             f"{tuple(shape)}")
+        return self.value.to(device)
+
+
+class RecordedDraws:
+    """A draw source that replays the patch draws and evaluation volumes
+    another source made (`record`): plain tensors and arrays, so it can be
+    handed to processes that cannot run the other source (one built on
+    the JAX package's draws, in the ranks of a sharded run).  It records
+    no MIND or deformable-field noise: a plan that asks for them fails."""
+
+    def __init__(self, patches: dict, evals: dict):
+        self.patches, self.evals = patches, evals
+
+    @classmethod
+    def record(cls, source, members, epochs: int, steps: int,
+               eval_reps: int, n_vols: int, batch: int) -> "RecordedDraws":
+        """`source`'s draws for `members` x `epochs` x `steps` patch steps
+        of `batch` patches and `eval_reps` evaluations of `batch` centre
+        patches an epoch."""
+        patches, evals = {}, {}
+        for m in members:
+            for ep in range(epochs):
+                for st in range(steps):
+                    patches[m, ep, st] = dataclasses.replace(
+                        source.patch(m, ep, st, n_vols, batch),
+                        mind_noise=None, field_a=None, field_b=None)
+                for r in range(eval_reps):
+                    evals[m, ep, r] = np.asarray(source.eval_volumes(
+                        m, ep, r, n_vols, batch))
+        return cls(patches, evals)
+
+    def patch(self, member, epoch, step, n_vols, batch, gin_branches=(),
+              channels=1, group=1) -> PatchDraws:
+        return self.patches[member, epoch, step]
+
+    def eval_volumes(self, member, epoch, rep, n_vols, batch) -> np.ndarray:
+        return self.evals[member, epoch, rep]

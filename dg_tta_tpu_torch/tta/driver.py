@@ -12,13 +12,20 @@ losses and Dices go to the log, to wandb where a run is active
 beside the member file, to `{id}__ensemble_idx_{m}_tta_results.json` and
 the JAX package's loss plot `{id}__ensemble_idx_{m}_tta_results.png`
 (`obs/plots.py`; where matplotlib cannot be imported the run prints one
-line and writes no plot).  Members run one after another
-(the plan's `ensemble_chunk` schedules nothing here).  Phase 2 predicts
-each sample with its members, Phase 3 evaluates against the labels.
+line and writes no plot).  With several GPUs (all the visible ones;
+`CUDA_VISIBLE_DEVICES` restricts them, `num_devices` sets the number)
+the plan's `ensemble_chunk` (default: as many members as GPUs, for a
+full-size patch; `DGTTA_ENSEMBLE_CHUNK` overrides it) spreads each chunk
+of members over one process per GPU (`adapt_samples`); on one GPU they
+run one after another (side by side on one GPU, as the JAX package vmaps
+a chunk, would need per-member weights in one conv launch: not ported).
+Phase 2 predicts each sample with its members and Phase 3 evaluates
+against the labels, both here on the first device, as in the JAX
+driver.
 
-At the end the run directory gets `timings.json`: the device and the
-wall-clock seconds of every phase (`obs/timers.PhaseTimer`): "adaptation",
-"inference" and the rest.
+At the end the run directory gets `timings.json`: the device, the ranks
+of Phase 1 and the wall-clock seconds of every phase
+(`obs/timers.PhaseTimer`): "adaptation", "inference" and the rest.
 
 `DGTTA_EXACT_WARP_GRAD` (any non-empty value, as in the JAX driver) gives
 the unwarp its exact adjoint (`tta/engine.make_tta_functions`).  The
@@ -30,6 +37,7 @@ driver.  The split engine (the plan's `engine: "split"` or
 """
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -54,10 +62,15 @@ from dg_tta_tpu_torch.models.network import build_model
 from dg_tta_tpu_torch.obs.plots import matplotlib_available, plot_run_results
 from dg_tta_tpu_torch.obs.timers import PhaseTimer
 from dg_tta_tpu_torch.obs.wandb_log import wandb_log, wandb_run_is_available
+from dg_tta_tpu_torch.parallel.mesh import visible_devices
+from dg_tta_tpu_torch.parallel.tta import member_chunks
 from dg_tta_tpu_torch.tta.config import (get_global_idx,
-                                         get_parameters_save_path)
+                                         get_parameters_save_path,
+                                         load_modifier_functions_file)
 from dg_tta_tpu_torch.tta.draws import TorchDraws
-from dg_tta_tpu_torch.tta.engine import (check_patch_group, check_supported,
+from dg_tta_tpu_torch.tta.engine import (AdaptJob, VolumeJob,
+                                         adapt_sharded, check_patch_group,
+                                         check_supported, compose_output_fns,
                                          tta_one_volume)
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 from dg_tta_tpu_torch.utils.device import resolve_device
@@ -178,10 +191,15 @@ def _to_device_volume(sample: TTASample, bucket_shape, device):
     return padded, lab, [float(s) for s in vol.shape[:3]]
 
 
+# a patch of at least this many voxels is a full-size model: one member
+# per device step (the JAX driver's `big`)
+BIG_PATCH_VOXELS = 2 ** 20
+
+
 def adaptation_knobs(plan: TTAPlan) -> TTAPlan:
     """The plan with the JAX driver's environment overrides applied:
-    `DGTTA_PATCH_GROUP` (an int), `DGTTA_REMAT` (0 or 1) and
-    `DGTTA_ENGINE` ("fused" or "split")."""
+    `DGTTA_PATCH_GROUP` (an int), `DGTTA_REMAT` (0 or 1), `DGTTA_ENGINE`
+    ("fused" or "split") and `DGTTA_ENSEMBLE_CHUNK` (an int)."""
     changes = {}
     if os.environ.get("DGTTA_PATCH_GROUP"):
         changes["patch_group"] = int(os.environ["DGTTA_PATCH_GROUP"])
@@ -189,94 +207,227 @@ def adaptation_knobs(plan: TTAPlan) -> TTAPlan:
         changes["remat"] = bool(int(os.environ["DGTTA_REMAT"]))
     if os.environ.get("DGTTA_ENGINE"):
         changes["engine"] = os.environ["DGTTA_ENGINE"]
+    if os.environ.get("DGTTA_ENSEMBLE_CHUNK"):
+        changes["ensemble_chunk"] = int(os.environ["DGTTA_ENSEMBLE_CHUNK"])
     return dataclasses.replace(plan, **changes) if changes else plan
+
+
+def default_ensemble_chunk(plan: TTAPlan, patch_size,
+                           n_devices: int) -> TTAPlan:
+    """The plan with the JAX driver's default `ensemble_chunk`
+    (`dg_tta_tpu/tta/driver.py:255-270`) where it sets none: a patch of
+    >= 2^20 voxels runs min(ensemble_count, n_devices) members a chunk on
+    `n_devices` > 1 devices, one on one; a smaller one leaves it None (all
+    members one chunk)."""
+    if plan.ensemble_chunk is not None \
+            or int(np.prod(patch_size)) < BIG_PATCH_VOXELS:
+        return plan
+    return dataclasses.replace(plan, ensemble_chunk=(
+        min(plan.ensemble_count, n_devices) if n_devices > 1 else 1))
+
+
+def _print_epoch(member, epoch, loss, dice):
+    print(f"  member {member} epoch {epoch:3d} loss={loss:.4f} "
+          f"pseudo-dice={100 * dice:.1f}%")
+
+
+def _wandb_epoch(plan, smp_idx, n_groups, param_id, member, epoch, loss,
+                 dice):
+    step = get_global_idx([(smp_idx, n_groups),
+                           (member, plan.ensemble_count),
+                           (epoch, plan.epochs)])
+    wandb_log({f"losses/loss__{param_id}": loss,
+               f"scores/eval_dice__{param_id}": dice}, step=step)
+
+
+def _results_path(member_path: Path, param_id: str, m: int) -> Path:
+    return (member_path.parent
+            / f"{param_id}__ensemble_idx_{m}_tta_results.json")
+
+
+def _save_member(member_paths, param_id, plots, m, net_m, loss_m, dice_m):
+    """A finished member's `.npz`, its `_tta_results.json` and, with
+    `plots`, its loss plot."""
+    save_flat_npz(net_m.state_dict(), member_paths[m])
+    _results_path(member_paths[m], param_id, m).write_text(json.dumps({
+        "losses": [float(v) for v in loss_m],
+        "eval_dices": [float(v) for v in dice_m]}, indent=2))
+    if plots:
+        plot_run_results(member_paths[m].parent, param_id, m, loss_m, dice_m)
+
+
+def _modifier_hooks(mod):
+    """(input, model-output, after-mapping, postprocess) hooks of a
+    modifier functions module (each None where it defines none)."""
+    fns = getattr(mod, "ModifierFunctions", None)
+    return tuple(getattr(fns, name, None) for name in (
+        "modify_tta_input_fn", "modify_tta_model_output_fn",
+        "modify_tta_output_after_mapping_fn", "postprocess_results_fn"))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Group:
+    """One adaptation group: its samples and the members to adapt."""
+
+    smp_idx: int
+    group_id: str
+    param_id: str
+    samples: list
+    member_paths: list
+    missing: list
+
+
+def _group_volumes(group: _Group, device):
+    """The group's bucket-padded volumes, their true shapes and their
+    labels (or None), on `device`."""
+    bucket = bucket_shape_for(np.max([s.data.shape[1:] for s in group.samples],
+                                     axis=0))
+    parts = [_to_device_volume(s, bucket, device) for s in group.samples]
+    vols = torch.stack([p[0] for p in parts])
+    labs = (torch.stack([p[1] for p in parts])
+            if all(p[1] is not None for p in parts) else None)
+    return vols, [p[2] for p in parts], labs
+
+
+def _rank_setup(weights_file, modifier_path, device):
+    """A sharded Phase 1's `engine.AdaptJob.setup`: each rank loads the
+    model and reloads the modifier functions itself."""
+    model, net, _, _ = load_pretrained_bundle(weights_file, device)
+    hooks = (None,) * 3
+    if modifier_path is not None:
+        hooks = _modifier_hooks(load_modifier_functions_file(
+            modifier_path))[:3]
+    return model, net, hooks[0], compose_output_fns(hooks[1], hooks[2])
 
 
 def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
                   save_path: Path, map_pre, map_tta, device,
                   timer: PhaseTimer, modify_input_fn=None,
                   modify_output_fn=None, modify_after_mapping_fn=None,
-                  verbose: bool = True):
+                  verbose: bool = True, num_devices: int = 1,
+                  backend: Optional[str] = None,
+                  modifier_path: Optional[str] = None) -> int:
     """Phase 1: adapt and save every missing member of every sample group
-    (one group per sample, or all samples with tta_across_all_samples)."""
+    (one group per sample, or all samples with tta_across_all_samples).
+
+    The plan's `ensemble_chunk` decides, with `num_devices`, how members
+    spread over ranks (`parallel/tta.member_chunks`).  With one rank the
+    members adapt here, one after another.  With more, one launch of the
+    engine's sharded worker (`engine.adapt_sharded`; `backend`: as in
+    `engine.tta_one_volume`) runs every group: each rank loads the model
+    and the groups' volumes on its device, reloads the modifier functions
+    from `modifier_path`, and writes its members' files;
+    the per-epoch wandb lines are then logged here from the members'
+    results files.  Returns the number of ranks."""
     if plan.tta_across_all_samples:
-        groups = [samples] if samples else []
+        sample_groups = [samples] if samples else []
     else:
-        groups = [[s] for s in samples]
+        sample_groups = [[s] for s in samples]
     plots = matplotlib_available()
-    if not plots and groups and verbose:
+    if not plots and sample_groups and verbose:
         print("matplotlib cannot be imported: the loss plots are skipped "
               "(the losses and Dices are in the *_tta_results.json files)")
-    for smp_idx, group in enumerate(groups):
+    groups = []
+    for smp_idx, group in enumerate(sample_groups):
         group_id = ("all_samples" if plan.tta_across_all_samples
                     else group[0].sample_id)
         member_paths = _member_paths(plan, save_path, group[0])
-        param_id = group_id.split("/")[-1]
         missing = [i for i, p in enumerate(member_paths) if not p.is_file()]
         if not missing:
             if verbose:
                 print(f"TTA parameters exist, skipping {group_id}")
             continue
         member_paths[0].parent.mkdir(exist_ok=True, parents=True)
+        groups.append(_Group(smp_idx, group_id, group_id.split("/")[-1],
+                             group, member_paths, missing))
+    chunks = [member_chunks(g.missing, plan.ensemble_chunk, num_devices)
+              for g in groups]
+    ranks = max((r for c in chunks for _, r in c), default=1)
+    n_groups = len(sample_groups)
+    exact = bool(os.environ.get("DGTTA_EXACT_WARP_GRAD"))
+    if ranks > 1:
+        if verbose:
+            for g, c in zip(groups, chunks):
+                print(f"# TTA {g.group_id} (members {g.missing}; chunks "
+                      f"over ranks {c})")
+        if (modify_input_fn, modify_output_fn,
+                modify_after_mapping_fn) != (None,) * 3 \
+                and modifier_path is None:
+            raise ValueError("sharded adaptation reloads the modifier "
+                             "functions in each rank: pass modifier_path")
+        job = AdaptJob(
+            setup=functools.partial(_rank_setup,
+                                    plan.pretrained_weights_filepath,
+                                    modifier_path),
+            plan=plan, map_idxs_pretrain=np.asarray(map_pre),
+            map_idxs_tta=np.asarray(map_tta),
+            volumes=[VolumeJob(
+                functools.partial(_group_volumes, g),
+                TorchDraws(seed=0, sample_index=g.smp_idx), c,
+                functools.partial(_save_member, g.member_paths, g.param_id,
+                                  plots))
+                for g, c in zip(groups, chunks)],
+            exact_warp_grad=exact, patch_group=plan.patch_group,
+            remat=plan.remat, log_fn=_print_epoch if verbose else None,
+            return_nets=False)
+        with timer.phase("adaptation"):
+            adapt_sharded(job, ranks, device.type, backend)
+        if wandb_run_is_available():
+            for g in groups:
+                for m in g.missing:
+                    res = json.loads(_results_path(
+                        g.member_paths[m], g.param_id, m).read_text())
+                    for ep, (loss, dice) in enumerate(zip(
+                            res["losses"], res["eval_dices"])):
+                        _wandb_epoch(plan, g.smp_idx, n_groups, g.param_id,
+                                     m, ep, loss, dice)
+        return ranks
 
-        bucket = bucket_shape_for(np.max([s.data.shape[1:] for s in group],
-                                         axis=0))
-        parts = [_to_device_volume(s, bucket, device) for s in group]
-        vols = torch.stack([p[0] for p in parts])
-        shapes = [p[2] for p in parts]
-        labs = (torch.stack([p[1] for p in parts])
-                if all(p[1] is not None for p in parts) else None)
+    for g in groups:
+        vols, shapes, labs = _group_volumes(g, device)
 
-        def log_fn(member, epoch, loss, dice, smp_idx=smp_idx,
-                   param_id=param_id, n_groups=len(groups)):
+        def log_fn(member, epoch, loss, dice, g=g):
             if verbose:
-                print(f"  member {member} epoch {epoch:3d} loss={loss:.4f} "
-                      f"pseudo-dice={100 * dice:.1f}%")
+                _print_epoch(member, epoch, loss, dice)
             if wandb_run_is_available():
-                step = get_global_idx([(smp_idx, n_groups),
-                                       (member, plan.ensemble_count),
-                                       (epoch, plan.epochs)])
-                wandb_log({f"losses/loss__{param_id}": loss,
-                           f"scores/eval_dice__{param_id}": dice}, step=step)
-
-        def save_member(m, net_m, loss_m, dice_m, member_paths=member_paths,
-                        param_id=param_id):
-            save_flat_npz(net_m.state_dict(), member_paths[m])
-            results = member_paths[m].parent / (
-                f"{param_id}__ensemble_idx_{m}_tta_results.json")
-            results.write_text(json.dumps({
-                "losses": [float(v) for v in loss_m],
-                "eval_dices": [float(v) for v in dice_m]}, indent=2))
-            if plots:
-                plot_run_results(member_paths[m].parent, param_id, m, loss_m,
-                                 dice_m)
+                _wandb_epoch(plan, g.smp_idx, n_groups, g.param_id, member,
+                             epoch, loss, dice)
 
         if verbose:
-            print(f"# TTA {group_id} (members {missing})")
+            print(f"# TTA {g.group_id} (members {g.missing})")
         with timer.phase("adaptation"):
             # the draws of a member depend on (sample index, member id)
             # only, so a resumed run redraws what a full run would have
             tta_one_volume(
                 model, plan, net, vols, shapes, map_pre, map_tta,
-                TorchDraws(seed=0, sample_index=smp_idx), labels_padded=labs,
+                TorchDraws(seed=0, sample_index=g.smp_idx),
+                labels_padded=labs,
                 modify_input_fn=modify_input_fn,
                 modify_output_fn=modify_output_fn,
                 modify_after_mapping_fn=modify_after_mapping_fn,
-                log_fn=log_fn, member_indices=missing,
-                save_member_fn=save_member,
-                exact_warp_grad=bool(os.environ.get("DGTTA_EXACT_WARP_GRAD")),
-                patch_group=plan.patch_group, remat=plan.remat)
+                log_fn=log_fn, member_indices=g.missing,
+                save_member_fn=functools.partial(
+                    _save_member, g.member_paths, g.param_id, plots),
+                exact_warp_grad=exact,
+                patch_group=plan.patch_group, remat=plan.remat,
+                ensemble_chunk=plan.ensemble_chunk, num_devices=1)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
+    return 1
 
 
 def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
              label_mapping: dict, modifier_fn_module=None,
              timer: Optional[PhaseTimer] = None, verbose: bool = True,
-             device=None):
-    """Run the TTA pipeline on `device` (default CUDA).  Returns
-    {bucket: summary dict}."""
+             device=None, num_devices: Optional[int] = None,
+             backend: Optional[str] = None):
+    """Run the TTA pipeline on `device` (default CUDA).  `num_devices`:
+    the devices Phase 1 may spread members over (default: the visible
+    GPUs for CUDA, 1 on the CPU); `backend`: their `torch.distributed`
+    backend (`engine.tta_one_volume`).  Returns {bucket: summary dict}."""
     device = resolve_device(device)
+    n_dev = (visible_devices(device.type) if num_devices is None
+             else int(num_devices))
     timer = timer or PhaseTimer()
     save_path = Path(save_base_path) / run_name
     save_path.mkdir(exist_ok=True, parents=True)
@@ -285,15 +436,13 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
     plan = adaptation_knobs(plan)
     check_supported(plan)
     check_patch_group(plan, plan.patch_group)
-    mod = getattr(modifier_fn_module, "ModifierFunctions", None)
-    modify_input_fn = getattr(mod, "modify_tta_input_fn", None)
+
     # adaptation folds the label mapping into the seg head, so there the
     # model-output hook sees mapped logits (the JAX driver's note); at
     # inference it sees the raw full-class logits, as in the reference
-    modify_model_output_fn = getattr(mod, "modify_tta_model_output_fn", None)
-    modify_after_mapping_fn = getattr(
-        mod, "modify_tta_output_after_mapping_fn", None)
-    postprocess_fn = getattr(mod, "postprocess_results_fn", lambda d: None)
+    (modify_input_fn, modify_model_output_fn, modify_after_mapping_fn,
+     postprocess_fn) = _modifier_hooks(modifier_fn_module)
+    postprocess_fn = postprocess_fn or (lambda d: None)
 
     optimized_labels = list(plan.optimized_labels)
     map_pre = get_map_idxs(label_mapping, optimized_labels, "pretrain_labels")
@@ -302,6 +451,7 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
     with timer.phase("load_model"):
         model, net, plans, _ = load_pretrained_bundle(
             plan.pretrained_weights_filepath, device)
+    plan = default_ensemble_chunk(plan, model.patch_size, n_dev)
 
     with timer.phase("preprocess"):
         samples = load_tta_data(plan, tta_data_dir, plans)
@@ -309,11 +459,13 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
         print(f"# Loaded {len(samples)} samples")
 
     # ---- Phase 1: adaptation -------------------------------------------
-    adapt_samples(plan, samples, model, net, save_path, map_pre, map_tta,
-                  device, timer, modify_input_fn=modify_input_fn,
-                  modify_output_fn=modify_model_output_fn,
-                  modify_after_mapping_fn=modify_after_mapping_fn,
-                  verbose=verbose)
+    ranks = adapt_samples(
+        plan, samples, model, net, save_path, map_pre, map_tta, device,
+        timer, modify_input_fn=modify_input_fn,
+        modify_output_fn=modify_model_output_fn,
+        modify_after_mapping_fn=modify_after_mapping_fn, verbose=verbose,
+        num_devices=n_dev, backend=backend,
+        modifier_path=getattr(modifier_fn_module, "__file__", None))
     del net
 
     # ---- Phase 2: inference --------------------------------------------
@@ -380,8 +532,8 @@ def tta_main(run_name: str, plan: TTAPlan, tta_data_dir, save_base_path,
                        summary["foreground_mean"]["Dice"]})
 
     with open(save_path / "timings.json", "w") as f:
-        json.dump({"device": str(device), "phases": timer.summary()}, f,
-                  indent=2)
+        json.dump({"device": str(device), "ranks": ranks,
+                   "phases": timer.summary()}, f, indent=2)
     if verbose:
         print(timer.report())
     return summaries

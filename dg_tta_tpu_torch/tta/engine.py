@@ -25,7 +25,7 @@ with the approximate inverse-map adjoint of the unwarp
 `exact_warp_grad` the exact one (the warp kernel's scatter-add adjoint:
 `kernels/warp.warp_affine_op` on an affine branch, `warp_flat_op` on a
 deformable one).  The random draws come from a draw source
-(`tta/draws.py`).  Members run one after another.
+(`tta/draws.py`).
 
 Reference quirks kept, as in the JAX package:
 * `have_grad_in` gates on the plan value only, never the branch:
@@ -53,13 +53,21 @@ draws are handed in and the noise callables are seeded per call, so the
 recompute redraws nothing.
 
 The split engine (a TPU dispatch workaround) raises
-`NotImplementedError` (`check_supported`; ROADMAP "Not ported").  The
-plan's `ensemble_chunk` schedules nothing: members run one after
-another.
+`NotImplementedError` (`check_supported`; ROADMAP "Not ported").
+
+`ensemble_chunk` runs the members in chunks, as the JAX package does.  A
+chunk of size > 1 with more than one device spreads over
+`parallel/mesh.ranks_for(chunk, devices)` processes, one device each, a
+contiguous block of members each (`parallel/tta.sharded_member_run`); a
+chunk those do not divide, and every chunk on one device, runs its
+members one after another.  Side by side on one device, as the JAX
+package vmaps a chunk, is not ported: it needs per-member weights in one
+conv launch (ROADMAP A.6).
 """
 
 import copy
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -76,6 +84,9 @@ from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_affine_op,
 from dg_tta_tpu_torch.models.network import Model
 from dg_tta_tpu_torch.ops.gin import gin_aug
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
+from dg_tta_tpu_torch.parallel.mesh import (default_backend, launch,
+                                            visible_devices)
+from dg_tta_tpu_torch.parallel.tta import member_chunks, sharded_member_run
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 
 
@@ -431,6 +442,122 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
                         grads_enabled=grads_enabled)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Then:
+    first: Callable
+    second: Callable
+
+    def __call__(self, x):
+        return self.second(self.first(x))
+
+
+def compose_output_fns(modify_output_fn: Optional[Callable] = None,
+                       modify_after_mapping_fn: Optional[Callable] = None):
+    """The model-output hook, then the after-mapping hook, as one (the
+    reference's hook order: model_utils.py:21-35, then tta.py:566);
+    picklable where both are."""
+    if modify_after_mapping_fn is None:
+        return modify_output_fn
+    if modify_output_fn is None:
+        return modify_after_mapping_fn
+    return _Then(modify_output_fn, modify_after_mapping_fn)
+
+
+def adapt_chunks(fns: TTAFunctions, net0, draw_source, chunks, vols, shapes,
+                 labels=None, log_fn=None, save_member_fn=None,
+                 return_nets: bool = True) -> list:
+    """Every rank of the process group: the chunks of `member_chunks` in
+    turn, each through `sharded_member_run`.  Returns, on rank 0, [(member,
+    state_dict, losses, dices)] in chunk order; [] on the other ranks."""
+    out = []
+    for ids, ranks in chunks:
+        out += sharded_member_run(fns, net0, draw_source, ids, vols, shapes,
+                                  labels, ranks=ranks, log_fn=log_fn,
+                                  save_member_fn=save_member_fn,
+                                  return_nets=return_nets) or []
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class VolumeJob:
+    """One volume (or stack of volumes) of a sharded adaptation, picklable:
+    `load(device)` -> (bucket-padded volumes, true shapes, labels or None)
+    on a rank's device; its `draw_source`; its chunks of members
+    (`parallel/tta.member_chunks`); `save_member_fn(member, net, losses,
+    dices)`, run in the rank as each of its members finishes, or None."""
+
+    load: Callable
+    draw_source: object
+    chunks: list
+    save_member_fn: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptJob:
+    """What every rank of a sharded adaptation needs, picklable:
+    `setup(device)` -> (Model, the pretrained network on `device`, the
+    input hook, the output hook); the plan, the label maps and
+    `make_tta_functions`' options; the `volumes` (`VolumeJob`) in turn;
+    `log_fn(member, epoch, loss, dice)` run in the ranks after each epoch;
+    whether rank 0 gets the adapted weights back."""
+
+    setup: Callable
+    plan: TTAPlan
+    map_idxs_pretrain: np.ndarray
+    map_idxs_tta: np.ndarray
+    volumes: list
+    exact_warp_grad: bool = False
+    patch_group: int = 1
+    remat: bool = False
+    log_fn: Optional[Callable] = None
+    return_nets: bool = True
+
+
+def adapt_rank(rank, ranks, device, job: AdaptJob) -> list:
+    """A rank of a sharded adaptation (`parallel/mesh.launch`): sets the
+    model up on `device` and adapts its share of each volume's chunks
+    (`adapt_chunks`).  Returns, per volume, rank 0's [(member, state_dict
+    on the CPU or None, losses, dices)] in chunk order ([] elsewhere)."""
+    model, net0, modify_input_fn, modify_output_fn = job.setup(device)
+    fns = make_tta_functions(model, job.plan, job.map_idxs_pretrain,
+                             job.map_idxs_tta,
+                             modify_input_fn=modify_input_fn,
+                             modify_output_fn=modify_output_fn,
+                             exact_warp_grad=job.exact_warp_grad,
+                             patch_group=job.patch_group, remat=job.remat)
+    out = []
+    for v in job.volumes:
+        vols, shapes, labels = v.load(device)
+        out.append(adapt_chunks(fns, net0, v.draw_source, v.chunks, vols,
+                                shapes, labels, log_fn=job.log_fn,
+                                save_member_fn=v.save_member_fn,
+                                return_nets=job.return_nets))
+        del vols, labels
+    return out
+
+
+def adapt_sharded(job: AdaptJob, ranks: int, device_type: str,
+                  backend: Optional[str] = None) -> list:
+    """`adapt_rank` over `ranks` new processes (`parallel/mesh.launch`;
+    `backend` default "nccl" on CUDA, "gloo" on the CPU); returns rank 0's
+    result."""
+    return launch(adapt_rank, ranks, device_type,
+                  backend or default_backend(device_type), args=(job,))[0]
+
+
+def _network_from_state(model, state, modify_input_fn, modify_output_fn,
+                        device):
+    """An `AdaptJob.setup` that ships the network's weights."""
+    return (model, model.build_network(state, device), modify_input_fn,
+            modify_output_fn)
+
+
+def _tensors_to(vols, shapes, labels, device):
+    """A `VolumeJob.load` that ships the volumes."""
+    return (vols.to(device), shapes,
+            None if labels is None else labels.to(device))
+
+
 def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
                    vols_padded, true_shapes, map_idxs_pretrain, map_idxs_tta,
                    draw_source, labels_padded=None,
@@ -440,10 +567,13 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
                    log_fn: Optional[Callable] = None, member_indices=None,
                    save_member_fn: Optional[Callable] = None,
                    exact_warp_grad: bool = False,
-                   patch_group: int = 1, remat: bool = False):
+                   patch_group: int = 1, remat: bool = False,
+                   ensemble_chunk: Optional[int] = None,
+                   num_devices: Optional[int] = None,
+                   backend: Optional[str] = None):
     """Adapt the ensemble members of one volume (or, with
-    tta_across_all_samples, of a stack of volumes), one after another on
-    the volumes' device.
+    tta_across_all_samples, of a stack of volumes) on the volumes' device,
+    or spread over devices (module docstring).
 
     vols_padded: (N, D, H, W, C) bucket-padded volumes; true_shapes: (N, 3)
     true (D, H, W); labels_padded: optional (N, D, H, W, 1).
@@ -452,17 +582,20 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
     subset redraws what the full run would have.  save_member_fn(member,
     net, losses, dices) runs as soon as a member finishes.
     exact_warp_grad, patch_group, remat: as in `make_tta_functions`.
+    ensemble_chunk: members per chunk (None: all); num_devices: the
+    devices to spread a chunk over (default: the visible GPUs for CUDA
+    volumes, 1 on the CPU); backend: the ranks' `torch.distributed`
+    backend (default "nccl" on CUDA, "gloo" on the CPU; "gloo" lets the
+    ranks share cards, `parallel/mesh.launch`).  Sharded (`adapt_sharded`,
+    as the driver's Phase 1), the ranks get CPU copies of the arguments
+    (the modifier functions and `draw_source` must be picklable), and
+    `log_fn` and `save_member_fn` run here once every rank has finished,
+    in `member_indices` order.
 
     Returns (adapted networks in member_indices order, losses (epochs, M),
     dices (epochs, M)).
     """
-    # the model-output hook, then the after-mapping hook (reference hook
-    # order: model_utils.py:21-35, then tta.py:566)
-    out_fn = modify_output_fn
-    if modify_after_mapping_fn is not None:
-        out_fn = ((lambda x: modify_after_mapping_fn(modify_output_fn(x)))
-                  if modify_output_fn is not None
-                  else modify_after_mapping_fn)
+    out_fn = compose_output_fns(modify_output_fn, modify_after_mapping_fn)
     fns = make_tta_functions(model, plan, map_idxs_pretrain, map_idxs_tta,
                              modify_input_fn=modify_input_fn,
                              modify_output_fn=out_fn,
@@ -470,11 +603,47 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
                              patch_group=patch_group, remat=remat)
     members = (list(range(plan.ensemble_count)) if member_indices is None
                else list(member_indices))
+    device_type = vols_padded.device.type
+    n_dev = (visible_devices(device_type) if num_devices is None
+             else int(num_devices))
+    chunks = member_chunks(members, ensemble_chunk, n_dev)
+    ranks = max((r for _, r in chunks), default=1)
+    if ranks == 1:
+        nets, losses, dices = [], [], []
+        for m in members:
+            net, lm, dm = fns.member_run(pretrained_net, draw_source, m,
+                                         vols_padded, true_shapes,
+                                         labels_padded, log_fn)
+            if save_member_fn is not None:
+                save_member_fn(m, net, lm, dm)
+            nets.append(net)
+            losses.append(lm)
+            dices.append(dm)
+        return nets, np.stack(losses, axis=1), np.stack(dices, axis=1)
+
+    def cpu(t):
+        return None if t is None else t.detach().cpu()
+
+    state = {k: cpu(v) for k, v in pretrained_net.state_dict().items()}
+    job = AdaptJob(
+        setup=functools.partial(_network_from_state, model, state,
+                                modify_input_fn, out_fn),
+        plan=plan, map_idxs_pretrain=np.asarray(map_idxs_pretrain),
+        map_idxs_tta=np.asarray(map_idxs_tta),
+        volumes=[VolumeJob(functools.partial(
+            _tensors_to, cpu(vols_padded),
+            [list(map(float, s)) for s in np.asarray(true_shapes)],
+            cpu(labels_padded)), draw_source, chunks)],
+        exact_warp_grad=exact_warp_grad, patch_group=patch_group,
+        remat=remat)
+    (results,) = adapt_sharded(job, ranks, device_type, backend)
+    device = next(pretrained_net.parameters()).device
     nets, losses, dices = [], [], []
-    for m in members:
-        net, lm, dm = fns.member_run(pretrained_net, draw_source, m,
-                                     vols_padded, true_shapes, labels_padded,
-                                     log_fn)
+    for m, state, lm, dm in results:
+        net = model.build_network(state, device)
+        if log_fn is not None:
+            for ep in range(len(lm)):
+                log_fn(m, ep, float(lm[ep]), float(dm[ep]))
         if save_member_fn is not None:
             save_member_fn(m, net, lm, dm)
         nets.append(net)

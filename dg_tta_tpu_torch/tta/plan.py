@@ -51,8 +51,8 @@ class TTAPlan:
     wandb_mode: str = "disabled"
     # --- adaptation knobs of the JAX package's plan (extensions over the
     # reference plan), so plan files round-trip between the two packages.
-    # The driver hands patch_group and remat to the engine; ensemble_chunk
-    # schedules nothing (members run one after another) and the split
+    # The driver hands patch_group, remat and ensemble_chunk to the engine
+    # (a chunk spreads over the GPUs, one member a process); the split
     # engine raises. --------------------------------------------------------
     ensemble_chunk: Optional[int] = None
     patch_group: int = 1

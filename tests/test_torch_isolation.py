@@ -27,6 +27,13 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     assert not offenders, offenders
 
 
+def test_the_parallel_package_is_among_the_checked_files():
+    """`parallel/` (the several-process paths, whose ranks import it in
+    fresh processes) is held to the same rule as the rest."""
+    parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    assert {"__init__.py", "mesh.py", "tta.py", "dryrun.py"} <= parallel
+
+
 def test_forbidden_pattern_catches_what_it_should():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("    from dg_tta_tpu.models import unet")

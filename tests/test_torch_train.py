@@ -752,5 +752,6 @@ def test_cli_pretrain_and_inject_trainers(mini_raw, workspace, monkeypatch,
                 "nnUNetTrainer_GIN_MultiRes", "--val_iters_per_epoch", "1",
                 "--device", "cpu", "--c"])
     assert [e["epoch"] for e in _log(out)] == [0, 1]
-    with pytest.raises(NotImplementedError, match="A.10"):
-        main(["pretrain", "903", "--num_devices", "2", "--device", "cpu"])
+    # data-parallel pretraining splits the batch (2 here) over the devices
+    with pytest.raises(ValueError, match="divisible"):
+        main(["pretrain", "903", "--num_devices", "3", "--device", "cpu"])
