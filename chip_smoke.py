@@ -13,7 +13,9 @@ Phases; any failure raises and the script exits non-zero:
    asserts that the SASS of the wgmma kernels (bf16 and f32 3xTF32
    instantiations of `conv3x3_wgmma`, `conv3x3_wgrad_wgmma` and the f32
    `conv3x3_wgrad_tf32x3`) holds tensor-core (`HGMMA`) and TMA
-   (`UTMALDG`) instructions, that of `conv3x3_few`'s four kernels
+   (`UTMALDG`) instructions, `conv3x3_wgmma`'s also the ldmatrix
+   (`LDSM`) that reads its A fragments from the staged halo, and prints
+   any wgmma that ptxas serialized (C7513, C7511); that of `conv3x3_few`'s four kernels
    (forward and weight gradient, bf16 and f32) `HGMMA` and their halo
    loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`), and that of
    `conv3x3_c1`'s four (the C = 1 forward and weight gradient, bf16 and
@@ -40,7 +42,8 @@ Phases; any failure raises and the script exits non-zero:
      on the unit the route computes on (`_ops_ms`: the CUDA cores' f32
      rate for "cuda_core" in either type, the tensor cores for the other
      routes, f32 there as three tf32 products), and the "c1" shapes print
-     both floors;
+     both floors; the wgmma routes' shapes also print their device time
+     (`device_ms`: a CUDA graph of the calls, no host work between them);
      and the stem conv of a MIND model (12 -> 32 channels, route "few")
      at its window forward and its step forward, also forced onto the
      type's wgmma route (zero-padded to 16 channels: the route it took
@@ -397,11 +400,15 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "wgmma" in line:
+            # ptxas's register and spill report, and any wgmma it had to
+            # serialize (C7513, C7511)
+            if any(k in line for k in ("registers", "spill", "wgmma",
+                                       "C7511", "C7513")):
                 log(f"  {name}: {line.strip()}")
     # the wgmma routes run on the tensor cores, fed by TMA: the bf16 and
-    # the f32 (3xTF32) instantiations of conv3x3_wgmma, and wgrad's bf16
-    # and f32 kernels; the "few" route's four kernels on the tensor cores,
+    # the f32 (3xTF32) instantiations of conv3x3_wgmma (their A fragments
+    # read from the staged halo by ldmatrix, LDSM), and wgrad's bf16 and
+    # f32 kernels; the "few" route's four kernels on the tensor cores,
     # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA; the
     # "c1" route's four by mma.sync (HMMA), the weight gradients' dy by
     # cp.async; the warp's affine entry stages its boxes by cp.async and
@@ -409,10 +416,11 @@ def phase_build():
     # memory (ATOMS: compare-and-swap loops) and flushes by 16-byte global
     # reductions
     tma, cp_async = ("HGMMA", "UTMALDG"), ("HGMMA", "LDGSTS")
+    halo = ("HGMMA", "UTMALDG", "LDSM")
     hmma, hmma_cp = ("HMMA",), ("HMMA", "LDGSTS")
     for name, marker, ops in (
-            ("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_", tma),
-            ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf", tma),
+            ("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_", halo),
+            ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf", halo),
             ("conv3x3_wgrad_wgmma", "wgrad_wgmma_kernel", tma),
             ("conv3x3_wgrad_tf32x3", "wgrad_tf32x3_kernel", tma),
             ("conv3x3_few", "few_forward_bf16_kernel", cp_async),
@@ -582,6 +590,13 @@ def phase_kernels():
                         f"tol {tol}")
                 k_ms = time_ms(lambda: conv3x3(x, w, depth=depth,
                                                route=route))
+                dev = ""
+                if route in ("wgmma", "wgmma_tf32x3"):
+                    # the device time too (CUDA graph: no host work
+                    # between the launches)
+                    d_ms = device_ms(lambda: conv3x3(x, w, depth=depth,
+                                                     route=route), reps=10)
+                    dev = f"device_ms={d_ms:.4f} "
                 ops_ms = _ops_ms(ops, name, route)
                 log(f"conv3x3 {name} {use} N={N} depth={depth} {H}x{W} "
                     f"{C}->{CO} route={route}"
@@ -589,7 +604,7 @@ def phase_kernels():
                     f"max_abs_err={err:.3e} (tol {tol:.3e}) "
                     f"max_rel_err={err / scale:.3e} "
                     f"(tol {KERNEL_RTOL[name]:.1e}) kernel_ms={k_ms:.4f} "
-                    f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+                    f"{dev}plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                     f"{_bound_text(ops_ms, bytes_ms, main == 'c1')} "
                     f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
                 at = _route_totals(totals, name, main, route, stem)

@@ -23,11 +23,15 @@ a launch error raises, and a misaligned tensor raises before the launch):
   C into a halo in shared memory, the taps in the GEMM's K axis, the
   weights packed once per call into that order (`pack_few_weights`);
 * "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C >= 16 and CO % 8 == 0,
-  an implicit GEMM on the tensor cores fed by TMA;
+  an implicit GEMM on the tensor cores fed by TMA: a halo of x staged per
+  (z-tap, channel chunk) and read at the nine (ky, kx) shifts, the
+  weights read as they are; persistent blocks or, where the work items
+  are fewer than the SMs, a cluster of blocks per item (`wgmma_plan`);
 * "wgmma_tf32x3" (the same source, its f32 instantiation): f32 with
   C >= 16 and CO % 8 == 0, each product at f32 accuracy from three tf32
-  products (3xTF32); the weights are split once per call into a tf32
-  part and its remainder (`tf32_split`);
+  products (3xTF32); a first launch of the same call writes the weights
+  transposed and split into a tf32 part and its remainder (the bits of
+  `tf32_split`) into scratch the wrapper allocates;
 * "cuda_core" (`csrc/conv3x3.cu`): CO % 8 != 0; f32 FMAs on the CUDA
   cores.
 The wgmma routes step 16 (bf16) or 8 (f32) input channels at a time: a
@@ -163,7 +167,9 @@ def zero_launches(fn):
 def tf32_split(w: torch.Tensor):
     """(hi, lo) of an f32 tensor: hi = w rounded to the nearest tf32 value
     (ties away from zero; the low 13 mantissa bits cleared), lo = w - hi.
-    hi and w agree to a factor of 2, so lo is exact and hi + lo == w."""
+    hi and w agree to a factor of 2, so lo is exact and hi + lo == w.
+    The "few" route's weights; `csrc/conv3x3_wgmma.cu` computes the same
+    bits in its weight pass (`round_tf32`)."""
     bits = w.contiguous().view(torch.int32)
     hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
     return hi, w - hi
@@ -257,21 +263,89 @@ def _launch(x, w5, y, depth):
                            f"w {tuple(w5.shape)}, depth {depth}")
 
 
+# conv3x3_wgmma (csrc/conv3x3_wgmma.cu): output tiles of the "big" and the
+# "small" layout (pixels), the SMs of an H100 (one block per SM is
+# resident: ~200 KB of ring), and the most blocks that may share one work
+# item (a cluster)
+_WGMMA_TILE = {"big": (16, 16), "small": (8, 8)}
+_WGMMA_SMS = 132
+_WGMMA_MAX_SPLITS = 4
+
+
+def wgmma_plan(N: int, depth: int, H: int, W: int, C: int, CO: int, dtype,
+               kz: int = 3) -> dict:
+    """How `csrc/conv3x3_wgmma.cu` runs one call: x (N, H, W, C) in groups
+    of `depth` planes, CO output channels, kz z-taps, on the wgmma route of
+    `dtype`.
+    * layout "small" (an 8 x 8 tile, two warpgroups of 32 columns on its
+      one m64 tile: 64 columns a block) for planes of at most 8 x 8, else
+      "big" (16 x 16, two warpgroups of two m64 tiles, `wn` = 32 columns
+      for CO <= 32, else 64);
+    * kc: the channels of one stage, 64 bytes of them where C is a
+      multiple, else 32;
+    * items: planes x tiles x column tiles;
+    * splits: the blocks (a cluster, at most 4) that share each item's
+      (z-tap, channel chunk) stages, from one volume's items (`depth`
+      planes: a window's launch) and never from N, so that a plane's sums
+      do not depend on the batch (a grouped step's planes get the
+      ungrouped step's bits): the most that keep that launch in one wave
+      of clusters, one more where that wave would leave over a quarter of
+      the SMs idle (a second, part-full wave cost more on the card: the
+      source's note), at most the item's fewest stages (a plane at the
+      end of its group has 2 z-taps, depth 1 one);
+    * blocks: items x splits with several splits, else min(items, SMs):
+      persistent blocks that walk the items.
+    `reason` says why a launch has fewer blocks than SMs (None if not)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    span = 64 if C * e % 64 == 0 else 32
+    layout = "small" if H <= 8 and W <= 8 else "big"
+    th, tw = _WGMMA_TILE[layout]
+    wn = 32 if layout == "small" or CO <= 32 else 64
+    bn = 2 * wn if layout == "small" else wn
+    per_plane = -(-H // th) * -(-W // tw) * -(-CO // bn)
+    items = N * per_plane
+    kc = span // e
+    fewest = (C // kc) * (1 if kz == 1 or depth == 1 else 2)
+    # one wave of clusters for one volume, one more split where it would
+    # leave over a quarter of the SMs idle
+    volume = depth * per_plane
+    splits = max(1, min(_WGMMA_MAX_SPLITS, _WGMMA_SMS // volume))
+    if volume * splits < _WGMMA_SMS * 3 // 4:
+        splits += 1
+    splits = max(1, min(splits, _WGMMA_MAX_SPLITS, fewest))
+    blocks = items * splits if splits > 1 else min(items, _WGMMA_SMS)
+    reason = None
+    if blocks < _WGMMA_SMS:
+        reason = (f"{items} items x {splits} splits: "
+                  + (f"an item's fewest stages ({fewest}) cap the splits"
+                     if splits == fewest else
+                     "the most blocks a cluster shares"
+                     if splits == _WGMMA_MAX_SPLITS else
+                     "one wave: another split would start a second wave "
+                     "of clusters for a volume"))
+    return dict(layout=layout, tile=(th, tw), wn=wn, bn=bn, kc=kc,
+                items=items, splits=splits, blocks=blocks, reason=reason)
+
+
 def _launch_wgmma(x, w5, y, depth):
     fn = build.function("conv3x3_wgmma", "dgtta_conv3x3_wgmma",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                         + [ctypes.c_void_p])
-    # K-major weights for the GEMM: (kz, 3, 3, CO, C), ci contiguous; f32
-    # as a tf32 part and its remainder (3xTF32)
-    wt = w5.transpose(3, 4).contiguous()
-    wt_lo = None
+    # f32: scratch for the K-major weights the kernel writes first, (kz, 3,
+    # 3, CO, C), ci contiguous, as a tf32 part and its remainder (3xTF32);
+    # bf16 reads w as it is
+    kz, _, _, C, CO = w5.shape
+    wt = wt_lo = None
     if x.dtype == torch.float32:
-        wt, wt_lo = tf32_split(wt)
-    N, H, W, C = x.shape
-    err = fn(x.data_ptr(), wt.data_ptr(),
+        wt = torch.empty((2, kz, 3, 3, CO, C), dtype=x.dtype, device=x.device)
+        wt, wt_lo = wt[0], wt[1]
+    N, H, W, _ = x.shape
+    plan = wgmma_plan(N, depth, H, W, C, CO, x.dtype, kz=kz)
+    err = fn(x.data_ptr(), w5.data_ptr(), 0 if wt is None else wt.data_ptr(),
              0 if wt_lo is None else wt_lo.data_ptr(), y.data_ptr(), N,
-             depth, H, W, C, w5.shape[-1], w5.shape[0],
-             _DTYPE_CODES[x.dtype],
+             depth, H, W, C, CO, kz,
+             _DTYPE_CODES[x.dtype], 0 if plan["layout"] == "big" else 1,
+             plan["wn"], plan["kc"], plan["splits"], plan["blocks"],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 wgmma kernel launch failed with CUDA "
@@ -364,6 +438,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
         w5 = pad_channels(w5, x.shape[-1], dim=-2)
     if route in ("wgmma", "wgmma_tf32x3", "few"):
         _check_aligned(route, x=x)
+    if route == "wgmma":  # TMA reads the weights as they are
+        _check_aligned(route, w=w5)
     padded = x.shape[-1] != C
     y = torch.empty((N, H, W, w5.shape[-1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

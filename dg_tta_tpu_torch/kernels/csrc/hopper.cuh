@@ -2,7 +2,8 @@
 // (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, conv3x3_wgrad_tf32x3.cu,
 // conv3x3_few.cu): the host side encodes TMA tensor maps, the device side
 // wraps the PTX of mbarriers, TMA tile loads (cp.async.bulk.tensor),
-// ldmatrix and warpgroup matrix multiply-accumulate (wgmma).
+// ldmatrix, warpgroup matrix multiply-accumulate (wgmma), and the cluster
+// barrier and distributed shared-memory reads of a thread block cluster.
 //
 // The tensor maps are encoded by cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the libraries link against the runtime only
@@ -347,14 +348,24 @@ __device__ __forceinline__ uint32_t cvt_tf32(float v) {
   return r;
 }
 
-// bf16: D(64 x 32, f32 registers) += A(64 x 16) * B(16 x 32), A from
-// registers, B K-major in shared memory by descriptor.  Each register holds
+// The same rounding in two integer operations, for finite v below the
+// largest tf32 (ptxas expands cvt.rna.tf32 into ~5 instructions with
+// checks for inf and NaN): the carry of bit 12 rounds the magnitude, ties
+// away from zero.  kernels/conv3x3.py::tf32_split computes the same bits.
+__device__ __forceinline__ uint32_t round_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// bf16: D(64 x 32, f32 registers) += A(64 x 16) * B(16 x 32) (and
+// m64n64k16_rs: 64 columns), A from registers, B in shared memory by
+// descriptor, K-major (TB = 0) or MN-major (TB = 1).  Each register holds
 // two bf16 of one row, the lower column in the low half.  Warp w of the warpgroup holds rows 16 w .. 16 w + 15; lane l
 //   a[0] = A[16 w + l / 4][2 (l % 4) + {0, 1}],
 //   a[1] = A[16 w + l / 4 + 8][2 (l % 4) + {0, 1}],
 //   a[2] = A[16 w + l / 4][2 (l % 4) + 8 + {0, 1}],
 //   a[3] = A[16 w + l / 4 + 8][2 (l % 4) + 8 + {0, 1}];
 // the accumulator as in wgmma_m64n32k16.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db) {
@@ -364,12 +375,46 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+template <int N, int TB = 0>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (N == 32) wgmma_m64n32k16_rs<TB>(d, a, db);
+  else wgmma_m64n64k16_rs<TB>(d, a, db);
 }
 
 // Four 8 x 8 matrices of 16-bit elements from shared memory, one register
@@ -398,6 +443,41 @@ template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// ---- thread block clusters ------------------------------------------------
+
+// This block's rank within its cluster (0 without a cluster launch).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// A barrier over every thread of every block of the cluster: shared-memory
+// writes before it (release) are visible to the cluster's reads after it
+// (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// The f32 at `p` in the shared memory of the cluster's block `rank` (p is
+// an address in this block's shared memory; the same offset is read there).
+__device__ __forceinline__ float ld_cluster_f32(const float* p,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 template <int N, int TA, int TB>

@@ -1,0 +1,188 @@
+"""Times of the tensor-core conv3x3 forward (`conv3x3`, routes "wgmma" and
+"wgmma_tf32x3") of one or more checkouts of the port on one card, for
+comparing a change with its parent in one call.
+
+    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits] CHECKOUT ...
+
+Run it by path.  For each CHECKOUT, in the order given (e.g. parent,
+change, change, parent: the card's clocks drift within a call), a
+subprocess whose import path starts at that checkout builds its kernels
+and times, in f32 and bf16, every shape of that checkout's
+`chip_smoke._conv_cases` that takes the type's wgmma route (a window
+forward, a trained step's forward and its input gradient) and the same
+shapes at the grouped runs' batches (`chip_smoke.GROUPED_RUNS`: f32 at
+`patch_group` 4, bf16 at 2), on seeded inputs:
+* the kernel's device ms by CUDA graph (`chip_smoke.device_ms`) and its
+  eager ms (`chip_smoke.time_ms`, the wrapper's host work included);
+* `F.conv3d` on the same inputs (channels-first views; TF32 off in f32),
+  device ms by CUDA graph: a yardstick the port never calls;
+* the bound (`chip_smoke._ops_ms`: the tensor cores' rate, f32 as three
+  tf32 products), TFLOP/s at the device time, and the blocks launched
+  (`kernels.conv3x3.wgmma_plan` where the checkout has it, else the
+  first design's grid of 8 x 16 pixel tiles);
+* the error against the plain version, held to chip_smoke's KERNEL_RTOL.
+Totals per type: the chip_smoke row (window forward + trained step, each
+shape times its convs per use) and the grouped step.  With `--splits`,
+where the checkout has `wgmma_plan`, each row shape of fewer work items
+than two per SM is also timed (device ms) at every split count 1-4 the
+plan allows, its other fields kept: how the plan's choice of clusters
+compares with the others.  Prints the card's name and power limit, one
+line per shape, then one JSON line per checkout: {"checkout", "float32":
+{"shapes": [...], "row": {...}, "grouped": {...}}, "bfloat16": {...}}.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+
+def _blocks(cc, N, depth, H, W, C, CO, dtype):
+    """(blocks, splits) of one launch of the checkout's kernel."""
+    import torch
+
+    if hasattr(cc, "wgmma_plan"):
+        p = cc.wgmma_plan(N, depth, H, W, C, CO, dtype)
+        return p["blocks"], p["splits"]
+    bn = 32 if CO <= 32 else (128 if dtype == torch.bfloat16
+                              and CO % 128 == 0 else 64)
+    return N * -(-H // 8) * -(-W // 16) * -(-CO // bn), 1
+
+
+def _cases(cs):
+    """(use, volumes, depth, H, W, C, CO, convs per use, in the row?)."""
+    rows = [(use, vols, d, H, W, C, CO, mult, True)
+            for use, vols, d, H, W, C, CO, mult, _ in cs._conv_cases()
+            if C > 1]
+    for name, group in cs.GROUPED_RUNS:
+        for d, H, W, C, CO, mult in cs.TS104_CONV_SHAPES:
+            if C == 1:
+                continue
+            rows.append((f"{name} grouped step forward", 2 * group, d, H, W,
+                         C, CO, mult, False))
+            rows.append((f"{name} grouped step dgrad", 2 * group, d, H, W,
+                         CO, C, mult, False))
+    return rows
+
+
+def _split_times(cc, cs, run, N, depth, H, W, C, CO, dtype):
+    """{splits: device ms} of `run` with the plan's splits forced to each
+    count 1-4 that the item's fewest stages allow."""
+    plan = cc.wgmma_plan
+    base = plan(N, depth, H, W, C, CO, dtype)
+    fewest = (C // base["kc"]) * (1 if depth == 1 else 2)
+    out = {}
+    try:
+        for splits in range(1, min(4, fewest) + 1):
+            forced = dict(base, splits=splits,
+                          blocks=base["items"] * splits if splits > 1
+                          else min(base["items"], 132))
+            cc.wgmma_plan = lambda *a, _p=forced, **k: _p
+            out[splits] = cs.device_ms(run, reps=10)
+    finally:
+        cc.wgmma_plan = plan
+    return out
+
+
+def one(checkout: str, splits: bool = False) -> dict:
+    """The times of `checkout`'s wgmma conv forward (in its own process)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from dg_tta_tpu_torch.kernels import conv3x3 as cc
+
+    out = {"checkout": checkout}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        gen = torch.Generator().manual_seed(3)
+        shapes = []
+        row = dict(device_ms=0.0, eager_ms=0.0, conv3d_ms=0.0, bound_ms=0.0)
+        grouped = dict(row)
+        for use, vols, depth, H, W, C, CO, mult, in_row in _cases(cs):
+            if use.split()[0] in ("float32", "bfloat16") \
+                    and not use.startswith(name):
+                continue
+            N = vols * depth
+            x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
+            w = (torch.randn((3, 3, 3, C, CO), generator=gen)
+                 * (2.0 / (27 * C)) ** 0.5).to(dt).cuda()
+            route = cc.conv3x3_route(C, CO, dt)
+            x5 = x.view(vols, depth, H, W, C).permute(0, 4, 1, 2, 3)
+            wt = w.permute(4, 3, 0, 1, 2).contiguous()
+            with cs.tf32_off():
+                ref = cc.conv3x3_reference(x, w, depth=depth)
+                conv3d_ms = cs.device_ms(
+                    lambda: F.conv3d(x5, wt, padding=1), reps=10)
+            got = cc.conv3x3(x, w, depth=depth)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= cs.KERNEL_RTOL[name] * scale:
+                raise AssertionError(f"{checkout} {name} {use} "
+                                     f"{(N, H, W, C, CO)}: max abs err {err}")
+            del got, ref
+
+            def run():
+                return cc.conv3x3(x, w, depth=depth)
+
+            dev = cs.device_ms(run, reps=10)
+            eager = cs.time_ms(run)
+            ops = cc.conv3x3_flops(x.shape, w.shape, depth)
+            bound = cs._ops_ms(ops, name, route)
+            blocks, n_splits = _blocks(cc, N, depth, H, W, C, CO, dt)
+            res = dict(use=use, N=N, depth=depth, H=H, W=W, C=C, CO=CO,
+                       route=route, mult=mult, device_ms=dev,
+                       eager_ms=eager, conv3d_ms=conv3d_ms, bound_ms=bound,
+                       tflops=ops / dev / 1e9, blocks=blocks,
+                       splits=n_splits, max_rel_err=err / scale)
+            if splits and in_row and hasattr(cc, "wgmma_plan") and \
+                    cc.wgmma_plan(N, depth, H, W, C, CO, dt)["items"] \
+                    < 2 * 132:
+                res["split_ms"] = _split_times(cc, cs, run, N, depth, H, W,
+                                               C, CO, dt)
+            shapes.append(res)
+            tot = row if in_row else grouped
+            for key in ("device_ms", "eager_ms", "conv3d_ms", "bound_ms"):
+                tot[key] += mult * res[key]
+            print(f"{checkout} {name} {use} N={N} {H}x{W} {C}->{CO} "
+                  f"route={route} device_ms={dev:.4f} eager_ms={eager:.4f} "
+                  f"conv3d_ms={conv3d_ms:.4f} bound_ms={bound:.4f} "
+                  f"TFLOP/s={res['tflops']:.1f} blocks={blocks} "
+                  f"splits={n_splits} rel_err={err / scale:.2e} x{mult}"
+                  + (" split_ms=" + " ".join(
+                      f"{k}:{v:.4f}" for k, v in res["split_ms"].items())
+                     if "split_ms" in res else ""), flush=True)
+            del x, w, x5, wt
+        print(f"{checkout} {name} row (window forward + trained step): "
+              + " ".join(f"{k}={v:.3f}" for k, v in row.items()), flush=True)
+        print(f"{checkout} {name} grouped step: "
+              + " ".join(f"{k}={v:.3f}" for k, v in grouped.items()),
+              flush=True)
+        out[name] = {"shapes": shapes, "row": row, "grouped": grouped}
+    return out
+
+
+def main(argv):
+    splits = "--splits" in argv
+    argv = [a for a in argv if a != "--splits"]
+    if argv[:1] == ["--one"]:
+        print(json.dumps(one(argv[1], splits)), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    for checkout in argv:
+        root = Path(checkout).resolve()
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--one", checkout] + ["--splits"] * splits,
+                       cwd=root, check=True,
+                       timeout=900, env={**os.environ,
+                                         "PYTHONPATH": str(root)})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -513,12 +513,13 @@ def _conv64(x, w):
 
 @pytest.mark.parametrize("C", [8, 64, 512])
 def test_3xtf32_products_meet_the_f32_tolerance(C):
-    """The "wgmma_tf32x3" route's algorithm in float64: x split in the
-    kernel (hi and lo rounded to tf32), w by `tf32_split` (hi; lo as the
-    tensor core reads it, truncated), the three products x_hi w_hi +
-    x_hi w_lo + x_lo w_hi summed exactly.  It stays within the route's
-    f32 tolerance of the exact conv, 5e-5 of the output's range (chip_smoke
-    KERNEL_RTOL), where TF32 alone misses it."""
+    """The "wgmma_tf32x3" forward's algorithm in float64: x split in the
+    kernel (hi rounded to tf32; lo the exact remainder, as the tensor core
+    reads it, truncated), w by `tf32_split` (hi; lo truncated too), the
+    three products x_hi w_hi + x_hi w_lo + x_lo w_hi summed exactly.  It
+    stays within the route's f32 tolerance of the exact conv, 5e-5 of the
+    output's range (chip_smoke KERNEL_RTOL), where TF32 alone misses it.
+    (The weight gradient rounds its lo parts to nearest: closer still.)"""
     from dg_tta_tpu_torch.kernels.conv3x3 import tf32_split
 
     rng = np.random.default_rng(C)
@@ -529,7 +530,7 @@ def test_3xtf32_products_meet_the_f32_tolerance(C):
     w_hi, w_lo = (t.numpy().astype(np.float64)
                   for t in tf32_split(torch.from_numpy(w32)))
     x_hi = _tf32(x, "rna")
-    x_lo = _tf32(x - x_hi, "rna")
+    x_lo = _tf32(x - x_hi, "rz")
     w_lo = _tf32(w_lo, "rz")
     exact = _conv64(x, w)
     scale = np.abs(exact).max()
@@ -567,9 +568,38 @@ def _longest_wgrad_tf32x3_k():
     return longest
 
 
+def _longest_wgmma_k():
+    """The longest sum one block of the f32 forward accumulates at a
+    main-path shape (window, step and grouped step, forward and input
+    gradient): its run of (z-tap, channel chunk) stages of an interior
+    plane, 9 x kc of K each (`wgmma_plan`; a cluster's blocks split the
+    stages, and their partial sums are added with rounding)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgmma_plan
+
+    cs = _chip_smoke()
+    groups = [1] + [g for n, g in cs.GROUPED_RUNS if n == "float32"]
+    longest = 0
+    for depth, H, W, C, CO, _ in cs.TS104_CONV_SHAPES:
+        if C == 1:
+            continue
+        for N in [depth] + [2 * g * depth for g in groups]:
+            for c, co in ((C, CO), (CO, C)):
+                p = wgmma_plan(N, depth, H, W, c, co, torch.float32)
+                stages = 3 * (c // p["kc"])
+                longest = max(longest,
+                              -(-stages // p["splits"]) * 9 * p["kc"])
+    return longest
+
+
+# how each kernel rounds the lo part of the operand it splits itself: the
+# forward leaves the exact remainder for the tensor core to truncate
+LO_ROUNDING = {"conv3x3_wgmma.cu": "rz"}
+
+
 @pytest.mark.parametrize("source,k_per_stage,tol", [
-    # the forward and input gradient: 32 channels per stage, K = 27 x 512
-    ("conv3x3_wgmma.cu", 32, 5e-5),
+    # the forward and input gradient: 9 taps x 16 channels per stage, K =
+    # the longest run of stages of one block (27 x 512)
+    ("conv3x3_wgmma.cu", 144, 5e-5),
     # the weight gradient: 64 positions per stage, K = the longest sum of
     # one block (the splits' partial sums are then added with rounding)
     ("conv3x3_wgrad_tf32x3.cu", 64, 1e-4),
@@ -582,12 +612,13 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
                                                         tol):
     """The tensor cores add each step's products into the f32 accumulator
     with truncation.  Over the longest K of the main path that drift
-    reaches ~1e-4 of the output's range (forward, K = 27 x 512) or ~3e-4
-    (weight gradient, ~37k positions per block); each kernel therefore adds
-    its accumulator into a second, rounded f32 sum every `kPromote` stages
-    (csrc/conv3x3_wgmma.cu, csrc/conv3x3_wgrad_tf32x3.cu, the weight
-    gradient of csrc/conv3x3_few.cu), except the "few" forward, whose K of
-    328 needs none.  A model of that: k8 steps of three exact 8-term
+    reaches ~1e-4 of the output's range (forward, K = 27 x 512 in one
+    block) or ~3e-4 (weight gradient, ~37k positions per block); each
+    kernel therefore adds its accumulator into a second, rounded f32 sum
+    every `kPromote` stages (csrc/conv3x3_wgmma.cu: 3 stages of 9 taps x 16
+    channels; csrc/conv3x3_wgrad_tf32x3.cu, the weight gradient of
+    csrc/conv3x3_few.cu), except the "few" forward, whose K of 328 needs
+    none.  A model of that: k8 steps of three exact 8-term
     products, each step's sum truncated to f32, with and without the
     promotion; it must stay within half the route's tolerance (chip_smoke
     KERNEL_RTOL, WGRAD_RTOL)."""
@@ -604,7 +635,7 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
         steps_per_promotion = promote * k_per_stage // 8
     rng = np.random.default_rng(9)
     M = 96
-    K = {"conv3x3_wgmma.cu": lambda: 27 * 512,
+    K = {"conv3x3_wgmma.cu": _longest_wgmma_k,
          "conv3x3_wgrad_tf32x3.cu": _longest_wgrad_tf32x3_k,
          "conv3x3_few.cu": lambda: (few_k(12, 3, torch.float32)[1]
                                     if k_per_stage is None
@@ -615,7 +646,7 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
         .astype(np.float64)
     exact = a @ b
     a_hi = _tf32(a, "rna")
-    a_lo = _tf32(a - a_hi, "rna")
+    a_lo = _tf32(a - a_hi, LO_ROUNDING.get(source, "rna"))
     b_hi = _tf32(b, "rna")
     b_lo = _tf32(b - b_hi, "rz")
 

@@ -291,9 +291,13 @@ def test_tta_one_volume_on_card_matches_cpu(cuda_device):
 
 # The wgmma route (bf16, C % 16 == 0, CO % 8 == 0): (N, depth, H, W, C, CO,
 # kz).  Ragged planes leave pixel tiles part empty; CO = 40 leaves the
-# second 64-channel tile part empty; the deepest TS104 level is a 7 x 8
-# plane at C = CO = 320.
+# 64-channel tile part empty; the deepest TS104 level is a 7 x 8 plane at
+# C = CO = 320 (the "small" layout, its items shared by clusters of
+# blocks); C = 512 at 14 x 16 splits each item over a cluster too;
+# persistent_c32 gives each persistent block several work items
+# (`wgmma_plan`).
 WGMMA_CASES = {
+    "persistent_c32": (40, 4, 33, 35, 32, 32, 3),
     "ragged_c16": (12, 6, 19, 37, 16, 40, 3),
     "depth1_c32": (4, 1, 9, 21, 32, 32, 3),
     "two_volumes_co320": (8, 4, 20, 18, 32, 320, 3),
@@ -386,10 +390,12 @@ def test_wgmma_routes_reject_misaligned_tensors(cuda_device):
 
 
 # The "wgmma_tf32x3" route (f32, C % 8 == 0, CO % 8 == 0): (N, depth, H, W,
-# C, CO, kz).  C = 8, 24 and 48 take the 32- and 64-byte swizzles (8 and 16
-# channels per stage), the rest 128 bytes; C = 512 is the longest sum of
-# the main path, where the accumulator's promotion matters.
+# C, CO, kz).  C = 8 and 24 take the 32-byte rows (8 channels per stage),
+# the rest 64 bytes (16 channels); C = 512 is the longest sum of the main
+# path, where the accumulator's promotion matters; the layouts, clusters
+# and persistent blocks as in WGMMA_CASES.
 TF32X3_CASES = {
+    "persistent_c32": (40, 4, 33, 35, 32, 32, 3),
     "ragged_c16": (12, 6, 19, 37, 16, 40, 3),
     "c8": (6, 3, 11, 13, 8, 16, 3),
     "c24": (4, 2, 9, 21, 24, 32, 3),
@@ -456,6 +462,28 @@ def test_conv3x3_tf32x3_dgrad_with_flipped_swapped_weights(cuda_device,
     assert conv3x3.tf32x3_launches == before + 1
     ref = conv3x3_reference(dy, wt, depth=depth)
     assert _max_rel_err(got, ref) <= RTOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["persistent_c32", "plane_7x8_c320", "c512",
+                                  "depth1_c32"])
+def test_wgmma_forward_is_deterministic(cuda_device, dtype, case):
+    """Two launches on the same inputs give the same bits, on persistent
+    blocks and on clusters (whose partial sums rank 0 adds in rank order:
+    no atomics)."""
+    if dtype == "bfloat16":
+        x, w, _ = _wgmma_inputs(case, 8, cuda_device)
+        depth = WGMMA_CASES[case][1]
+    else:
+        x, w, _ = _tf32x3_inputs(case, 8, cuda_device)
+        depth = TF32X3_CASES[case][1]
+    first = conv3x3(x, w, depth=depth)
+    second = conv3x3(x, w, depth=depth)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _max_rel_err(first, conv3x3_reference(x, w, depth=depth)) <= \
+        RTOL[dtype]
 
 
 @pytest.mark.cuda
