@@ -8,14 +8,17 @@ Phases; any failure raises and the script exits non-zero:
    power limit as `nvidia-smi` reports them;
 2. build: compiles every CUDA kernel of the main path from the checkout's
    sources (`conv3x3`, `conv3x3_wgrad`, `warp`, `conv3x3_wgmma`,
-   `conv3x3_wgrad_wgmma`, `conv3x3_c1`, `conv3x3_wgrad_tf32x3`,
-   `conv3x3_few`: one `nvcc` per source, all started together), and
-   asserts that the SASS of the wgmma kernels (bf16 and f32 3xTF32
-   instantiations of `conv3x3_wgmma`, `conv3x3_wgrad_wgmma` and the f32
-   `conv3x3_wgrad_tf32x3`) holds tensor-core (`HGMMA`) and TMA
-   (`UTMALDG`) instructions, `conv3x3_wgmma`'s also the ldmatrix
-   (`LDSM`) that reads its A fragments from the staged halo, and prints
-   any wgmma that ptxas serialized (C7513, C7511); that of `conv3x3_few`'s four kernels
+   `conv3x3_wgrad_wgmma`, `conv3x3_c1`, `conv3x3_few`: one `nvcc` per
+   source, all started together), and asserts that the SASS of the wgmma
+   kernels (bf16 and f32 3xTF32 instantiations of `conv3x3_wgmma`; the
+   weight gradient's `wgrad_tf32x3_kernel` (f32, 32 and 64 columns),
+   `wgrad_bf16_zfirst_kernel` and `wgrad_bf16_desc_kernel` in
+   `conv3x3_wgrad_wgmma`) holds tensor-core (`HGMMA`) and TMA (`UTMALDG`)
+   instructions, `conv3x3_wgmma`'s and the z-first kernel's also the
+   ldmatrix (`LDSM`) that reads their A fragments from the staged halo;
+   prints any wgmma that ptxas serialized (C7513, C7511, C7512), and
+   fails if it serialized one of `conv3x3_wgrad_wgmma` for a running
+   group's registers (C7513, C7511); that of `conv3x3_few`'s four kernels
    (forward and weight gradient, bf16 and f32) `HGMMA` and their halo
    loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`), and that of
    `conv3x3_c1`'s four (the C = 1 forward and weight gradient, bf16 and
@@ -56,6 +59,9 @@ Phases; any failure raises and the script exits non-zero:
      also forced onto the CUDA-core kernel, and the f32 routes' per-step
      totals on the same shapes side by side; the MIND stem's shape too, on
      "few", forced onto the padded wgmma route and the CUDA-core kernel;
+     at the top level (the first shape with C > 1) two launches of each
+     type are held equal bit for bit (a fixed summation order, no
+     atomics);
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
      its adjoint (112 x 112 x 128, times 1 / |det|), and the nearest label
@@ -128,7 +134,11 @@ Phases; any failure raises and the script exits non-zero:
    recomputed in the backward), on the same weights and draws: the
    gradients held to each other (REMAT_GRAD_RTOL), each step's launches
    to `expected_launches` (the recompute launches every forward kernel
-   again), and each variant's ms and peak device memory;
+   again), and each variant's ms and peak device memory; then one
+   member's adaptation run twice in this process (`phase_repeat`:
+   TS104_GIN f32 at the smoke plan, the same weights and draws), printing
+   how far the second run's losses and updates lie from the first's (a
+   trace of the several-rank gap, ROADMAP C; it asserts nothing);
 6. DG pretraining (`phase_pretrain`, configs 4-5), f32: `run_pretraining`
    on three synthetic 128 x 128 x 144 CTs at 1.5 mm with a 105-label
    `dataset.json` (`obs/synthetic.make_pretrain_dataset`) at the full
@@ -337,8 +347,7 @@ DP_LEAF_RTOL = 5e-2
 DP_RANKS = 2
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
-           "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_wgrad_tf32x3",
-           "conv3x3_few"]
+           "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_few"]
 
 
 def log(*a):
@@ -407,9 +416,13 @@ def phase_build():
                 log(f"  {name}: {line.strip()}")
     # the wgmma routes run on the tensor cores, fed by TMA: the bf16 and
     # the f32 (3xTF32) instantiations of conv3x3_wgmma (their A fragments
-    # read from the staged halo by ldmatrix, LDSM), and wgrad's bf16 and
-    # f32 kernels; the "few" route's four kernels on the tensor cores,
-    # the bf16 ones fed by cp.async (LDGSTS), the f32 ones by TMA; the
+    # read from the staged halo by ldmatrix, LDSM), and the weight
+    # gradient's kernels (conv3x3_wgrad_wgmma: f32 at 32 and 64 columns,
+    # A hand-loaded; bf16 z-first, A by ldmatrix; bf16 by descriptor),
+    # whose wgmmas ptxas must not serialize for a running group's
+    # registers (C7513, C7511); the "few" route's four kernels on the
+    # tensor cores, the bf16 ones fed by cp.async (LDGSTS), the f32 ones by
+    # TMA; the
     # "c1" route's four by mma.sync (HMMA), the weight gradients' dy by
     # cp.async; the warp's affine entry stages its boxes by cp.async and
     # gathers from shared memory (LDS); the exact adjoint sums in shared
@@ -421,8 +434,9 @@ def phase_build():
     for name, marker, ops in (
             ("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_", halo),
             ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf", halo),
-            ("conv3x3_wgrad_wgmma", "wgrad_wgmma_kernel", tma),
-            ("conv3x3_wgrad_tf32x3", "wgrad_tf32x3_kernel", tma),
+            ("conv3x3_wgrad_wgmma", "wgrad_tf32x3_kernel", tma),
+            ("conv3x3_wgrad_wgmma", "wgrad_bf16_zfirst_kernel", halo),
+            ("conv3x3_wgrad_wgmma", "wgrad_bf16_desc_kernel", tma),
             ("conv3x3_few", "few_forward_bf16_kernel", cp_async),
             ("conv3x3_few", "few_forward_f32_kernel", tma),
             ("conv3x3_few", "few_wgrad_bf16_kernel", cp_async),
@@ -440,6 +454,16 @@ def phase_build():
             raise AssertionError(f"{name} {marker}: {len(funcs)} functions, "
                                  f"SASS instruction counts {counts}")
         log(f"  {name} {marker}: {len(funcs)} instantiations, SASS {counts}")
+    wgrad_log = build.library_path("conv3x3_wgrad_wgmma").with_suffix(
+        ".log").read_text()
+    serialized = [line.strip() for line in wgrad_log.splitlines()
+                  if "C7513" in line or "C7511" in line]
+    if serialized:
+        raise AssertionError("conv3x3_wgrad_wgmma: ptxas serialized wgmmas "
+                             "for a running group's registers: "
+                             + "; ".join(serialized))
+    log("  conv3x3_wgrad_wgmma: no wgmma serialized for a running group's "
+        "registers (C7513, C7511)")
 
 
 def _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult=1):
@@ -643,6 +667,8 @@ def phase_wgrad():
 
     gen = torch.Generator().manual_seed(1)
     totals = {}
+    # the top level: the first shape past the C = 1 conv
+    top = next(sh[:5] for sh in TS104_CONV_SHAPES if sh[3] > 1)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         tot = _new_totals()
@@ -677,6 +703,17 @@ def phase_wgrad():
                         f"conv3x3_wgrad {name} route={route} "
                         f"{(N, depth, H, W, C, CO)}: max abs err {err} > "
                         f"{WGRAD_RTOL * scale}")
+                if route == main and (depth, H, W, C, CO) == top:
+                    # a fixed order of sums: a second launch, bit for bit
+                    again = conv3x3_wgrad(x, dy, depth=depth)
+                    if not torch.equal(again, got):
+                        raise AssertionError(
+                            f"conv3x3_wgrad {name} route={route} "
+                            f"{(N, depth, H, W, C, CO)}: two launches differ "
+                            f"by {(again - got).abs().max().item()}")
+                    log(f"conv3x3_wgrad {name} N={N} {H}x{W} {C}->{CO} "
+                        f"route={route}: two launches equal bit for bit")
+                    del again
                 k_ms = time_ms(lambda: conv3x3_wgrad(x, dy, depth=depth,
                                                      route=route))
                 log(f"conv3x3_wgrad {name} N={N} depth={depth} {H}x{W} "
@@ -1988,6 +2025,55 @@ def phase_remat():
         f"{n1['warp_affine']} vs {n0['warp_affine']} (expected)")
 
 
+def phase_repeat():
+    """One member of the full-width TS104_GIN net adapted twice in this
+    process on this card, f32, the smoke plan (2 epochs x 4 patches), the
+    same seeded weights, volume and draws (`tta_one_volume`, one member):
+    prints the largest relative difference of the two runs' losses, and of
+    their updates (adapted - pretrained) per parameter and over all
+    parameters at once.  Zero means a run is reproducible on the card, so a
+    gap between a sharded and a one-process run (ROADMAP C) comes from
+    the sharding; asserts nothing."""
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import tta_one_volume
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    model = ts104_model()
+    plan = TTAPlan(ensemble_count=1, **SMOKE_PLAN)
+    rng = np.random.default_rng(4)
+    vol = torch.from_numpy(rng.normal(0.0, 0.3, size=(1, *VOLUME_SHAPE, 1))
+                           .astype(np.float32)).cuda()
+    vol[0, 60:140, 80:160, 90:190] += 2.0
+    idx = np.arange(N_OPT)
+    net0 = seeded_net(model, 13, "cuda")
+    init = {k: v.detach().clone() for k, v in net0.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        nets, losses, _ = tta_one_volume(
+            model, plan, copy.deepcopy(net0), vol,
+            [list(map(float, VOLUME_SHAPE))], idx, idx, TorchDraws(seed=21))
+        runs.append(({k: v.detach() - init[k]
+                      for k, v in nets[0].state_dict().items()},
+                     np.asarray(losses, np.float64)))
+    (d0, l0), (d1, l1) = runs
+    l_rel = float(np.max(np.abs(l1 - l0) / np.maximum(np.abs(l0), 1e-30)))
+    per = [((d1[k] - d).norm() / d.norm()).item()
+           for k, d in d0.items() if d.norm().item() > 0]
+    whole = math.sqrt(sum((d1[k] - d).double().norm().item() ** 2
+                          for k, d in d0.items()))
+    norm = math.sqrt(sum(d.double().norm().item() ** 2 for d in d0.values()))
+    log(f"repeat: TS104_GIN f32, one member x {plan.epochs} epochs x "
+        f"{plan.patches_to_be_accumulated} patches, run twice in one "
+        f"process: losses {l1.ravel().tolist()} vs {l0.ravel().tolist()} "
+        f"(max rel diff {l_rel:.3e}); updates off by {whole / norm:.3e} of "
+        f"their norm, largest per parameter {max(per):.3e} "
+        f"({sum(p > 0 for p in per)} of {len(per)} parameters differ)")
+
+
 def _pretrain_warp_sites(gen):
     """The warps of one pretraining step at the TS104 patch, batch 2 (the
     augmentation's draws with rotation, scale and the low-resolution
@@ -2553,6 +2639,7 @@ def main():
     phase_reference()
     reference_pretrain()
     phase_remat()
+    phase_repeat()
     runs, losses = {}, {}
 
     members = {}
@@ -2681,7 +2768,7 @@ def main():
         _row("conv3x3_wgmma_tf32x3", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgmma_tf32x3", "float32"),
              c["float32/wgmma_tf32x3"]),
-        _row("conv3x3_wgrad_tf32x3", conv3x3.WGRAD_TF32X3_SOURCE,
+        _row("conv3x3_wgrad_tf32x3", conv3x3.WGRAD_WGMMA_SOURCE,
              conv3x3.REPLACES, both("conv3x3_wgrad_wgmma_tf32x3", "float32"),
              wg["float32/wgmma_tf32x3"]),
         # the C = 1 first conv on "c1" (the tensor cores), its bytes and

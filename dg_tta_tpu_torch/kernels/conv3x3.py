@@ -56,9 +56,9 @@ counts its launches on every route; `conv3x3.wgmma_launches`,
 The backward, for TTA: `conv3x3_wgrad` is the weight gradient, with the
 same five routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
 `csrc/conv3x3_c1.cu`; "few", `csrc/conv3x3_few.cu`, dy transposed and
-split in shared memory in f32; "wgmma", `csrc/conv3x3_wgrad_wgmma.cu`,
-for bf16; "wgmma_tf32x3", `csrc/conv3x3_wgrad_tf32x3.cu`, for f32,
-3xTF32 with dy split and transposed by a pre-pass; "cuda_core",
+split in shared memory in f32; "wgmma" (bf16) and "wgmma_tf32x3" (f32,
+3xTF32, dy transposed and split in shared memory), the kernels of
+`csrc/conv3x3_wgrad_wgmma.cu` that `wgrad_plan` picks; "cuda_core",
 `csrc/conv3x3_wgrad.cu`, for the other channel counts; plain version
 `conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches`,
 `.wgmma_launches`, `.tf32x3_launches`, `.c1_launches`, `.few_launches`
@@ -70,6 +70,7 @@ flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -79,9 +80,8 @@ from dg_tta_tpu_torch.kernels import build
 SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3.cu"
 WGRAD_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad.cu"
 WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgmma.cu"
+# both tensor-core weight gradients, bf16 ("wgmma") and f32 ("wgmma_tf32x3")
 WGRAD_WGMMA_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_wgmma.cu"
-WGRAD_TF32X3_SOURCE = \
-    "dg_tta_tpu_torch/kernels/csrc/conv3x3_wgrad_tf32x3.cu"
 C1_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_c1.cu"
 FEW_SOURCE = "dg_tta_tpu_torch/kernels/csrc/conv3x3_few.cu"
 REPLACES = "dg_tta_tpu/ops/conv2d_pallas.py:99"
@@ -108,10 +108,9 @@ def conv3x3_route(C: int, CO: int, dtype) -> str:
 
 def conv3x3_wgrad_route(C: int, CO: int, dtype) -> str:
     """The kernel that runs `conv3x3_wgrad`: the route `conv3x3_route`
-    picks for the same shapes ("wgmma_tf32x3" is then
-    `csrc/conv3x3_wgrad_tf32x3.cu`, which also steps 8 channels along M and
-    needs 16-byte rows; "few" the weight gradient in
-    `csrc/conv3x3_few.cu`)."""
+    picks for the same shapes ("wgmma" and "wgmma_tf32x3" are then the
+    kernels of `csrc/conv3x3_wgrad_wgmma.cu`, `wgrad_kernel`; "few" the
+    weight gradient in `csrc/conv3x3_few.cu`)."""
     return conv3x3_route(C, CO, dtype)
 
 
@@ -470,15 +469,25 @@ def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
 _WG_TILE_H, _WG_TILE_W, _WG_TCO = 4, 16, 32
 # blocks to aim for when the positions are split: 8 per SM of an H100
 _WG_TARGET_BLOCKS = 8 * 132
-# conv3x3_wgrad_wgmma tiles (csrc/conv3x3_wgrad_wgmma.cu): 4 x 16 positions
-# per stage, 64 input channels and 32 or 64 output channels per block, one
-# block per kz; aim for 4 blocks per SM (one resident at a time)
-_WGW_TILE_H, _WGW_TILE_W, _WGW_TCI = 4, 16, 64
-_WGW_TARGET_BLOCKS = 4 * 132
-# conv3x3_wgrad_tf32x3 tiles (csrc/conv3x3_wgrad_tf32x3.cu): 4 x 16 positions
-# per stage, 32 input and 32 output channels per block, one block per kz;
-# one block per SM is resident (672 threads)
-_WGT_TCI, _WGT_TCO = 32, 32
+# conv3x3_wgrad_wgmma (csrc/conv3x3_wgrad_wgmma.cu): 4 x 16 positions per
+# stage; per kernel the input and output channels of a block, whether it
+# sums the three z-taps itself, and the most position tiles a split may sum
+# (the f32 and z-first bf16 kernels promote their accumulators; the
+# descriptor kernel keeps its sums short instead); one block per SM is
+# resident
+_WGR_TILE_H, _WGR_TILE_W = 4, 16
+_WGR_KERNELS = {
+    # name: (the C entry's code, ci tile, co tile, all z-taps in one block,
+    # most tiles a split)
+    "tf32x3_n32": (0, 32, 32, False, 2048),
+    "tf32x3_n64": (1, 32, 64, False, 32),
+    "bf16_zfirst": (2, 32, 32, True, 2048),
+    "bf16_desc_n32": (3, 64, 32, False, 288),
+    "bf16_desc_n64": (4, 64, 64, False, 288),
+}
+_WGR_SMS = 132
+# the fewest position tiles a split sums
+_WGR_MIN_TILES = 16
 # conv3x3_c1's weight gradient (csrc/conv3x3_c1.cu): positions per tile
 # (bf16 8 x 64, f32 4 x 64), 32 output channels per block; a block sums a
 # contiguous range of tiles, one wave of blocks, two per SM
@@ -538,25 +547,67 @@ def wgrad_splits(x_shape, co: int, kz: int = 3) -> int:
     return max(1, min(-(-tiles // 4), -(-_WG_TARGET_BLOCKS // base)))
 
 
-def wgrad_wgmma_splits(x_shape, co: int, kz: int = 3) -> int:
-    """How many blocks share the sum over positions of one output tile on
-    the "wgmma" route: enough for `_WGW_TARGET_BLOCKS`, at least 16
-    position tiles each."""
-    N, H, W, C = x_shape
-    tiles = N * (-(-H // _WGW_TILE_H)) * (-(-W // _WGW_TILE_W))
-    bn = 32 if co <= 32 else 64
-    base = kz * (-(-C // _WGW_TCI)) * (-(-co // bn))
-    return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
+def wgrad_kernel(C: int, CO: int, dtype) -> str:
+    """The kernel of `csrc/conv3x3_wgrad_wgmma.cu` that runs a weight
+    gradient of C input and CO output channels: for f32 "tf32x3_n32" (32
+    output channels a block) where CO < 64, else "tf32x3_n64" (64, no
+    promotion: short splits); for bf16 "bf16_zfirst" (the three z-taps in
+    one block, planes walked first) where C <= 32, else "bf16_desc_n32" or
+    "bf16_desc_n64" (both operands by descriptor, one z-tap a block, 32
+    output channels a block for CO <= 32, else 64)."""
+    if dtype == torch.float32:
+        return "tf32x3_n32" if CO < 64 else "tf32x3_n64"
+    if C <= 32:
+        return "bf16_zfirst"
+    return "bf16_desc_n32" if CO <= 32 else "bf16_desc_n64"
 
 
-def wgrad_tf32x3_splits(x_shape, co: int, kz: int = 3) -> int:
-    """How many blocks share the sum over positions of one output tile on
-    the "wgmma_tf32x3" route: enough for `_WGW_TARGET_BLOCKS`, at least 16
-    position tiles each."""
-    N, H, W, C = x_shape
-    tiles = N * (-(-H // _WGW_TILE_H)) * (-(-W // _WGW_TILE_W))
-    base = kz * (-(-C // _WGT_TCI)) * (-(-co // _WGT_TCO))
-    return max(1, min(-(-tiles // 16), -(-_WGW_TARGET_BLOCKS // base)))
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(N: int, H: int, W: int, C: int, CO: int, dtype,
+               kz: int = 3) -> dict:
+    """How `csrc/conv3x3_wgrad_wgmma.cu` runs one weight gradient: x (N,
+    H, W, C) and dy (N, H, W, CO) of `dtype`, kz z-taps.
+    * kernel: `wgrad_kernel(C, CO, dtype)`, code: its number in the C
+      entry; ci, co: the input and output channels of a block;
+    * tiles: 4 x 16 position tiles (a stage each, or a step of the z-first
+      walk);
+    * items: the blocks of one split, channel tiles of C and CO, times the
+      z-taps where a block takes one; neighbours in the launch order, so
+      that they meet in L2;
+    * splits: runs of position tiles, one a block of each item, none
+      empty: of the counts that give each split 16 tiles to the kernel's
+      most (2048; 32 for "tf32x3_n64", 288 by descriptor), the one that
+      gives each SM the most of a split's work per wave, splits /
+      ceil(splits x items / 132), the fewest such; blocks = splits x
+      items, waves = ceil(blocks / 132).
+    The splits follow from N: a grouped step sums a plane in another order
+    than the ungrouped one (held by tolerance, ROADMAP C).  `reason` says
+    why a launch has fewer blocks than SMs (None if not); `longest`: the
+    most positions one block sums.  Cached: the search over split counts
+    takes milliseconds of host time at the top level, once per shape."""
+    kernel = wgrad_kernel(C, CO, dtype)
+    code, ci, co, zfirst, most_tiles = _WGR_KERNELS[kernel]
+    tiles = N * -(-H // _WGR_TILE_H) * -(-W // _WGR_TILE_W)
+    items = -(-C // ci) * -(-CO // co) * (1 if zfirst else kz)
+    least = -(-tiles // most_tiles)
+    most = max(least, tiles // _WGR_MIN_TILES)
+    splits, best = least, 0.0
+    for s in range(least, most + 1):
+        # no empty split: the kernel gives each ceil(tiles / s) tiles
+        s = -(-tiles // -(-tiles // s))
+        rate = s / -(-s * items // _WGR_SMS)
+        if rate > best:
+            splits, best = s, rate
+    blocks = splits * items
+    reason = None
+    if blocks < _WGR_SMS:
+        reason = (f"{items} items x {splits} splits: a split sums at least "
+                  f"{_WGR_MIN_TILES} of the {tiles} position tiles")
+    per = -(-tiles // splits)
+    return dict(kernel=kernel, code=code, ci=ci, co=co, tiles=tiles,
+                items=items, splits=splits, blocks=blocks,
+                waves=-(-blocks // _WGR_SMS), reason=reason,
+                longest=per * _WGR_TILE_H * _WGR_TILE_W)
 
 
 def wgrad_few_splits(x_shape, co: int, dtype) -> int:
@@ -604,13 +655,13 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                            depth, kz, route)
         conv3x3_wgrad.padded_launches += 1
         return dw[..., :C, :].contiguous()
-    if route == "wgmma_tf32x3":
-        return _wgrad_tf32x3(x, dy, depth, kz)
-    if route == "wgmma":
+    code = _DTYPE_CODES[x.dtype]
+    if route in ("wgmma", "wgmma_tf32x3"):
         _check_aligned(route, x=x, dy=dy)
-        splits = wgrad_wgmma_splits(x.shape, CO, kz)
+        plan = wgrad_plan(N, H, W, C, CO, x.dtype, kz)
+        splits, code = plan["splits"], plan["code"]
         fn = build.function("conv3x3_wgrad_wgmma", "dgtta_conv3x3_wgrad_wgmma",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p])
     elif route == "c1":
         _check_aligned(route, dy=dy)
@@ -635,8 +686,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
     args = [x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), N, depth, H, W]
     args += [CO, kz, splits] if route == "c1" else [C, CO, kz, splits]
-    if route != "wgmma":
-        args.append(_DTYPE_CODES[x.dtype])
+    args.append(code)
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -645,35 +695,6 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                            f"{x.dtype}, dy {tuple(dy.shape)}, depth {depth}, "
                            f"kz {kz}")
     _count(conv3x3_wgrad, route)
-    return dw
-
-
-def _wgrad_tf32x3(x, dy, depth, kz):
-    """`conv3x3_wgrad` on the "wgmma_tf32x3" route: the pre-pass writes dy
-    transposed and split (hi, lo) into `dyt`, then the 3xTF32 kernel and
-    the fixed-order sum of the splits run."""
-    _check_aligned("wgmma_tf32x3", x=x, dy=dy)
-    N, H, W, C = x.shape
-    CO = dy.shape[-1]
-    splits = wgrad_tf32x3_splits(x.shape, CO, kz)
-    fn = build.function("conv3x3_wgrad_tf32x3", "dgtta_conv3x3_wgrad_tf32x3",
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                        + [ctypes.c_void_p])
-    dyt = torch.empty(2 * N * H * CO * (-(-W // 4) * 4), dtype=torch.float32,
-                      device=x.device)
-    dw = torch.empty((kz, 3, 3, C, CO), dtype=torch.float32, device=x.device)
-    scratch = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dy.data_ptr(), dyt.data_ptr(), dw.data_ptr(),
-                 0 if scratch is None else scratch.data_ptr(), N, depth, H,
-                 W, C, CO, kz, splits,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad wgmma_tf32x3 kernel launch failed "
-                           f"with CUDA error {err} for x {tuple(x.shape)}, "
-                           f"dy {tuple(dy.shape)}, depth {depth}, kz {kz}")
-    _count(conv3x3_wgrad, "wgmma_tf32x3")
     return dw
 
 

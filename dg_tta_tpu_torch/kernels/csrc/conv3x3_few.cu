@@ -91,8 +91,7 @@
 //     there (B is K-major; no device-memory pre-pass).  Two accumulators per
 //     tile (hi B_hi; lo B_hi + hi B_lo) halve the chains of dependent
 //     wgmmas; every kPromote stages (512 positions) they are promoted into
-//     rounded sums in shared memory, as conv3x3_wgrad_tf32x3.cu does in
-//     registers.
+//     rounded sums in shared memory, as conv3x3_wgrad_wgmma.cu does.
 // Both weight gradients write one partial sum per block into a scratch
 // slice, and a second kernel adds the slices in a fixed order:
 // deterministic, no atomics.  With one split the first kernel writes dW.

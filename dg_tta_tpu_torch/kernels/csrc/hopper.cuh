@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, conv3x3_wgrad_tf32x3.cu,
-// conv3x3_few.cu): the host side encodes TMA tensor maps, the device side
+// (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, conv3x3_few.cu): the host
+// side encodes TMA tensor maps, the device side
 // wraps the PTX of mbarriers, TMA tile loads (cp.async.bulk.tensor),
 // ldmatrix, warpgroup matrix multiply-accumulate (wgmma), and the cluster
 // barrier and distributed shared-memory reads of a thread block cluster.

@@ -1,8 +1,9 @@
 """Times of the tensor-core conv3x3 forward (`conv3x3`, routes "wgmma" and
-"wgmma_tf32x3") of one or more checkouts of the port on one card, for
-comparing a change with its parent in one call.
+"wgmma_tf32x3") or weight gradient (`--wgrad`) of one or more checkouts
+of the port on one card, for comparing a change with its parent in one
+call.
 
-    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits] CHECKOUT ...
+    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits|--wgrad] CHECKOUT ...
 
 Run it by path.  For each CHECKOUT, in the order given (e.g. parent,
 change, change, parent: the card's clocks drift within a call), a
@@ -29,6 +30,18 @@ plan allows, its other fields kept: how the plan's choice of clusters
 compares with the others.  Prints the card's name and power limit, one
 line per shape, then one JSON line per checkout: {"checkout", "float32":
 {"shapes": [...], "row": {...}, "grouped": {...}}, "bfloat16": {...}}.
+
+With `--wgrad` it times the weight gradient instead (`conv3x3_wgrad`,
+routes "wgmma" and "wgmma_tf32x3"): every TS104 stride-1 shape with C > 1
+at a trained step's batch (2 x depth planes: both branches) and at the
+grouped runs' batches, on seeded inputs, printing per shape the device
+and eager ms as above, cuDNN's `torch.nn.grad.conv3d_weight` on the same
+inputs (device ms; TF32 off in f32), the bound, TFLOP/s, the blocks
+launched (`kernels.conv3x3.wgrad_plan` where the checkout has it, else
+the grid of the checkout's route) and the error against the plain
+version, held to chip_smoke's WGRAD_RTOL; then per type the row (a
+trained step: each shape times its convs, chip_smoke's
+`conv3x3_wgrad_wgmma*` rows) and the grouped step.
 """
 
 import json
@@ -164,11 +177,104 @@ def one(checkout: str, splits: bool = False) -> dict:
     return out
 
 
+def _wgrad_blocks(cc, N, H, W, C, CO, dtype):
+    """Blocks of one weight-gradient launch of the checkout's route."""
+    import torch
+
+    if hasattr(cc, "wgrad_plan"):
+        return cc.wgrad_plan(N, H, W, C, CO, dtype)["blocks"]
+    tiles = N * -(-H // 4) * -(-W // 16)
+    if dtype == torch.bfloat16:
+        bn = 32 if CO <= 32 else 64
+        per = 3 * -(-C // 64) * -(-CO // bn)
+        return cc.wgrad_wgmma_splits((N, H, W, C), CO) * per
+    per = 3 * -(-C // 32) * -(-CO // 32)
+    return cc.wgrad_tf32x3_splits((N, H, W, C), CO) * per
+
+
+def one_wgrad(checkout: str) -> dict:
+    """The times of `checkout`'s tensor-core weight gradient (in its own
+    process)."""
+    import torch
+
+    import chip_smoke as cs
+    from dg_tta_tpu_torch.kernels import conv3x3 as cc
+
+    out = {"checkout": checkout}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        gen = torch.Generator().manual_seed(4)
+        cases = [("step", 2, False)] + [
+            (f"patch_group {g} step", 2 * g, True)
+            for n, g in cs.GROUPED_RUNS if n == name]
+        shapes = []
+        row = dict(device_ms=0.0, eager_ms=0.0, cudnn_ms=0.0, bound_ms=0.0)
+        grouped = dict(row)
+        for use, vols, is_grouped in cases:
+            for depth, H, W, C, CO, mult in cs.TS104_CONV_SHAPES:
+                if C == 1:
+                    continue
+                N = vols * depth
+                x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
+                dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
+                x5 = x.view(vols, depth, H, W, C).permute(0, 4, 1, 2, 3)
+                dy5 = dy.view(vols, depth, H, W, CO).permute(0, 4, 1, 2, 3)
+                route = cc.conv3x3_wgrad_route(C, CO, dt)
+                with cs.tf32_off():
+                    ref = cc.conv3x3_wgrad_reference(x, dy, depth=depth)
+                    cudnn_ms = cs.device_ms(
+                        lambda: torch.nn.grad.conv3d_weight(
+                            x5, (CO, C, 3, 3, 3), dy5, padding=1), reps=5)
+                got = cc.conv3x3_wgrad(x, dy, depth=depth)
+                torch.cuda.synchronize()
+                scale = ref.abs().max().item()
+                err = (got - ref).abs().max().item()
+                if not err <= cs.WGRAD_RTOL * scale:
+                    raise AssertionError(f"{checkout} {name} {use} "
+                                         f"{(N, H, W, C, CO)}: max abs err "
+                                         f"{err} > {cs.WGRAD_RTOL * scale}")
+                del got, ref
+
+                def run():
+                    return cc.conv3x3_wgrad(x, dy, depth=depth)
+
+                dev = cs.device_ms(run, reps=10)
+                eager = cs.time_ms(run)
+                ops = cc.conv3x3_flops(x.shape, (3, 3, 3, C, CO), depth)
+                bound = cs._ops_ms(ops, name, route)
+                blocks = _wgrad_blocks(cc, N, H, W, C, CO, dt)
+                res = dict(use=use, N=N, depth=depth, H=H, W=W, C=C, CO=CO,
+                           route=route, mult=mult, device_ms=dev,
+                           eager_ms=eager, cudnn_ms=cudnn_ms, bound_ms=bound,
+                           tflops=ops / dev / 1e9, blocks=blocks,
+                           max_rel_err=err / scale)
+                shapes.append(res)
+                tot = grouped if is_grouped else row
+                for key in ("device_ms", "eager_ms", "cudnn_ms", "bound_ms"):
+                    tot[key] += mult * res[key]
+                print(f"{checkout} wgrad {name} {use} N={N} {H}x{W} "
+                      f"{C}->{CO} route={route} device_ms={dev:.4f} "
+                      f"eager_ms={eager:.4f} cudnn_ms={cudnn_ms:.4f} "
+                      f"bound_ms={bound:.4f} TFLOP/s={res['tflops']:.1f} "
+                      f"blocks={blocks} rel_err={err / scale:.2e} x{mult}",
+                      flush=True)
+                del x, dy, x5, dy5
+        print(f"{checkout} wgrad {name} row (a trained step): "
+              + " ".join(f"{k}={v:.3f}" for k, v in row.items()), flush=True)
+        print(f"{checkout} wgrad {name} grouped step: "
+              + " ".join(f"{k}={v:.3f}" for k, v in grouped.items()),
+              flush=True)
+        out[name] = {"shapes": shapes, "row": row, "grouped": grouped}
+    return out
+
+
 def main(argv):
     splits = "--splits" in argv
-    argv = [a for a in argv if a != "--splits"]
+    wgrad = "--wgrad" in argv
+    argv = [a for a in argv if a not in ("--splits", "--wgrad")]
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(argv[1], splits)), flush=True)
+        res = one_wgrad(argv[1]) if wgrad else one(argv[1], splits)
+        print(json.dumps(res), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -177,7 +283,8 @@ def main(argv):
     for checkout in argv:
         root = Path(checkout).resolve()
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--one", checkout] + ["--splits"] * splits,
+                        "--one", checkout] + ["--splits"] * splits
+                       + ["--wgrad"] * wgrad,
                        cwd=root, check=True,
                        timeout=900, env={**os.environ,
                                          "PYTHONPATH": str(root)})

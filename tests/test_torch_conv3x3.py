@@ -552,19 +552,22 @@ def _longest_wgrad_few_k():
     return -(-tiles // splits) * 64
 
 
-def _longest_wgrad_tf32x3_k():
-    """The most positions one block of the f32 weight gradient sums at a
-    TS104 shape (a trained step's batch, N = 2 x depth planes)."""
-    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_tf32x3_splits
+def _longest_wgrad_tf32x3_k(kernel="tf32x3_n32"):
+    """The most positions one block of the f32 weight gradient's `kernel`
+    (csrc/conv3x3_wgrad_wgmma.cu, `wgrad_plan`) sums at a TS104 shape: a
+    trained step's batch (N = 2 x depth planes) and the grouped runs'."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_plan
 
+    cs = _chip_smoke()
+    groups = [1] + [g for n, g in cs.GROUPED_RUNS if n == "float32"]
     longest = 0
-    for depth, H, W, C, CO, _ in _chip_smoke().TS104_CONV_SHAPES:
+    for depth, H, W, C, CO, _ in cs.TS104_CONV_SHAPES:
         if C == 1:
             continue
-        N = 2 * depth
-        tiles = N * (-(-H // 4)) * (-(-W // 16))
-        splits = wgrad_tf32x3_splits((N, H, W, C), CO)
-        longest = max(longest, -(-tiles // splits) * 64)
+        for g in groups:
+            p = wgrad_plan(2 * g * depth, H, W, C, CO, torch.float32)
+            if p["kernel"] == kernel:
+                longest = max(longest, p["longest"])
     return longest
 
 
@@ -592,17 +595,21 @@ def _longest_wgmma_k():
 
 
 # how each kernel rounds the lo part of the operand it splits itself: the
-# forward leaves the exact remainder for the tensor core to truncate
-LO_ROUNDING = {"conv3x3_wgmma.cu": "rz"}
+# forward and the weight gradient leave the exact remainder for the tensor
+# core to truncate
+LO_ROUNDING = {"conv3x3_wgmma.cu": "rz", "conv3x3_wgrad_wgmma.cu": "rz"}
 
 
 @pytest.mark.parametrize("source,k_per_stage,tol", [
     # the forward and input gradient: 9 taps x 16 channels per stage, K =
     # the longest run of stages of one block (27 x 512)
     ("conv3x3_wgmma.cu", 144, 5e-5),
-    # the weight gradient: 64 positions per stage, K = the longest sum of
-    # one block (the splits' partial sums are then added with rounding)
-    ("conv3x3_wgrad_tf32x3.cu", 64, 1e-4),
+    # the weight gradient, 32 output columns a block: 64 positions per
+    # stage, K = the longest sum of one block (the splits' partial sums
+    # are then added with rounding)
+    ("conv3x3_wgrad_wgmma.cu", 64, 1e-4),
+    # its 64-column kernel: no promotion, K = its longest split
+    ("conv3x3_wgrad_wgmma.cu", None, 1e-4),
     # the "few" route's forward: K = 328 at the MIND stem, no promotion
     ("conv3x3_few.cu", None, 5e-5),
     # its weight gradient: 64 positions per stage, the longest block sum
@@ -613,12 +620,14 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
     """The tensor cores add each step's products into the f32 accumulator
     with truncation.  Over the longest K of the main path that drift
     reaches ~1e-4 of the output's range (forward, K = 27 x 512 in one
-    block) or ~3e-4 (weight gradient, ~37k positions per block); each
+    block) or ~3e-4 (weight gradient, ~37k positions per block, and up
+    to 131072 on its 32-column f32 kernel); each
     kernel therefore adds its accumulator into a second, rounded f32 sum
     every `kPromote` stages (csrc/conv3x3_wgmma.cu: 3 stages of 9 taps x 16
-    channels; csrc/conv3x3_wgrad_tf32x3.cu, the weight gradient of
-    csrc/conv3x3_few.cu), except the "few" forward, whose K of 328 needs
-    none.  A model of that: k8 steps of three exact 8-term
+    channels; csrc/conv3x3_wgrad_wgmma.cu's 32-column f32 kernel, the
+    weight gradient of csrc/conv3x3_few.cu), except the "few" forward, whose
+    K of 328 needs none, and the 64-column f32 weight gradient, whose plan
+    keeps each block's sum to 2048 positions.  A model of that: k8 steps of three exact 8-term
     products, each step's sum truncated to f32, with and without the
     promotion; it must stay within half the route's tolerance (chip_smoke
     KERNEL_RTOL, WGRAD_RTOL)."""
@@ -636,7 +645,8 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
     rng = np.random.default_rng(9)
     M = 96
     K = {"conv3x3_wgmma.cu": _longest_wgmma_k,
-         "conv3x3_wgrad_tf32x3.cu": _longest_wgrad_tf32x3_k,
+         "conv3x3_wgrad_wgmma.cu": lambda: _longest_wgrad_tf32x3_k(
+             "tf32x3_n32" if k_per_stage else "tf32x3_n64"),
          "conv3x3_few.cu": lambda: (few_k(12, 3, torch.float32)[1]
                                     if k_per_stage is None
                                     else _longest_wgrad_few_k())}[source]()

@@ -588,9 +588,9 @@ def test_wgrad_c1_is_deterministic(cuda_device, dtype):
 # over many splits, each past the accumulator's promotion.
 WGRAD_TF32X3_CASES = dict(TF32X3_CASES,
                           long_sum_c32=(16, 8, 56, 64, 32, 32, 3),
-                          # N * H > 65535 rows for the dy pre-pass, past one
-                          # grid dimension (a patch_group = 4 TTA step's top
-                          # level has 896 x 112)
+                          # N * H > 65535 rows (a patch_group = 4 TTA step's
+                          # top level has 896 x 112), once past one grid
+                          # dimension of the first design's dy pre-pass
                           many_rows=(600, 8, 112, 8, 16, 16, 3))
 
 
@@ -613,6 +613,32 @@ def test_wgrad_tf32x3_matches_plain(cuda_device, case):
     assert got.dtype == torch.float32 and got.shape == (kz, 3, 3, C, CO)
     ref = conv3x3_wgrad_reference(x, dy, depth=D, kz=kz)
     assert _max_rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,CO", [(32, 32), (64, 32), (64, 64)])
+def test_wgrad_wgmma_is_deterministic(cuda_device, dtype, C, CO):
+    """Two launches of the tensor-core weight gradient give the same dW bit
+    for bit, on each of csrc/conv3x3_wgrad_wgmma.cu's kernels (f32 at 32
+    and 64 columns, bf16 z-first and by descriptor) over several splits:
+    each block sums in a fixed order, and a second kernel adds the splits'
+    partial sums in a fixed order (no atomics)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_plan
+
+    dt = getattr(torch, dtype)
+    N, D, H, W = 16, 8, 28, 32
+    assert wgrad_plan(N, H, W, C, CO, dt)["splits"] > 1
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    x, dy = x.to(dt).to(cuda_device), dy.to(dt).to(cuda_device)
+    a = conv3x3_wgrad(x, dy, depth=D)
+    b = conv3x3_wgrad(x, dy, depth=D)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = conv3x3_wgrad_reference(x, dy, depth=D)
+    assert _max_rel_err(a, ref) <= 1e-4
 
 
 @pytest.mark.cuda
