@@ -111,6 +111,13 @@ Phases; any failure raises and the script exits non-zero:
      branch, a theta each; each against its plain version at the
      tolerance of its ungrouped check, its max abs error going into the
      kernels line's row;
+   * the conv kernels with CHUNK ensemble members' weights in one launch
+     (`phase_member_chunk_kernels`): every route ("c1", "few", "wgmma",
+     "wgmma_tf32x3") at every stride-1 TS104 shape and the MIND stem's,
+     forward, input gradient and weight gradient, f32 and bf16, at a
+     chunk's trained step (2 volumes a member), each launch held bit for
+     bit to the members' own launches and to the plain version at the
+     ungrouped checks' tolerances, its ms beside theirs;
 4. reference, under PyTorch's default precision flags (asserted), as a
    user's run finds them: the full-width TS104_GIN U-Net on a small patch,
    its forward and one step's gradient, a stride-2 stage-entry conv
@@ -152,7 +159,7 @@ Phases; any failure raises and the script exits non-zero:
    per logged epoch, and `checkpoint_final.npz` read back by the port's
    `run_tta` bundle loader; then profiles two steps (ms per step, device
    busy share, kernels per step, peak memory);
-7. main path, nine times, each in a fresh workspace and under the
+7. main path, eleven times, each in a fresh workspace and under the
    default flags, f32 (the default), then bf16
    (`DGTTA_COMPUTE_DTYPE=bfloat16`), for each of two seeded full-width
    checkpoints (105 classes): TS104_GIN, then TS104_GIN_MIND (12 input
@@ -165,7 +172,13 @@ Phases; any failure raises and the script exits non-zero:
    of 8 patches through the network) and at 2 in bf16, each run's epoch-0
    member losses (a forward-only epoch on the same weights and, by
    `TorchDraws`' grouped draws, the same patches) held to the ungrouped
-   TS104_GIN run of its type (GROUPED_LOSS_RTOL):
+   TS104_GIN run of its type (GROUPED_LOSS_RTOL); then TS104_GIN with the
+   plan's `ensemble_chunk` at CHUNK (the three members side by side) in
+   f32 and bf16, each held to the serial TS104_GIN run of its type
+   (`check_member_chunk`: every conv route's adaptation launches a
+   CHUNKth of the serial run's, the members' losses at CHUNK_LOSS_RTOL
+   and updates at CHUNK_UPDATE_RTOL, the gaps printed beside
+   `phase_repeat`'s):
    `prepare_tta` and `run_tta` through the port's CLI on a synthetic CT
    volume of 224 x 224 x 256 voxels at 1.5 mm (27 windows), with no member
    files: `run_tta` adapts three members (Phase 1), then predicts and
@@ -200,7 +213,8 @@ MIND stem's rows on "few" with the forced padded-route and CUDA-core
 times beside them; the warp's
 grid entry per deformable branch of a trained step, the exact adjoint's
 grid entry on a deformable grid and its affine entry; each row's launches
-count the main-path runs, `phase_parallel`'s ranks included) and, last,
+count the main-path runs, `phase_parallel`'s ranks included; the conv
+rows' `member_chunk_launches` those of the chunk runs alone) and, last,
 one JSON line naming the device.
 """
 
@@ -345,6 +359,20 @@ DP_STEP_RTOL = 1e-3
 DP_LEAF_RTOL = 5e-2
 # the data-parallel run_pretraining: 2 ranks x batch 1
 DP_RANKS = 2
+# The members side by side (`ensemble_chunk`, `phase_member_chunk_kernels`
+# and the chunk runs of the main path), and the chunk runs' tolerances
+# against the serial run of the same type, fixed before the first card
+# run: the members' epoch losses, |diff| / |serial|, and each member's
+# update (adapted - pretrained) over all its parameters at once, of its
+# norm.  The convs compute each member's planes bit for bit as its own
+# launch does, and the operations that sum over a member's positions
+# (InstanceNorm, the transposed convs, the heads, the loss) run per member;
+# what may still differ is what differs between two serial runs
+# (`phase_repeat`: cuDNN's stride-2 backward), which AdamW's first step
+# turns into whole sign steps where a gradient is near zero.
+CHUNK = 3
+CHUNK_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+CHUNK_UPDATE_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_few"]
@@ -847,6 +875,116 @@ def phase_grouped_kernels(totals):
                          WARP_RTOL[name], totals["warp"][name]["affine"])
             log(f"warp {name} patch_group {group} {site} B={group} C={C} "
                 f"{PATCH}, a theta per patch: {text}")
+
+
+def phase_member_chunk_kernels(totals):
+    """Every route of the conv kernels at CHUNK members' weights in one
+    launch, at the shapes a trained step of a chunk gives them (2 volumes a
+    member: both branches): each stride-1 TS104 conv and the MIND stem,
+    forward, input gradient (the forward's weights flipped and their
+    channels swapped, per member) and weight gradient, f32 and bf16.  Each
+    stacked launch is held bit for bit to the CHUNK one-member launches of
+    the same route on each member's planes, and to the plain version at
+    the ungrouped checks' tolerances (its max abs error into `totals`);
+    prints the stacked launch's ms beside the one-member launches'
+    summed."""
+    import torch
+
+    from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3, conv3x3_reference,
+                                                  conv3x3_route,
+                                                  conv3x3_wgrad,
+                                                  conv3x3_wgrad_reference,
+                                                  conv3x3_wgrad_route)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    M = CHUNK
+
+    def randn(*shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def check(what, got, parts, ref, rtol, totals_at):
+        if not torch.equal(got, parts):
+            raise AssertionError(f"{what}: the stacked launch differs from "
+                                 f"the members' own launches by "
+                                 f"{(got.float() - parts.float()).abs().max()}")
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= rtol * scale:
+            raise AssertionError(f"{what}: max abs err {err} > "
+                                 f"{rtol * scale}")
+        totals_at["max_abs_err"] = max(totals_at["max_abs_err"], err)
+        return f"bit-equal to {M} launches, max_abs_err={err:.3e} (tol " \
+               f"{rtol * scale:.3e})"
+
+    def at(kernel, name, route, stem):
+        return totals[kernel].setdefault(
+            f"{name}/{'stem12/' if stem else ''}{route}", _new_totals())
+
+    def timed(stacked, single):
+        return (f"ms {time_ms(stacked, iters=5):.4f} stacked vs "
+                f"{time_ms(single, iters=5):.4f} for {M} member launches")
+
+    shapes = [s[:5] for s in TS104_CONV_SHAPES] + [STEM_SHAPE]
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        for depth, H, W, C, CO in shapes:
+            stem = (C, CO) == STEM_SHAPE[3:]
+            n = 2 * depth                  # a member's planes
+            shape = f"{M} members x N={n} depth={depth} {H}x{W}"
+            x = randn(M * n, H, W, C, dt=dt)
+            w = randn(M, 3, 3, 3, C, CO, dt=dt,
+                      scale=(2.0 / (27 * C)) ** 0.5)
+            xs = x.chunk(M)
+            route = conv3x3_route(C, CO, dt)
+            with tf32_off():
+                ref = conv3x3_reference(x, w, depth=depth)
+            got = conv3x3(x, w, depth=depth)
+            parts = torch.cat([conv3x3(xm, wm, depth=depth)
+                               for xm, wm in zip(xs, w)])
+            torch.cuda.synchronize()
+            text = check(f"conv3x3 {name} members forward {shape} "
+                         f"{C}->{CO}", got, parts, ref, KERNEL_RTOL[name],
+                         at("conv3x3", name, route, stem))
+            log(f"member chunk: conv3x3 {name} forward {shape} {C}->{CO} "
+                f"route={route}: {text}; " + timed(
+                    lambda: conv3x3(x, w, depth=depth),
+                    lambda: [conv3x3(xm, wm, depth=depth)
+                             for xm, wm in zip(xs, w)]))
+            dy = randn(M * n, H, W, CO, dt=dt)
+            dys = dy.chunk(M)
+            if C > 1 and not stem:
+                # the input gradient (the first conv and the stem take none)
+                wd = w.flip((1, 2, 3)).transpose(-2, -1).contiguous()
+                route = conv3x3_route(CO, C, dt)
+                with tf32_off():
+                    ref = conv3x3_reference(dy, wd, depth=depth)
+                got = conv3x3(dy, wd, depth=depth)
+                parts = torch.cat([conv3x3(dm, wm, depth=depth)
+                                   for dm, wm in zip(dys, wd)])
+                torch.cuda.synchronize()
+                text = check(f"conv3x3 {name} members dgrad {shape} "
+                             f"{CO}->{C}", got, parts, ref, KERNEL_RTOL[name],
+                             at("conv3x3", name, route, False))
+                log(f"member chunk: conv3x3 {name} dgrad {shape} {CO}->{C} "
+                    f"route={route}: {text}")
+                del wd
+            route = conv3x3_wgrad_route(C, CO, dt)
+            with tf32_off():
+                ref = conv3x3_wgrad_reference(x, dy, depth=depth, members=M)
+            got = conv3x3_wgrad(x, dy, depth=depth, members=M)
+            parts = torch.stack([conv3x3_wgrad(xm, dm, depth=depth)
+                                 for xm, dm in zip(xs, dys)])
+            torch.cuda.synchronize()
+            text = check(f"conv3x3_wgrad {name} members {shape} {C}->{CO}",
+                         got, parts, ref, WGRAD_RTOL,
+                         at("conv3x3_wgrad", name, route, stem))
+            log(f"member chunk: conv3x3_wgrad {name} {shape} {C}->{CO} "
+                f"route={route}: {text}; " + timed(
+                    lambda: conv3x3_wgrad(x, dy, depth=depth, members=M),
+                    lambda: [conv3x3_wgrad(xm, dm, depth=depth)
+                             for xm, dm in zip(xs, dys)]))
+            del x, w, dy, xs, dys, ref, got, parts
 
 
 def _warp_sites(gen, device):
@@ -1763,7 +1901,14 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
     the exact adjoint's affine entry); a deformable plan's on the grid
     entry, after the 10 field warps of its branch's displacement field (5
     iterations, 2 warps each; with `exact`, the exact adjoint's grid
-    entry); each eval samples its labels on the affine entry."""
+    entry); each eval samples its labels on the affine entry, a launch
+    per member.  The plan's `ensemble_chunk` (unset: 1, the default for a
+    full-size patch on one card) runs that many members side by side: a
+    chunk's patch steps and evals launch each kernel once for all its
+    members, but its deformable fields member by member; inference runs
+    every member's windows."""
+    chunk = plan.get("ensemble_chunk") or 1
+    seqs = -(-members // chunk)   # side-by-side launch sequences
     acc = (plan["patches_to_be_accumulated"]
            // plan.get("patch_group", 1))   # patch steps per epoch
     epochs = plan["epochs"]
@@ -1771,8 +1916,8 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
     # patch-step forwards, the trained ones' recomputes, the evals
     runs = acc * epochs + (trained if plan.get("remat") else 0)
     forwards = runs + evals * epochs
-    out = _conv_launches(spec, members * (forwards + windows),
-                         members * trained, dtype)
+    out = _conv_launches(spec, seqs * forwards + members * windows,
+                         seqs * trained, dtype)
     branches = {"both": 2, "none": 0}.get(
         plan.get("do_spatial_aug_in", "both"), 1)
     steps = runs * branches                # branch warps of patch steps
@@ -1780,12 +1925,13 @@ def expected_launches(spec, windows, members, plan, dtype="float32",
     fast = 0 if exact else adjoints
     deformable = plan.get("spatial_aug_type", "affine") == "deformable"
     if deformable:
-        out["warp"] = members * (steps * 12 + fast)
+        out["warp"] = members * steps * 10 + seqs * (steps * 2 + fast)
         out["warp_affine"] = members * evals * epochs
     else:
         out["warp"] = 0
-        out["warp_affine"] = members * (steps * 2 + fast + evals * epochs)
-    exact_adjoints = members * adjoints if exact else 0
+        out["warp_affine"] = seqs * (steps * 2 + fast) \
+            + members * evals * epochs
+    exact_adjoints = seqs * adjoints if exact else 0
     out["warp_adjoint"] = exact_adjoints if deformable else 0
     out["warp_affine_adjoint"] = 0 if deformable else exact_adjoints
     return out
@@ -1838,6 +1984,8 @@ def phase_main_path(work: Path, dtype: str, pretrained: str = "TS104_GIN",
            f"{' exact warp gradient' if exact else ''}"
            + (f" patch_group {plan['patch_group']}"
               if plan.get("patch_group", 1) > 1 else "")
+           + (f" ensemble_chunk {plan['ensemble_chunk']}"
+              if (plan.get("ensemble_chunk") or 1) > 1 else "")
            + (f" over {ranks} ranks" if ranks > 1 else ""))
     log(f"{tag}: {ws.n_params} parameters, {N_CLASSES} classes, "
         f"{model.spec.num_input_channels} input channels, volume "
@@ -2072,6 +2220,64 @@ def phase_repeat():
         f"(max rel diff {l_rel:.3e}); updates off by {whole / norm:.3e} of "
         f"their norm, largest per parameter {max(per):.3e} "
         f"({sum(p > 0 for p in per)} of {len(per)} parameters differ)")
+    return l_rel, whole / norm
+
+
+def check_member_chunk(dtype, serial, chunk, repeat):
+    """The main path's chunk run (`ensemble_chunk` CHUNK: the smoke plan's
+    members side by side) against the serial run of type `dtype`, each a
+    `phase_main_path` result: every conv route's launches of the
+    adaptation (the run's launches less inference's, a forward per window
+    and member) are 1 / CHUNK of the serial run's; the members' epoch
+    losses within CHUNK_LOSS_RTOL and each member's update within
+    CHUNK_UPDATE_RTOL of its norm.  Prints the gaps beside
+    `phase_repeat`'s (`repeat`: its loss and update gaps) and the
+    several-rank run's (ROADMAP C: updates 4-5e-3 of their norm)."""
+    import numpy as np
+
+    from dg_tta_tpu_torch.infer.sliding_window import (padded_shape,
+                                                       window_origins)
+    from dg_tta_tpu_torch.models.convert import load_flat_npz
+    from dg_tta_tpu_torch.obs.profile_inference import ts104_model
+
+    (s_runs, s_losses, (s_paths, ckpt)) = serial
+    (c_runs, c_losses, (c_paths, _)) = chunk
+    model = ts104_model()
+    windows = int(window_origins(padded_shape(VOLUME_SHAPE, model.patch_size),
+                                 model.patch_size)[1].sum())
+    infer = _conv_launches(model.spec, len(s_paths) * windows, 0, dtype)
+    ratios = {}
+    for k, n in infer.items():
+        adapt_s, adapt_c = s_runs[k] - n, c_runs[k] - n
+        if adapt_s != CHUNK * adapt_c:
+            raise AssertionError(f"member chunk {dtype}: {k} adapted with "
+                                 f"{adapt_c} launches, the serial run with "
+                                 f"{adapt_s}; expected a {CHUNK}th")
+        if adapt_s:
+            ratios[k] = f"{adapt_c}/{adapt_s}"
+    loss_rel = float(np.max(np.abs(c_losses - s_losses)
+                            / np.abs(s_losses)))
+    init = load_flat_npz(ckpt)
+    upd = []
+    for a, b in zip(c_paths, s_paths):
+        got, ref = load_flat_npz(a), load_flat_npz(b)
+        diff = sum(((got[k] - ref[k]).double().norm() ** 2).item()
+                   for k in ref)
+        norm = sum(((ref[k] - init[k]).double().norm() ** 2).item()
+                   for k in ref)
+        upd.append(math.sqrt(diff / norm))
+    log(f"member chunk {dtype}: {CHUNK} members side by side against one "
+        f"after another: adaptation launches chunk/serial {ratios}; "
+        f"losses {c_losses.tolist()} vs {s_losses.tolist()}, max rel diff "
+        f"{loss_rel:.3e} (tol {CHUNK_LOSS_RTOL[dtype]}); member updates off "
+        f"by {[f'{u:.3e}' for u in upd]} of their norm (tol "
+        f"{CHUNK_UPDATE_RTOL[dtype]}); beside: phase_repeat's f32 rerun "
+        f"{repeat[0]:.3e} (losses) and {repeat[1]:.3e} (updates), the "
+        f"several-rank run's updates 4-5e-3 (ROADMAP C)")
+    if not (loss_rel <= CHUNK_LOSS_RTOL[dtype]
+            and max(upd) <= CHUNK_UPDATE_RTOL[dtype]):
+        raise AssertionError(f"member chunk {dtype}: the members miss the "
+                             f"serial run's")
 
 
 def _pretrain_warp_sites(gen):
@@ -2636,10 +2842,11 @@ def main():
               "warp": phase_warp(), "warp_grid": phase_warp_deformable(),
               "warp_pretrain": phase_warp_pretrain()}
     phase_grouped_kernels(totals)
+    phase_member_chunk_kernels(totals)
     phase_reference()
     reference_pretrain()
     phase_remat()
-    phase_repeat()
+    repeat = phase_repeat()
     runs, losses = {}, {}
 
     members = {}
@@ -2684,6 +2891,16 @@ def main():
                 f"rel err {err:.3e} (tol {GROUPED_LOSS_RTOL[dtype]}); "
                 f"epoch-1 {losses[key][:, 1].tolist()} vs "
                 f"{losses['TS104_GIN', dtype][:, 1].tolist()}")
+        # the smoke plan's members side by side (ensemble_chunk), each run
+        # held to the serial run of its type
+        for dtype in ("float32", "bfloat16"):
+            key = (f"TS104_GIN ensemble_chunk {CHUNK}", dtype)
+            main_path(key, Path(tmp) / f"chunk{CHUNK}_{dtype}", dtype,
+                      ensemble_chunk=CHUNK)
+            serial = ("TS104_GIN", dtype)
+            check_member_chunk(
+                dtype, (runs[serial], losses[serial], members[serial]),
+                (runs[key], losses[key], members[key]), repeat)
         # Phase 1 over 3 ranks sharing the card, a data-parallel step,
         # window-sharded inference, NCCL
         runs.update(phase_parallel(
@@ -2694,6 +2911,12 @@ def main():
         # launches over the main-path runs (of one type)
         return sum(r[key] for (_, dt), r in runs.items()
                    if dtype in (None, dt))
+
+    def chunked(key):
+        # launches of the chunk runs (members side by side)
+        return {"member_chunk_launches": sum(
+            r[key] for (name, _), r in runs.items()
+            if name.startswith("TS104_GIN ensemble_chunk"))}
 
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
     w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
@@ -2713,10 +2936,12 @@ def main():
         # later routes took them (f32: every conv; bf16: C = 1)
         _row("conv3x3", conv3x3.SOURCE, conv3x3.REPLACES,
              both("conv3x3_cuda_core"), c["float32/cuda_core"],
-             c["bfloat16/cuda_core"], "cuda_core"),
+             c["bfloat16/cuda_core"], "cuda_core",
+             **chunked("conv3x3_cuda_core")),
         _row("conv3x3_wgrad", conv3x3.WGRAD_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_cuda_core"), wg["float32/cuda_core"],
-             wg["bfloat16/cuda_core"], "cuda_core"),
+             wg["bfloat16/cuda_core"], "cuda_core",
+             **chunked("conv3x3_wgrad_cuda_core")),
         # the warp's grid entry at its main-path sites, a deformable
         # branch of a trained step (10 field warps, the input warp, the
         # unwarp and its fast adjoint), with its times on the card's
@@ -2761,25 +2986,27 @@ def main():
                  "device_ms", "host_us", "library_device_ms",
                  "library_affine_ms", "staged_share")}, **pre["affine"]),
         _row("conv3x3_wgmma", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
-             both("conv3x3_wgmma", "bfloat16"), c["bfloat16/wgmma"]),
+             both("conv3x3_wgmma", "bfloat16"), c["bfloat16/wgmma"],
+             **chunked("conv3x3_wgmma")),
         _row("conv3x3_wgrad_wgmma", conv3x3.WGRAD_WGMMA_SOURCE,
              conv3x3.REPLACES, both("conv3x3_wgrad_wgmma", "bfloat16"),
-             wg["bfloat16/wgmma"]),
+             wg["bfloat16/wgmma"], **chunked("conv3x3_wgrad_wgmma")),
         _row("conv3x3_wgmma_tf32x3", conv3x3.WGMMA_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgmma_tf32x3", "float32"),
-             c["float32/wgmma_tf32x3"]),
+             c["float32/wgmma_tf32x3"], **chunked("conv3x3_wgmma_tf32x3")),
         _row("conv3x3_wgrad_tf32x3", conv3x3.WGRAD_WGMMA_SOURCE,
              conv3x3.REPLACES, both("conv3x3_wgrad_wgmma_tf32x3", "float32"),
-             wg["float32/wgmma_tf32x3"]),
+             wg["float32/wgmma_tf32x3"],
+             **chunked("conv3x3_wgrad_wgmma_tf32x3")),
         # the C = 1 first conv on "c1" (the tensor cores), its bytes and
         # operations floors beside the bound, and its shapes forced onto
         # the CUDA-core kernels with their bound there
         _row("conv3x3_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_c1"), c["float32/c1"], c["bfloat16/c1"], "c1",
-             **_c1_extra(c)),
+             **_c1_extra(c), **chunked("conv3x3_c1")),
         _row("conv3x3_wgrad_c1", conv3x3.C1_SOURCE, conv3x3.REPLACES,
              both("conv3x3_wgrad_c1"), wg["float32/c1"], wg["bfloat16/c1"],
-             "c1", **_c1_extra(wg)),
+             "c1", **_c1_extra(wg), **chunked("conv3x3_wgrad_c1")),
         # the MIND stem (C = 12) on "few" in both types, its launches over
         # the main-path runs; beside them the same shapes forced onto the
         # wgmma route of the type, zero-padded to 16 channels (the route

@@ -41,9 +41,18 @@ def consistency_loss(logits_a, logits_b, start_class: int = 1):
     return 1.0 - soft_dice_loss(sm_a, sm_b)[:, start_class:].mean()
 
 
-def consistency_loss_flat(logits_a, logits_b, start_class: int = 1):
+def consistency_loss_flat(logits_a, logits_b, start_class: int = 1,
+                          members=None):
     """`consistency_loss` on channels-first flat (B, C, N) logits, the
-    layout the unwarp produces."""
+    layout the unwarp produces.  With `members` M, the rows are M ensemble
+    members' patches, member after member, and the result is each
+    member's loss, (M,), computed on its own patches (its guard over them,
+    as the JAX package's vmap takes it, and its means summed as its own
+    call sums them)."""
+    if members is not None:
+        return torch.stack([
+            consistency_loss_flat(a, b, start_class) for a, b in
+            zip(logits_a.chunk(members), logits_b.chunk(members))])
     logits_a, logits_b = logits_a.float(), logits_b.float()
     common = ((logits_a.sum(1, keepdim=True) > 0.0).float()
               * (logits_b.sum(1, keepdim=True) > 0.0).float())

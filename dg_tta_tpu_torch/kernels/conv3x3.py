@@ -67,6 +67,18 @@ kernel of its own: it is the same zero-padded conv of dy with the weights
 flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
 `conv3x3` again.  `Conv3x3Function` ties the three together as a
 `torch.autograd.Function`; `conv3x3_op` applies it.
+
+Members side by side: a `w` of shape (M, KZ, 3, 3, C, CO) holds the
+weights of M ensemble members, and `x` is then (M * n, H, W, C), member
+m's n planes (a multiple of `depth`) after member m - 1's.  Each plane
+takes its member's weights, in one launch on every route but
+"cuda_core", whose wrapper launches its kernel once per member.  The
+weight gradient of such a call (`conv3x3_wgrad(..., members=M)`) is (M,
+KZ, 3, 3, C, CO), dw[m] summed over member m's positions alone.  Every
+plan and split count is computed from one member's n planes, never from
+M * n, so that a member's outputs and gradients are the bits of a call of
+that member alone; M = 1 is the call without a member axis.  The plain
+versions take the member axis too, one member after another.
 """
 
 import ctypes
@@ -190,13 +202,15 @@ def pack_few_weights(w: torch.Tensor, dtype=None) -> torch.Tensor:
     """The weights of the "few" route: w (3, 3, C, CO) or (kz, 3, 3, C, CO)
     as a (Kp, CO) matrix in the GEMM's K order, row k = ((kz * 3 + ky) * 3
     + kx) * Cs + ci, zero rows for the channels past C and past kz * 9 * Cs
-    (`few_k` for compute type `dtype`, w's type by default).  In w's type,
-    on w's device: a plain tensor op, once per call."""
-    w5 = _as_5d(w)
-    kz, _, _, C, CO = w5.shape
+    (`few_k` for compute type `dtype`, w's type by default); members'
+    weights (M, kz, 3, 3, C, CO) as (M, Kp, CO), one such matrix each.  In
+    w's type, on w's device: a plain tensor op, once per call."""
+    w6 = _as_6d(w)
+    M, kz, _, _, C, CO = w6.shape
     cs, kp = few_k(C, kz, w.dtype if dtype is None else dtype)
-    m = pad_channels(w5, cs, dim=-2).reshape(kz * 9 * cs, CO)
-    return F.pad(m, (0, 0, 0, kp - m.shape[0])).contiguous()
+    m = pad_channels(w6, cs, dim=-2).reshape(M, kz * 9 * cs, CO)
+    m = F.pad(m, (0, 0, 0, kp - m.shape[1])).contiguous()
+    return m if w.dim() == 6 else m[0]
 
 
 def _check_aligned(route, **tensors):
@@ -211,30 +225,52 @@ def _as_5d(w: torch.Tensor) -> torch.Tensor:
     return w.unsqueeze(0) if w.dim() == 4 else w
 
 
+def _as_6d(w: torch.Tensor) -> torch.Tensor:
+    """w with its member axis: (M, kz, 3, 3, C, CO)."""
+    return w if w.dim() == 6 else _as_5d(w).unsqueeze(0)
+
+
+def _check_members(N: int, members: int, depth: int):
+    if members < 1 or N % members or depth < 1 or (N // members) % depth:
+        raise ValueError(f"N={N} must be {members} members' planes, each a "
+                         f"multiple of depth {depth}")
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, depth: int):
+    """w as (M, kz, 3, 3, C, CO), checked against x and depth."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
-    if w.dim() not in (4, 5):
-        raise ValueError(f"w must be (3, 3, C, CO) or (3, 3, 3, C, CO), "
-                         f"got {tuple(w.shape)}")
-    w5 = _as_5d(w)
-    if tuple(w5.shape[:3]) not in ((1, 3, 3), (3, 3, 3)) \
-            or w5.shape[3] != x.shape[3]:
+    if w.dim() not in (4, 5, 6):
+        raise ValueError(f"w must be (3, 3, C, CO), (3, 3, 3, C, CO) or "
+                         f"members' (M, kz, 3, 3, C, CO), got "
+                         f"{tuple(w.shape)}")
+    w6 = _as_6d(w)
+    if tuple(w6.shape[1:4]) not in ((1, 3, 3), (3, 3, 3)) \
+            or w6.shape[4] != x.shape[3]:
         raise ValueError(f"w {tuple(w.shape)} does not fit x "
                          f"{tuple(x.shape)}")
-    if depth < 1 or x.shape[0] % depth:
-        raise ValueError(f"depth {depth} does not divide N={x.shape[0]}")
+    _check_members(x.shape[0], w6.shape[0], depth)
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(f"x and w must both be float32 or bfloat16, got "
                          f"{x.dtype} and {w.dtype}")
-    return w5
+    return w6
+
+
+def _member_planes(t: torch.Tensor, members: int):
+    """The members' slices of t's planes, (N / members, ...) each."""
+    return t.chunk(members) if members > 1 else (t,)
 
 
 def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
                       depth: int = 1) -> torch.Tensor:
     """Plain PyTorch version: `F.conv2d` (one z-tap) or `F.conv3d` (three)
-    on channels-first views, computed in f32 and cast to x's type."""
-    w5 = _check(x, w, depth)
+    on channels-first views, computed in f32 and cast to x's type; with
+    members' weights, one member after another."""
+    w6 = _check(x, w, depth)
+    if w6.shape[0] > 1:
+        return torch.cat([conv3x3_reference(xm, wm, depth) for xm, wm in
+                          zip(_member_planes(x, w6.shape[0]), w6)])
+    w5 = w6[0]
     N, H, W, C = x.shape
     CO = w5.shape[-1]
     if w5.shape[0] == 1:
@@ -248,18 +284,24 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
-def _launch(x, w5, y, depth):
+def _launch(x, w6, y, depth):
+    """The CUDA-core kernel, one launch per member (the one route whose
+    kernel takes no member axis); returns the launches."""
     fn = build.function("conv3x3", "dgtta_conv3x3",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p])
-    N, H, W, C = x.shape
-    err = fn(x.data_ptr(), w5.data_ptr(), y.data_ptr(), N, depth, H, W, C,
-             w5.shape[-1], w5.shape[0], _DTYPE_CODES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed with CUDA error "
-                           f"{err} for x {tuple(x.shape)} {x.dtype}, "
-                           f"w {tuple(w5.shape)}, depth {depth}")
+    M = w6.shape[0]
+    for xm, w5, ym in zip(_member_planes(x, M), w6, _member_planes(y, M)):
+        N, H, W, C = xm.shape
+        err = fn(xm.data_ptr(), w5.data_ptr(), ym.data_ptr(), N, depth, H,
+                 W, C, w5.shape[-1], w5.shape[0], _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"conv3x3 kernel launch failed with CUDA "
+                               f"error {err} for x {tuple(xm.shape)} "
+                               f"{x.dtype}, w {tuple(w5.shape)}, depth "
+                               f"{depth}")
+    return M
 
 
 # conv3x3_wgmma (csrc/conv3x3_wgmma.cu): output tiles of the "big" and the
@@ -272,10 +314,11 @@ _WGMMA_MAX_SPLITS = 4
 
 
 def wgmma_plan(N: int, depth: int, H: int, W: int, C: int, CO: int, dtype,
-               kz: int = 3) -> dict:
+               kz: int = 3, members: int = 1) -> dict:
     """How `csrc/conv3x3_wgmma.cu` runs one call: x (N, H, W, C) in groups
     of `depth` planes, CO output channels, kz z-taps, on the wgmma route of
-    `dtype`.
+    `dtype`; N is one member's planes, and `members` of them run side by
+    side (items and blocks count them all, the rest is one member's).
     * layout "small" (an 8 x 8 tile, two warpgroups of 32 columns on its
       one m64 tile: 64 columns a block) for planes of at most 8 x 8, else
       "big" (16 x 16, two warpgroups of two m64 tiles, `wn` = 32 columns
@@ -302,7 +345,7 @@ def wgmma_plan(N: int, depth: int, H: int, W: int, C: int, CO: int, dtype,
     wn = 32 if layout == "small" or CO <= 32 else 64
     bn = 2 * wn if layout == "small" else wn
     per_plane = -(-H // th) * -(-W // tw) * -(-CO // bn)
-    items = N * per_plane
+    items = members * N * per_plane
     kc = span // e
     fewest = (C // kc) * (1 if kz == 1 or depth == 1 else 2)
     # one wave of clusters for one volume, one more split where it would
@@ -326,22 +369,23 @@ def wgmma_plan(N: int, depth: int, H: int, W: int, C: int, CO: int, dtype,
                 items=items, splits=splits, blocks=blocks, reason=reason)
 
 
-def _launch_wgmma(x, w5, y, depth):
+def _launch_wgmma(x, w6, y, depth):
     fn = build.function("conv3x3_wgmma", "dgtta_conv3x3_wgmma",
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                         + [ctypes.c_void_p])
-    # f32: scratch for the K-major weights the kernel writes first, (kz, 3,
-    # 3, CO, C), ci contiguous, as a tf32 part and its remainder (3xTF32);
-    # bf16 reads w as it is
-    kz, _, _, C, CO = w5.shape
+    # f32: scratch for the K-major weights the kernel writes first, (M, kz,
+    # 3, 3, CO, C), ci contiguous, as a tf32 part and its remainder
+    # (3xTF32); bf16 reads w as it is
+    M, kz, _, _, C, CO = w6.shape
     wt = wt_lo = None
     if x.dtype == torch.float32:
-        wt = torch.empty((2, kz, 3, 3, CO, C), dtype=x.dtype, device=x.device)
+        wt = torch.empty((2, M, kz, 3, 3, CO, C), dtype=x.dtype,
+                         device=x.device)
         wt, wt_lo = wt[0], wt[1]
     N, H, W, _ = x.shape
-    plan = wgmma_plan(N, depth, H, W, C, CO, x.dtype, kz=kz)
-    err = fn(x.data_ptr(), w5.data_ptr(), 0 if wt is None else wt.data_ptr(),
-             0 if wt_lo is None else wt_lo.data_ptr(), y.data_ptr(), N,
+    plan = wgmma_plan(N // M, depth, H, W, C, CO, x.dtype, kz=kz, members=M)
+    err = fn(x.data_ptr(), w6.data_ptr(), 0 if wt is None else wt.data_ptr(),
+             0 if wt_lo is None else wt_lo.data_ptr(), y.data_ptr(), N, M,
              depth, H, W, C, CO, kz,
              _DTYPE_CODES[x.dtype], 0 if plan["layout"] == "big" else 1,
              plan["wn"], plan["kc"], plan["splits"], plan["blocks"],
@@ -349,44 +393,47 @@ def _launch_wgmma(x, w5, y, depth):
     if err != 0:
         raise RuntimeError(f"conv3x3 wgmma kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
-                           f"w {tuple(w5.shape)}, depth {depth}")
+                           f"w {tuple(w6.shape)}, depth {depth}")
+    return 1
 
 
-def _launch_c1(x, w5, y, depth):
+def _launch_c1(x, w6, y, depth):
     # the kernel packs w into its GEMM's B operand itself: no launch but
     # its own
     fn = build.function("conv3x3_c1", "dgtta_conv3x3_c1",
-                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p])
     N, H, W, _ = x.shape
-    err = fn(x.data_ptr(), w5.data_ptr(), y.data_ptr(), N, depth, H, W,
-             w5.shape[-1], w5.shape[0], _DTYPE_CODES[x.dtype],
+    err = fn(x.data_ptr(), w6.data_ptr(), y.data_ptr(), N, w6.shape[0],
+             depth, H, W, w6.shape[-1], w6.shape[1], _DTYPE_CODES[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 c1 kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
-                           f"w {tuple(w5.shape)}, depth {depth}")
+                           f"w {tuple(w6.shape)}, depth {depth}")
+    return 1
 
 
-def _launch_few(x, w5, y, depth):
+def _launch_few(x, w6, y, depth):
     fn = build.function("conv3x3_few", "dgtta_conv3x3_few",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p])
-    # the weights in the GEMM's K order; f32 as a tf32 part and its
-    # remainder (3xTF32)
-    wk, wk_lo = pack_few_weights(w5), None
+    # each member's weights in the GEMM's K order; f32 as a tf32 part and
+    # its remainder (3xTF32)
+    wk, wk_lo = pack_few_weights(w6), None
     if x.dtype == torch.float32:
         wk, wk_lo = tf32_split(wk)
     N, H, W, C = x.shape
     err = fn(x.data_ptr(), wk.data_ptr(),
              0 if wk_lo is None else wk_lo.data_ptr(), y.data_ptr(), N,
-             depth, H, W, C, w5.shape[-1], w5.shape[0], wk.shape[0],
-             _DTYPE_CODES[x.dtype],
+             w6.shape[0], depth, H, W, C, w6.shape[-1], w6.shape[1],
+             wk.shape[1], _DTYPE_CODES[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 few kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
-                           f"w {tuple(w5.shape)}, depth {depth}")
+                           f"w {tuple(w6.shape)}, depth {depth}")
+    return 1
 
 
 _LAUNCH = {"cuda_core": _launch, "wgmma": _launch_wgmma,
@@ -415,36 +462,39 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
     `depth` planes; KZ = 1 for a (3, 3, C, CO) `w`, 3 for (3, 3, 3, C, CO).
 
     x: (N, H, W, C), N a multiple of depth.  Returns (N, H, W, CO) in x's
-    type.  CPU tensors take the plain version; CUDA tensors the kernel of
-    `conv3x3_route`, or of `route="cuda_core"` where the caller asks for the
-    CUDA-core kernel, or of the type's wgmma route on a shape that chooses
-    "few" (to compare the routes on one shape).
+    type.  With members' weights (M, KZ, 3, 3, C, CO), plane n takes member
+    n // (N / M)'s (module docstring).  CPU tensors take the plain version;
+    CUDA tensors the kernel of `conv3x3_route`, or of `route="cuda_core"`
+    where the caller asks for the CUDA-core kernel, or of the type's wgmma
+    route on a shape that chooses "few" (to compare the routes on one
+    shape).
     """
-    w5 = _check(x, w, depth)
+    w6 = _check(x, w, depth)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_reference(x, w, depth)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"x and w must lie on one CUDA device or both on "
                          f"the CPU, got {x.device} and {w.device}")
-    if not (x.is_contiguous() and w5.is_contiguous()):
+    if not (x.is_contiguous() and w6.is_contiguous()):
         raise ValueError("conv3x3 needs contiguous x and w")
     N, H, W, C = x.shape
-    route = _pick_route(route, conv3x3_route(C, w5.shape[-1], x.dtype),
+    route = _pick_route(route, conv3x3_route(C, w6.shape[-1], x.dtype),
                         x.dtype)
     if route in ("wgmma", "wgmma_tf32x3"):
         # zero channels add nothing to the sum
         x = pad_channels(x, route_channels(C, route))
-        w5 = pad_channels(w5, x.shape[-1], dim=-2)
+        w6 = pad_channels(w6, x.shape[-1], dim=-2)
     if route in ("wgmma", "wgmma_tf32x3", "few"):
         _check_aligned(route, x=x)
     if route == "wgmma":  # TMA reads the weights as they are
-        _check_aligned(route, w=w5)
+        _check_aligned(route, w=w6)
     padded = x.shape[-1] != C
-    y = torch.empty((N, H, W, w5.shape[-1]), dtype=x.dtype, device=x.device)
+    y = torch.empty((N, H, W, w6.shape[-1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        _LAUNCH[route](x, w5, y, depth)
-    _count(conv3x3, route)
-    conv3x3.padded_launches += padded
+        launches = _LAUNCH[route](x, w6, y, depth)
+    for _ in range(launches):
+        _count(conv3x3, route)
+        conv3x3.padded_launches += padded
     return y
 
 
@@ -459,7 +509,7 @@ def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
     axis of n points there are 3 * n - 2 taps inside, in H, in W and, with
     three z-taps, in each volume of `depth` planes."""
     N, H, W, C = x_shape
-    kz = 1 if len(w_shape) == 4 else w_shape[0]
+    kz = 1 if len(w_shape) == 4 else w_shape[-5]
     plane_taps = N if kz == 1 else (N // depth) * (3 * depth - 2)
     return 2 * (3 * H - 2) * (3 * W - 2) * C * w_shape[-1] * plane_taps
 
@@ -502,25 +552,30 @@ _FEW_TCO = 32
 _FEW_TARGET_BLOCKS = {torch.bfloat16: 2 * 132, torch.float32: 132}
 
 
-def _wgrad_check(x, dy, depth, kz):
+def _wgrad_check(x, dy, depth, kz, members=None):
     if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
         raise ValueError(f"x (N, H, W, C) and dy (N, H, W, CO) must share "
                          f"N, H, W, got {tuple(x.shape)} and "
                          f"{tuple(dy.shape)}")
     if kz not in (1, 3):
         raise ValueError(f"kz must be 1 or 3, got {kz}")
-    if depth < 1 or x.shape[0] % depth:
-        raise ValueError(f"depth {depth} does not divide N={x.shape[0]}")
+    _check_members(x.shape[0], members or 1, depth)
     if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
         raise ValueError(f"x and dy must both be float32 or bfloat16, got "
                          f"{x.dtype} and {dy.dtype}")
 
 
 def conv3x3_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
-                            depth: int = 1, kz: int = 3) -> torch.Tensor:
+                            depth: int = 1, kz: int = 3,
+                            members=None) -> torch.Tensor:
     """Plain PyTorch version: `torch.nn.grad.conv{2,3}d_weight` in f32 on
-    channels-first views.  Returns (kz, 3, 3, C, CO) f32."""
-    _wgrad_check(x, dy, depth, kz)
+    channels-first views.  Returns (kz, 3, 3, C, CO) f32; with `members`
+    M, (M, kz, 3, 3, C, CO), one member after another."""
+    _wgrad_check(x, dy, depth, kz, members)
+    if members is not None:
+        return torch.stack([
+            conv3x3_wgrad_reference(xm, dym, depth, kz) for xm, dym in
+            zip(_member_planes(x, members), _member_planes(dy, members))])
     N, H, W, C = x.shape
     CO = dy.shape[-1]
     if kz == 1:
@@ -632,15 +687,17 @@ def wgrad_c1_splits(x_shape, co: int, dtype) -> int:
 
 
 def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
-                  kz: int = 3, route=None) -> torch.Tensor:
+                  kz: int = 3, route=None, members=None) -> torch.Tensor:
     """dW[kz,ky,kx,ci,co] = sum_{n,h,w} x[n+kz-KZ//2, h+ky-1, w+kx-1, ci]
     * dy[n,h,w,co], zero-padded as `conv3x3` pads: the weight gradient of
-    `conv3x3(x, W, depth)`.  Returns (kz, 3, 3, C, CO) f32.  CPU tensors
-    take the plain version; CUDA tensors the kernel of
-    `conv3x3_wgrad_route`, or of a forced route as in `conv3x3`."""
-    _wgrad_check(x, dy, depth, kz)
+    `conv3x3(x, W, depth)`.  Returns (kz, 3, 3, C, CO) f32; with `members`
+    M (x and dy M members' planes, module docstring), (M, kz, 3, 3, C, CO),
+    each member's sum over its own planes.  CPU tensors take the plain
+    version; CUDA tensors the kernel of `conv3x3_wgrad_route`, or of a
+    forced route as in `conv3x3`."""
+    _wgrad_check(x, dy, depth, kz, members)
     if x.device.type == "cpu" and dy.device.type == "cpu":
-        return conv3x3_wgrad_reference(x, dy, depth, kz)
+        return conv3x3_wgrad_reference(x, dy, depth, kz, members)
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"x and dy must lie on one CUDA device or both on "
                          f"the CPU, got {x.device} and {dy.device}")
@@ -648,43 +705,56 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
         raise ValueError("conv3x3_wgrad needs contiguous x and dy")
     N, H, W, C = x.shape
     CO = dy.shape[-1]
+    M = members or 1
     route = _pick_route(route, conv3x3_wgrad_route(C, CO, x.dtype), x.dtype)
     if route_channels(C, route) != C:
         # the gradient of the zero channels is computed and dropped
         dw = conv3x3_wgrad(pad_channels(x, route_channels(C, route)), dy,
-                           depth, kz, route)
+                           depth, kz, route, members)
         conv3x3_wgrad.padded_launches += 1
         return dw[..., :C, :].contiguous()
+    if route == "cuda_core" and M > 1:
+        # the one route whose kernel takes no member axis: a launch each
+        return torch.stack([
+            conv3x3_wgrad(xm, dym, depth, kz, route) for xm, dym in
+            zip(_member_planes(x, M), _member_planes(dy, M))])
+    # one member's planes: every plan and split count is theirs
+    n_shape = (N // M, H, W, C)
     code = _DTYPE_CODES[x.dtype]
     if route in ("wgmma", "wgmma_tf32x3"):
         _check_aligned(route, x=x, dy=dy)
-        plan = wgrad_plan(N, H, W, C, CO, x.dtype, kz)
+        plan = wgrad_plan(N // M, H, W, C, CO, x.dtype, kz)
         splits, code = plan["splits"], plan["code"]
         fn = build.function("conv3x3_wgrad_wgmma", "dgtta_conv3x3_wgrad_wgmma",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p])
     elif route == "c1":
         _check_aligned(route, dy=dy)
-        splits = wgrad_c1_splits(x.shape, CO, x.dtype)
+        splits = wgrad_c1_splits(n_shape, CO, x.dtype)
         fn = build.function("conv3x3_c1", "dgtta_conv3x3_wgrad_c1",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p])
     elif route == "few":
         _check_aligned(route, x=x, dy=dy)
-        splits = wgrad_few_splits(x.shape, CO, x.dtype)
+        splits = wgrad_few_splits(n_shape, CO, x.dtype)
         fn = build.function("conv3x3_few", "dgtta_conv3x3_wgrad_few",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p])
     else:
         splits = wgrad_splits(x.shape, CO, kz)
         fn = build.function("conv3x3_wgrad", "dgtta_conv3x3_wgrad",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p])
-    dw = torch.empty((kz, 3, 3, C, CO), dtype=torch.float32, device=x.device)
-    scratch = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
+    dw = torch.empty((M, kz, 3, 3, C, CO), dtype=torch.float32,
+                     device=x.device)
+    scratch = (torch.empty((M, splits) + tuple(dw.shape[1:]),
+                           dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
     args = [x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), N, depth, H, W]
+            0 if scratch is None else scratch.data_ptr(), N]
+    if route != "cuda_core":
+        args.append(M)
+    args += [depth, H, W]
     args += [CO, kz, splits] if route == "c1" else [C, CO, kz, splits]
     args.append(code)
     with torch.cuda.device(x.device):
@@ -693,9 +763,9 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
         raise RuntimeError(f"conv3x3_wgrad {route} kernel launch failed with "
                            f"CUDA error {err} for x {tuple(x.shape)} "
                            f"{x.dtype}, dy {tuple(dy.shape)}, depth {depth}, "
-                           f"kz {kz}")
+                           f"kz {kz}, members {M}")
     _count(conv3x3_wgrad, route)
-    return dw
+    return dw if members is not None else dw[0]
 
 
 conv3x3_wgrad.launches = conv3x3_wgrad.padded_launches = 0
@@ -706,7 +776,8 @@ conv3x3_wgrad.c1_launches = conv3x3_wgrad.few_launches = 0
 class Conv3x3Function(torch.autograd.Function):
     """`conv3x3` with its backward: dx through `conv3x3` with flipped,
     channel-swapped weights (skipped when x needs no gradient, as the
-    image entering the first conv), dW through `conv3x3_wgrad`."""
+    image entering the first conv), dW through `conv3x3_wgrad`; members'
+    weights (M, kz, 3, 3, C, CO) get each member's gradient."""
 
     @staticmethod
     def forward(ctx, x, w, depth):
@@ -721,10 +792,12 @@ class Conv3x3Function(torch.autograd.Function):
         w5 = _as_5d(w)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            wt = w5.flip((0, 1, 2)).transpose(3, 4).contiguous()
-            dx = conv3x3(dy, wt if w.dim() == 5 else wt[0], ctx.depth)
+            # (kz, ky, kx) flipped, C and CO swapped, per member
+            wt = w5.flip((-5, -4, -3)).transpose(-2, -1).contiguous()
+            dx = conv3x3(dy, wt if w.dim() >= 5 else wt[0], ctx.depth)
         if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad(x, dy, ctx.depth, kz=w5.shape[0])
+            dw = conv3x3_wgrad(x, dy, ctx.depth, kz=w5.shape[-5],
+                               members=w.shape[0] if w.dim() == 6 else None)
             dw = dw.reshape(w.shape).to(w.dtype)
         return dx, dw, None
 

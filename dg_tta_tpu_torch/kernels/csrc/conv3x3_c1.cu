@@ -73,6 +73,13 @@
 // in a fixed order, one partial per block is written, and a second kernel
 // adds the partials in a fixed order: no atomics, dW is the same bit for
 // bit from run to run.
+//
+// Members.  An ensemble chunk's members run side by side in one launch: x,
+// y and dy hold `members` groups of N / members planes (a member's batch),
+// w and dW one set of weights per member, and blockIdx.z is the member.
+// Its blocks are those of a launch of that member alone, on its planes,
+// its weights and its slices of the partial sums: a member's outputs and
+// weight gradient are the bits of a launch of it alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -367,6 +374,12 @@ c1_forward_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int g = lane / 4, t = lane % 4;
   const int co0 = blockIdx.y * kCoT;
   const bool vec = CO % 8 == 0;
+  {  // member blockIdx.z: its planes and weights
+    const size_t plane = (size_t)(n_tiles / tiles_per_plane) * H * W;
+    x += blockIdx.z * plane;
+    y += blockIdx.z * plane * CO;
+    w += (size_t)blockIdx.z * KZ * 9 * CO;
+  }
 
   // B fragments (f32: tf32 part and remainder), k-step s, n-tile j: row
   // k = tap (zero past KZ * 9), column 8 j + g = channel co0 + 8 (g / 2) +
@@ -536,6 +549,12 @@ c1_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int g = lane / 4, t = lane % 4;
   const int co0 = blockIdx.y * kCoT;
   const bool vec = CO % 8 == 0;
+  {  // member blockIdx.z: its planes and partial sums
+    const size_t plane = (size_t)(n_tiles / tiles_per_plane) * H * W;
+    x += blockIdx.z * plane;
+    dy += blockIdx.z * plane * CO;
+    part += (size_t)blockIdx.z * gridDim.x * kTaps * CO;
+  }
   const int t_begin = blockIdx.x * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
   // the warp's positions: row rw of the tile, columns cb ..
@@ -701,12 +720,16 @@ c1_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// dw[member][j] = the sum over k in order of part[member][k][j], for the
+// `total` = members x m entries of dw.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ dw, int m, int splits) {
+                                  float* __restrict__ dw, int m, int total,
+                                  int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+  if (i >= total) return;
+  const float* p = part + (size_t)(i / m) * splits * m + i % m;
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * m + i];
+  for (int k = 0; k < splits; ++k) s += p[(size_t)k * m];
   dw[i] = s;
 }
 
@@ -723,12 +746,12 @@ int halo_vec(const void* x, int W) {
 }
 
 template <typename T, int KZ>
-int launch_forward(const void* x, const void* w, void* y, int N, int depth,
-                   int H, int W, int CO, cudaStream_t s) {
+int launch_forward(const void* x, const void* w, void* y, int N, int members,
+                   int depth, int H, int W, int CO, cudaStream_t s) {
   const auto kernel = c1_forward_kernel<T, KZ>;
   const int tiles_w = (W + kTW - 1) / kTW;
   const int tiles_per_plane = ((H + FwdGeo::kTH - 1) / FwdGeo::kTH) * tiles_w;
-  const int n_tiles = N * tiles_per_plane;
+  const int n_tiles = N / members * tiles_per_plane;  // one member's
   const int co_tiles = (CO + kCoT - 1) / kCoT;
   // a persistent grid: as many blocks as the device holds at once (asked
   // once per process: the host work of a launch stays a launch)
@@ -745,8 +768,9 @@ int launch_forward(const void* x, const void* w, void* y, int N, int depth,
       return static_cast<int>(e);
     resident = std::max(1, per_sm) * sms;
   }
-  const int blocks = std::max(1, std::min(n_tiles, resident / co_tiles));
-  kernel<<<dim3(blocks, co_tiles), kThreads, 0, s>>>(
+  const int blocks =
+      std::max(1, std::min(n_tiles, resident / (co_tiles * members)));
+  kernel<<<dim3(blocks, co_tiles, members), kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
       depth, H, W, CO, tiles_w, tiles_per_plane, n_tiles, halo_vec<T>(x, W));
   return static_cast<int>(cudaGetLastError());
@@ -754,7 +778,7 @@ int launch_forward(const void* x, const void* w, void* y, int N, int depth,
 
 template <typename T, int KZ>
 int launch_wgrad(const void* x, const void* dy, float* part, int N,
-                 int depth, int H, int W, int CO, int splits,
+                 int members, int depth, int H, int W, int CO, int splits,
                  cudaStream_t s) {
   using Cfg = WgCfg<T>;
   using G = typename Cfg::G;
@@ -770,71 +794,80 @@ int launch_wgrad(const void* x, const void* dy, float* part, int N,
   }
   const int tiles_w = (W + kTW - 1) / kTW;
   const int tiles_per_plane = ((H + G::kTH - 1) / G::kTH) * tiles_w;
-  const int n_tiles = N * tiles_per_plane;
-  kernel<<<dim3(splits, (CO + kCoT - 1) / kCoT), kThreads, smem, s>>>(
+  const int n_tiles = N / members * tiles_per_plane;  // one member's
+  kernel<<<dim3(splits, (CO + kCoT - 1) / kCoT, members), kThreads, smem,
+           s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), part, depth, H, W,
       CO, tiles_w, tiles_per_plane, n_tiles, (n_tiles + splits - 1) / splits,
       halo_vec<T>(x, W));
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int N, int depth, int H, int W, int CO, int KZ, int dtype) {
-  return N <= 0 || depth <= 0 || N % depth != 0 || H <= 0 || W <= 0 ||
+bool bad_shape(int N, int members, int depth, int H, int W, int CO, int KZ,
+               int dtype) {
+  return N <= 0 || members <= 0 || members > 65535 || N % members != 0 ||
+         depth <= 0 || (N / members) % depth != 0 || H <= 0 || W <= 0 ||
          CO <= 0 || (KZ != 1 && KZ != 3) || (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
 
-// x (N, H, W, 1) and y (N, H, W, CO) NHWC, w (KZ, 3, 3, 1, CO), contiguous,
-// one type: dtype 0 = float32, 1 = bfloat16; y 16-byte aligned.  Returns
+// x (N, H, W, 1) and y (N, H, W, CO) NHWC, w (members, KZ, 3, 3, 1, CO),
+// contiguous, one type: dtype 0 = float32, 1 = bfloat16; y 16-byte aligned.
+// Planes [m * N / members, (m + 1) * N / members) take member m's weights;
+// N / members is a multiple of depth.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take).
 extern "C" int dgtta_conv3x3_c1(const void* x, const void* w, void* y, int N,
-                                int depth, int H, int W, int CO, int KZ,
-                                int dtype, void* stream) {
-  if (bad_shape(N, depth, H, W, CO, KZ, dtype) || misaligned(y))
+                                int members, int depth, int H, int W, int CO,
+                                int KZ, int dtype, void* stream) {
+  if (bad_shape(N, members, depth, H, W, CO, KZ, dtype) || misaligned(y))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = members;
   if (dtype == 0)
-    return KZ == 3 ? launch_forward<float, 3>(x, w, y, N, depth, H, W, CO, s)
-                   : launch_forward<float, 1>(x, w, y, N, depth, H, W, CO, s);
-  return KZ == 3 ? launch_forward<bf16, 3>(x, w, y, N, depth, H, W, CO, s)
-                 : launch_forward<bf16, 1>(x, w, y, N, depth, H, W, CO, s);
+    return KZ == 3
+               ? launch_forward<float, 3>(x, w, y, N, M, depth, H, W, CO, s)
+               : launch_forward<float, 1>(x, w, y, N, M, depth, H, W, CO, s);
+  return KZ == 3 ? launch_forward<bf16, 3>(x, w, y, N, M, depth, H, W, CO, s)
+                 : launch_forward<bf16, 1>(x, w, y, N, M, depth, H, W, CO, s);
 }
 
 // x (N, H, W, 1) and dy (N, H, W, CO) contiguous, dy 16-byte aligned, dtype
-// 0 = float32, 1 = bfloat16; dw (KZ, 3, 3, 1, CO) f32; scratch holds
-// splits * KZ*9*CO f32 (unused when splits == 1).  Block b of the first
-// kernel sums the position tiles [b * ceil(tiles / splits), ...), a tile
+// 0 = float32, 1 = bfloat16; planes [m * N / members, ...) belong to member
+// m; dw (members, KZ, 3, 3, 1, CO) f32; scratch holds members * splits *
+// KZ*9*CO f32 (unused when splits == 1).  Block b of a member in the first
+// kernel sums its position tiles [b * ceil(tiles / splits), ...), a tile
 // being 8 x 64 positions in bf16 and 4 x 64 in f32.  Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for
 // arguments the kernels do not take).
 extern "C" int dgtta_conv3x3_wgrad_c1(const void* x, const void* dy, void* dw,
-                                      void* scratch, int N, int depth, int H,
-                                      int W, int CO, int KZ, int splits,
-                                      int dtype, void* stream) {
-  if (bad_shape(N, depth, H, W, CO, KZ, dtype) || splits <= 0 ||
+                                      void* scratch, int N, int members,
+                                      int depth, int H, int W, int CO, int KZ,
+                                      int splits, int dtype, void* stream) {
+  if (bad_shape(N, members, depth, H, W, CO, KZ, dtype) || splits <= 0 ||
       (splits > 1 && scratch == nullptr) || misaligned(dy))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = splits == 1 ? static_cast<float*>(dw)
                             : static_cast<float*>(scratch);
+  const int M = members;
   int err;
   if (dtype == 0)
-    err = KZ == 3 ? launch_wgrad<float, 3>(x, dy, part, N, depth, H, W, CO,
+    err = KZ == 3 ? launch_wgrad<float, 3>(x, dy, part, N, M, depth, H, W, CO,
                                            splits, s)
-                  : launch_wgrad<float, 1>(x, dy, part, N, depth, H, W, CO,
+                  : launch_wgrad<float, 1>(x, dy, part, N, M, depth, H, W, CO,
                                            splits, s);
   else
-    err = KZ == 3 ? launch_wgrad<bf16, 3>(x, dy, part, N, depth, H, W, CO,
+    err = KZ == 3 ? launch_wgrad<bf16, 3>(x, dy, part, N, M, depth, H, W, CO,
                                           splits, s)
-                  : launch_wgrad<bf16, 1>(x, dy, part, N, depth, H, W, CO,
+                  : launch_wgrad<bf16, 1>(x, dy, part, N, M, depth, H, W, CO,
                                           splits, s);
   if (err != 0) return err;
   if (splits > 1) {
-    const int m = KZ * 9 * CO;
-    sum_splits_kernel<<<(m + 255) / 256, 256, 0, s>>>(
-        part, static_cast<float*>(dw), m, splits);
+    const int m = KZ * 9 * CO, total = m * M;
+    sum_splits_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+        part, static_cast<float*>(dw), m, total, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -95,6 +95,14 @@
 // Both weight gradients write one partial sum per block into a scratch
 // slice, and a second kernel adds the slices in a fixed order:
 // deterministic, no atomics.  With one split the first kernel writes dW.
+//
+// Members.  An ensemble chunk's members run side by side in one launch: x,
+// y and dy hold `members` groups of N / members planes (a member's batch),
+// wk and dW one set of weights per member, and blockIdx.z is the member.
+// Its blocks are those of a launch of that member alone, on its planes
+// (the f32 halo map's volumes offset by the member's first volume), its
+// weights and its slices of the partial sums: a member's outputs and
+// weight gradient are the bits of a launch of it alone.
 
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -281,8 +289,9 @@ struct F32Halo {
   float* buf;
   int floats;
   uint64_t* bar;
-  const float* x;
+  const float* x;  // the member's planes (the cp.async path)
   int depth, H, W, C, KZ, threads;
+  int vol0;        // the member's first volume (the TMA path)
 
   __device__ __forceinline__ void init() const {
     if (tma && threadIdx.x == 0) {
@@ -297,7 +306,7 @@ struct F32Halo {
       if (threadIdx.x == 0) {
         mbar_expect_tx(&bar[b], KZ * HR * HW * C * 4);
         tma_load_5d(dst, map, &bar[b], 0, w0 - 1, h0 - 1,
-                    n % depth - KZ / 2, n / depth);
+                    n % depth - KZ / 2, vol0 + n / depth);
       }
     } else {
       stage_halo_unit<float, HR, HW>(reinterpret_cast<uint8_t*>(dst), x, n,
@@ -339,6 +348,12 @@ few_forward_bf16_kernel(const bf16* __restrict__ x,
   uint8_t* halo = sb + steps * 1024;
   const int hb = bf_halo_bytes(KZ, kBfHR, kBfHW);
   const int co0 = blockIdx.y * kBN;
+  {  // member blockIdx.z: its planes and weights
+    const size_t plane = (size_t)(n_tiles / tiles_per_plane) * H * W;
+    x += blockIdx.z * plane * C;
+    y += blockIdx.z * plane * CO;
+    wk += (size_t)blockIdx.z * steps * 16 * CO;
+  }
 
   zero_smem(halo, 2 * hb, kThreads);  // channels C .. 15 stay zero
   // the packed weights (k = tap * 16 + ci): one 32-byte row per output
@@ -447,9 +462,16 @@ few_forward_f32_kernel(const __grid_constant__ CUtensorMap tmx, int tma,
   const int hn = f32_halo_floats(KZ, kFHR, kFHW, C);
   float* halo = reinterpret_cast<float*>(
       sb + 2 * steps * 1024 + (steps * 32 + 1023) / 1024 * 1024);
+  // member blockIdx.z: its planes and weights
+  const int planes = n_tiles / tiles_per_plane;
+  x += blockIdx.z * (size_t)planes * H * W * C;
+  y += blockIdx.z * (size_t)planes * H * W * CO;
+  wk += (size_t)blockIdx.z * Kp * CO;
+  wk_lo += (size_t)blockIdx.z * Kp * CO;
   const F32Halo<kFHR, kFHW> hl{&tmx, tma != 0, halo, hn,
                                reinterpret_cast<uint64_t*>(halo + 2 * hn), x,
-                               depth, H, W, C, KZ, kFThreads};
+                               depth, H, W, C, KZ, kFThreads,
+                               (int)blockIdx.z * (planes / depth)};
   hl.init();
   const int co0 = blockIdx.y * kBN;
 
@@ -600,6 +622,12 @@ few_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   const int t_begin = blockIdx.x * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
   const int ky = threadIdx.x / 128;  // the warpgroup's ky
+  {  // member blockIdx.z: its planes and partial sums
+    const size_t plane = (size_t)(n_tiles / tiles_per_plane) * H * W;
+    x += blockIdx.z * plane * C;
+    dy += blockIdx.z * plane * CO;
+    part += (size_t)blockIdx.z * gridDim.x * KZ * 9 * C * CO;
+  }
 
   zero_smem(halo, 2 * hb, kThreads);  // channels C .. 15, pixels 18, 19
   __syncthreads();
@@ -706,10 +734,16 @@ few_wgrad_f32_kernel(const __grid_constant__ CUtensorMap tmx, int tma,
   // accumulators are promoted into (registers hold two fragment sets and
   // two accumulators per tile instead)
   float* tot = halo + 2 * hn;
+  // member blockIdx.z: its planes and partial sums
+  const int planes = n_tiles / tiles_per_plane;
+  x += blockIdx.z * (size_t)planes * H * W * C;
+  dy += blockIdx.z * (size_t)planes * H * W * CO;
+  part += (size_t)blockIdx.z * gridDim.x * KZ * 9 * C * CO;
   const F32Halo<kGHR, kGHW> hl{&tmx, tma != 0, halo, hn,
                                reinterpret_cast<uint64_t*>(
                                    tot + MT * 16 * kGThreads),
-                               x, depth, H, W, C, KZ, kGThreads};
+                               x, depth, H, W, C, KZ, kGThreads,
+                               (int)blockIdx.z * (planes / depth)};
   hl.init();
 
   const int co0 = blockIdx.y * kBN;
@@ -880,12 +914,16 @@ few_wgrad_f32_kernel(const __grid_constant__ CUtensorMap tmx, int tma,
   }
 }
 
+// dw[member][j] = the sum over k in order of part[member][k][j], for the
+// `total` = members x m entries of dw.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ dw, int m, int splits) {
+                                  float* __restrict__ dw, int m, int total,
+                                  int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+  if (i >= total) return;
+  const float* p = part + (size_t)(i / m) * splits * m + i % m;
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * m + i];
+  for (int k = 0; k < splits; ++k) s += p[(size_t)k * m];
   dw[i] = s;
 }
 
@@ -903,7 +941,8 @@ cudaError_t allow_smem(K kernel, int smem, int& configured) {
 }
 
 // Blocks for a persistent grid: as many as the device holds at once, split
-// over `co_tiles` output-channel tiles, at most one per tile.
+// over `co_tiles` output-channel tiles (of each member), at most one per
+// tile.
 template <typename K>
 int persistent_blocks(K kernel, int threads, int smem, int n_tiles,
                       int co_tiles, int* blocks) {
@@ -921,8 +960,8 @@ int persistent_blocks(K kernel, int threads, int smem, int n_tiles,
 }
 
 int launch_forward_bf16(const void* x, const void* wk, void* y, int N,
-                        int depth, int H, int W, int C, int CO, int KZ,
-                        int Kp, cudaStream_t s) {
+                        int members, int depth, int H, int W, int C, int CO,
+                        int KZ, int Kp, cudaStream_t s) {
   if (Kp != KZ * 9 * 16) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = 1024 + KZ * 9 * 1024 + 2 * bf_halo_bytes(KZ, kBfHR, kBfHW);
   static int configured = 0;
@@ -930,13 +969,15 @@ int launch_forward_bf16(const void* x, const void* wk, void* y, int N,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W + kBfRow - 1) / kBfRow;
   const int tiles_per_plane = ((H + kBfWG - 1) / kBfWG) * tiles_w;
-  const int n_tiles = N * tiles_per_plane;
+  const int n_tiles = N / members * tiles_per_plane;  // one member's
   const int co_tiles = (CO + kBN - 1) / kBN;
   int blocks = 0;
   const int err = persistent_blocks(few_forward_bf16_kernel, kBfWG * 128,
-                                    smem, n_tiles, co_tiles, &blocks);
+                                    smem, n_tiles, co_tiles * members,
+                                    &blocks);
   if (err != 0) return err;
-  few_forward_bf16_kernel<<<dim3(blocks, co_tiles), kBfWG * 128, smem, s>>>(
+  few_forward_bf16_kernel<<<dim3(blocks, co_tiles, members), kBfWG * 128,
+                            smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wk),
       static_cast<bf16*>(y), depth, H, W, C, CO, KZ, tiles_w,
       tiles_per_plane, n_tiles);
@@ -965,8 +1006,8 @@ bool f32_halo_map(CUtensorMap* map, int* tma, const void* x, int N,
 }
 
 int launch_forward_f32(const void* x, const void* wk, const void* wk_lo,
-                       void* y, int N, int depth, int H, int W, int C, int CO,
-                       int KZ, int Kp, cudaStream_t s) {
+                       void* y, int N, int members, int depth, int H, int W,
+                       int C, int CO, int KZ, int Kp, cudaStream_t s) {
   if (Kp != (KZ * 9 * C + 7) / 8 * 8 || wk_lo == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tmx = {};
@@ -982,13 +1023,14 @@ int launch_forward_f32(const void* x, const void* wk, const void* wk_lo,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W + kFW - 1) / kFW;
   const int tiles_per_plane = ((H + kFH - 1) / kFH) * tiles_w;
-  const int n_tiles = N * tiles_per_plane;
+  const int n_tiles = N / members * tiles_per_plane;  // one member's
   const int co_tiles = (CO + kBN - 1) / kBN;
   int blocks = 0;
   const int err = persistent_blocks(few_forward_f32_kernel, kFThreads, smem,
-                                    n_tiles, co_tiles, &blocks);
+                                    n_tiles, co_tiles * members, &blocks);
   if (err != 0) return err;
-  few_forward_f32_kernel<<<dim3(blocks, co_tiles), kFThreads, smem, s>>>(
+  few_forward_f32_kernel<<<dim3(blocks, co_tiles, members), kFThreads, smem,
+                           s>>>(
       tmx, tma, static_cast<const float*>(x), static_cast<const float*>(wk),
       static_cast<const float*>(wk_lo), static_cast<float*>(y), depth, H, W,
       C, CO, KZ, Kp, tiles_w, tiles_per_plane, n_tiles);
@@ -996,8 +1038,8 @@ int launch_forward_f32(const void* x, const void* wk, const void* wk_lo,
 }
 
 int launch_wgrad_bf16(const void* x, const void* dy, float* part, int N,
-                      int depth, int H, int W, int C, int CO, int KZ,
-                      int splits, cudaStream_t s) {
+                      int members, int depth, int H, int W, int C, int CO,
+                      int KZ, int splits, cudaStream_t s) {
   const int smem = 1024 + 2 * kBgH * kBgW * kBN * 2 +
                    2 * bf_halo_bytes(KZ, kBgHR, kBgHW);
   static int configured = 0;
@@ -1005,9 +1047,9 @@ int launch_wgrad_bf16(const void* x, const void* dy, float* part, int N,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W + kBgW - 1) / kBgW;
   const int tiles_per_plane = ((H + kBgH - 1) / kBgH) * tiles_w;
-  const int n_tiles = N * tiles_per_plane;
-  few_wgrad_bf16_kernel<<<dim3(splits, (CO + kBN - 1) / kBN), kBgWG * 128,
-                          smem, s>>>(
+  const int n_tiles = N / members * tiles_per_plane;  // one member's
+  few_wgrad_bf16_kernel<<<dim3(splits, (CO + kBN - 1) / kBN, members),
+                          kBgWG * 128, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dy), part, depth,
       H, W, C, CO, KZ, tiles_w, tiles_per_plane, n_tiles,
       (n_tiles + splits - 1) / splits);
@@ -1016,8 +1058,8 @@ int launch_wgrad_bf16(const void* x, const void* dy, float* part, int N,
 
 template <int MT>
 int launch_wgrad_f32(const void* x, const void* dy, float* part, int N,
-                     int depth, int H, int W, int C, int CO, int KZ,
-                     int splits, cudaStream_t s) {
+                     int members, int depth, int H, int W, int C, int CO,
+                     int KZ, int splits, cudaStream_t s) {
   CUtensorMap tmx = {};
   int tma = 0;
   if (!f32_halo_map(&tmx, &tma, x, N, depth, H, W, C, KZ, kGHR, kGHW))
@@ -1030,9 +1072,9 @@ int launch_wgrad_f32(const void* x, const void* dy, float* part, int N,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W + kGW - 1) / kGW;
   const int tiles_per_plane = ((H + kGH - 1) / kGH) * tiles_w;
-  const int n_tiles = N * tiles_per_plane;
-  few_wgrad_f32_kernel<MT><<<dim3(splits, (CO + kBN - 1) / kBN), kGThreads,
-                             smem, s>>>(
+  const int n_tiles = N / members * tiles_per_plane;  // one member's
+  few_wgrad_f32_kernel<MT><<<dim3(splits, (CO + kBN - 1) / kBN, members),
+                             kGThreads, smem, s>>>(
       tmx, tma, static_cast<const float*>(x), static_cast<const float*>(dy), part,
       depth, H, W, C, CO, KZ, tiles_w, tiles_per_plane, n_tiles,
       (n_tiles + splits - 1) / splits);
@@ -1043,22 +1085,23 @@ int launch_wgrad_f32(const void* x, const void* dy, float* part, int N,
 // KZ x 9 x C rows' tiles, rounded up (C = 12, KZ = 3: 324 rows, six tiles,
 // one each; C = 15: seven).
 int launch_wgrad_f32_mt(const void* x, const void* dy, float* part, int N,
-                        int depth, int H, int W, int C, int CO, int KZ,
-                        int splits, cudaStream_t s) {
+                        int members, int depth, int H, int W, int C, int CO,
+                        int KZ, int splits, cudaStream_t s) {
   if ((KZ * 9 * C + 63) / 64 <= kGWG)
-    return launch_wgrad_f32<1>(x, dy, part, N, depth, H, W, C, CO, KZ, splits,
-                               s);
-  return launch_wgrad_f32<2>(x, dy, part, N, depth, H, W, C, CO, KZ, splits,
-                             s);
+    return launch_wgrad_f32<1>(x, dy, part, N, members, depth, H, W, C, CO,
+                               KZ, splits, s);
+  return launch_wgrad_f32<2>(x, dy, part, N, members, depth, H, W, C, CO, KZ,
+                             splits, s);
 }
 
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) & 15;
 }
 
-bool bad_shape(int N, int depth, int H, int W, int C, int CO, int KZ,
-               int dtype) {
-  return N <= 0 || depth <= 0 || N % depth != 0 || H <= 0 || W <= 0 ||
+bool bad_shape(int N, int members, int depth, int H, int W, int C, int CO,
+               int KZ, int dtype) {
+  return N <= 0 || members <= 0 || members > 65535 || N % members != 0 ||
+         depth <= 0 || (N / members) % depth != 0 || H <= 0 || W <= 0 ||
          C < 2 || C > 15 || CO <= 0 || CO % 8 != 0 || (KZ != 1 && KZ != 3) ||
          (dtype != 0 && dtype != 1);
 }
@@ -1067,39 +1110,45 @@ bool bad_shape(int N, int depth, int H, int W, int C, int CO, int KZ,
 
 // x (N, H, W, C) and y (N, H, W, CO) NHWC, contiguous, x and y 16-byte
 // aligned, one type: dtype 0 = f32, 1 = bf16; 1 < C < 16, CO % 8 == 0.
-// wk: the weights packed in the K order (kz, ky, kx, ci), a (Kp, CO) matrix
+// Planes [m * N / members, (m + 1) * N / members) take member m's weights
+// (N / members a multiple of depth).  wk: each member's weights packed in
+// the K order (kz, ky, kx, ci), a (members, Kp, CO) array
 // (`pack_few_weights`): bf16 16 rows per tap (ci padded with zeros), Kp =
 // KZ*9*16; f32 C rows per tap, zero rows past KZ*9*C up to Kp, a multiple
 // of 8, wk = the tf32 part and wk_lo the remainder (bf16: wk_lo unused,
 // may be null).  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int dgtta_conv3x3_few(const void* x, const void* wk,
-                                 const void* wk_lo, void* y, int N, int depth,
-                                 int H, int W, int C, int CO, int KZ, int Kp,
-                                 int dtype, void* stream) {
-  if (bad_shape(N, depth, H, W, C, CO, KZ, dtype) || misaligned(x) ||
+                                 const void* wk_lo, void* y, int N,
+                                 int members, int depth, int H, int W, int C,
+                                 int CO, int KZ, int Kp, int dtype,
+                                 void* stream) {
+  if (bad_shape(N, members, depth, H, W, C, CO, KZ, dtype) || misaligned(x) ||
       misaligned(y) || wk == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_forward_f32(x, wk, wk_lo, y, N, depth, H, W, C, CO, KZ, Kp,
-                              s);
-  return launch_forward_bf16(x, wk, y, N, depth, H, W, C, CO, KZ, Kp, s);
+    return launch_forward_f32(x, wk, wk_lo, y, N, members, depth, H, W, C, CO,
+                              KZ, Kp, s);
+  return launch_forward_bf16(x, wk, y, N, members, depth, H, W, C, CO, KZ, Kp,
+                             s);
 }
 
 // x (N, H, W, C) and dy (N, H, W, CO) NHWC, contiguous and 16-byte aligned,
-// dtype 0 = f32, 1 = bf16; 1 < C < 16, CO % 8 == 0; dw (KZ, 3, 3, C, CO)
-// f32; scratch holds splits * KZ*9*C*CO f32 (unused when splits == 1).
-// Block b sums position tiles [b * ceil(tiles / splits), ...), a tile being
+// dtype 0 = f32, 1 = bf16; 1 < C < 16, CO % 8 == 0; planes [m * N /
+// members, ...) belong to member m; dw (members, KZ, 3, 3, C, CO) f32;
+// scratch holds members * splits * KZ*9*C*CO f32 (unused when splits ==
+// 1).  Block b of a member sums its position tiles [b * ceil(tiles /
+// splits), ...), a tile being
 // 8 x 16 positions in bf16 and 4 x 16 in f32.  Returns cudaGetLastError()
 // after the launches (cudaErrorInvalidValue for arguments the kernels do
 // not take).
 extern "C" int dgtta_conv3x3_wgrad_few(const void* x, const void* dy,
                                        void* dw, void* scratch, int N,
-                                       int depth, int H, int W, int C, int CO,
-                                       int KZ, int splits, int dtype,
-                                       void* stream) {
-  if (bad_shape(N, depth, H, W, C, CO, KZ, dtype) || splits <= 0 ||
+                                       int members, int depth, int H, int W,
+                                       int C, int CO, int KZ, int splits,
+                                       int dtype, void* stream) {
+  if (bad_shape(N, members, depth, H, W, C, CO, KZ, dtype) || splits <= 0 ||
       (splits > 1 && scratch == nullptr) || misaligned(x) || misaligned(dy) ||
       misaligned(dw))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1107,15 +1156,15 @@ extern "C" int dgtta_conv3x3_wgrad_few(const void* x, const void* dy,
   float* part = splits == 1 ? static_cast<float*>(dw)
                             : static_cast<float*>(scratch);
   const int err =
-      dtype == 0 ? launch_wgrad_f32_mt(x, dy, part, N, depth, H, W, C, CO, KZ,
-                                       splits, s)
-                 : launch_wgrad_bf16(x, dy, part, N, depth, H, W, C, CO, KZ,
-                                     splits, s);
+      dtype == 0 ? launch_wgrad_f32_mt(x, dy, part, N, members, depth, H, W, C,
+                                       CO, KZ, splits, s)
+                 : launch_wgrad_bf16(x, dy, part, N, members, depth, H, W, C,
+                                     CO, KZ, splits, s);
   if (err != 0) return err;
   if (splits > 1) {
-    const int m = KZ * 9 * C * CO;
-    sum_splits_kernel<<<(m + 255) / 256, 256, 0, s>>>(
-        part, static_cast<float*>(dw), m, splits);
+    const int m = KZ * 9 * C * CO, total = m * members;
+    sum_splits_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+        part, static_cast<float*>(dw), m, total, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

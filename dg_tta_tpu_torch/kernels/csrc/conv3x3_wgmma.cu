@@ -112,6 +112,13 @@
 //     every kPromote stages (432 K at KC = 16) the consumers drain their
 //     wgmmas, add the accumulator into a second f32 register tile (rounded
 //     adds) and restart it from zero.
+//   * Members.  An ensemble chunk's members run side by side in one launch:
+//     x holds `members` groups of `planes` planes each (a member's batch,
+//     a multiple of `depth`), w their weights, member after member.  Plane
+//     n belongs to member n / planes, whose nine-tap weight boxes are taps
+//     (member * KZ + kz) * 9 .. of the weights' map; an item is one plane,
+//     so it never straddles two members, and a member's planes get the
+//     bits of a launch of that member alone.
 
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -206,9 +213,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                      const __grid_constant__ CUtensorMap tmw,
                      const __grid_constant__ CUtensorMap tmw_lo,
-                     T* __restrict__ y, int depth, int H, int W, int C,
-                     int CO, int KZ, int tiles_h, int tiles_w, int co_tiles,
-                     int n_items, int splits) {
+                     T* __restrict__ y, int depth, int planes, int H,
+                     int W, int C, int CO, int KZ, int tiles_h, int tiles_w,
+                     int co_tiles, int n_items, int splits) {
   using CF = Cfg<T, L, WN, SPAN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align_1024(smem_raw);
@@ -259,6 +266,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
           if (sc >= CF::kStages)
             mbar_wait(&empty[slot], ((sc / CF::kStages) & 1) ^ 1);
           const int kz = it.kz_lo + s / nch, ch = s % nch;
+          // the member's nine taps of this kz
+          const int tap0 = ((it.n / planes) * KZ + kz) * 9;
           uint8_t* st = ring + slot * CF::kStage;
           mbar_expect_tx(&full[slot],
                          CF::kHaloTx + CF::kBOps * CF::kBBytes);
@@ -266,12 +275,12 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                       it.h0 - 1, it.n + kz - KZ / 2);
           if constexpr (CF::kTf32) {  // wt and wt_lo, K-major
             tma_load_3d(st + CF::kHalo, &tmw, &full[slot], ch * CF::KC,
-                        it.co0, kz * 9);
+                        it.co0, tap0);
             tma_load_3d(st + CF::kHalo + CF::kBBytes, &tmw_lo, &full[slot],
-                        ch * CF::KC, it.co0, kz * 9);
+                        ch * CF::KC, it.co0, tap0);
           } else {  // w, MN-major
             tma_load_3d(st + CF::kHalo, &tmw, &full[slot], it.co0,
-                        ch * CF::KC, kz * 9);
+                        ch * CF::KC, tap0);
           }
         }
       }
@@ -484,8 +493,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
 
 template <typename T, int L, int WN, int SPAN>
 int launch(const void* x, const void* w, const void* wt_lo, void* y, int N,
-           int depth, int H, int W, int C, int CO, int KZ, int splits,
-           int blocks, cudaStream_t stream) {
+           int members, int depth, int H, int W, int C, int CO, int KZ,
+           int splits, int blocks, cudaStream_t stream) {
   using CF = Cfg<T, L, WN, SPAN>;
   constexpr CUtensorMapDataType kType = Elem<T>::kMap;
   constexpr int e = sizeof(T);
@@ -504,10 +513,10 @@ int launch(const void* x, const void* w, const void* wt_lo, void* y, int N,
   const cuuint64_t xs[3] = {(cuuint64_t)C * e, (cuuint64_t)W * C * e,
                             (cuuint64_t)H * W * C * e};
   const cuuint32_t xb[4] = {CF::KC, CF::HW, CF::TH + 2, 1};
-  // the weights, nine taps a box: f32 wt (KZ * 9, CO, C) K-major and its
-  // wt_lo; bf16 w itself (KZ * 9, C, CO), MN-major
+  // the weights, nine taps a box: f32 wt (members * KZ * 9, CO, C) K-major
+  // and its wt_lo; bf16 w itself (members * KZ * 9, C, CO), MN-major
   const cuuint64_t d0 = CF::kTf32 ? C : CO, d1 = CF::kTf32 ? CO : C;
-  const cuuint64_t wd[3] = {d0, d1, (cuuint64_t)KZ * 9};
+  const cuuint64_t wd[3] = {d0, d1, (cuuint64_t)members * KZ * 9};
   const cuuint64_t ws[2] = {d0 * e, (cuuint64_t)CO * C * e};
   const cuuint32_t wb[3] = {(cuuint32_t)(CF::kTf32 ? CF::KC : CF::BN),
                             (cuuint32_t)(CF::kTf32 ? CF::BN : CF::KC), 9};
@@ -537,9 +546,11 @@ int launch(const void* x, const void* w, const void* wt_lo, void* y, int N,
   cfg.numAttrs = splits > 1 ? 1 : 0;
   T* yp = static_cast<T*>(y);
   int n_items = static_cast<int>(items);
-  void* args[] = {&tmx,     &tmw,     &tmw_lo,   &yp,      &depth,
-                  &H,       &W,       &C,        &CO,      &KZ,
-                  &tiles_h, &tiles_w, &co_tiles, &n_items, &splits};
+  int planes = N / members;
+  void* args[] = {&tmx,     &tmw,     &tmw_lo,  &yp,       &depth,
+                  &planes,  &H,       &W,       &C,        &CO,
+                  &KZ,      &tiles_h, &tiles_w, &co_tiles, &n_items,
+                  &splits};
   const cudaError_t err = cudaLaunchKernelExC(
       &cfg, reinterpret_cast<const void*>(conv3x3_wgmma_kernel<T, L, WN, SPAN>),
       args);
@@ -549,21 +560,21 @@ int launch(const void* x, const void* w, const void* wt_lo, void* y, int N,
 
 template <typename T, int SPAN>
 int launch_layout(const void* x, const void* w, const void* wt_lo, void* y,
-                  int N, int depth, int H, int W, int C, int CO, int KZ,
-                  int layout, int wn, int splits, int blocks,
+                  int N, int members, int depth, int H, int W, int C, int CO,
+                  int KZ, int layout, int wn, int splits, int blocks,
                   cudaStream_t s) {
   if (layout == 1)
-    return launch<T, 1, 32, SPAN>(x, w, wt_lo, y, N, depth, H, W, C, CO, KZ,
-                                  splits, blocks, s);
+    return launch<T, 1, 32, SPAN>(x, w, wt_lo, y, N, members, depth, H, W, C,
+                                  CO, KZ, splits, blocks, s);
   if (wn == 32)
-    return launch<T, 0, 32, SPAN>(x, w, wt_lo, y, N, depth, H, W, C, CO, KZ,
-                                  splits, blocks, s);
-  return launch<T, 0, 64, SPAN>(x, w, wt_lo, y, N, depth, H, W, C, CO, KZ,
-                                splits, blocks, s);
+    return launch<T, 0, 32, SPAN>(x, w, wt_lo, y, N, members, depth, H, W, C,
+                                  CO, KZ, splits, blocks, s);
+  return launch<T, 0, 64, SPAN>(x, w, wt_lo, y, N, members, depth, H, W, C,
+                                CO, KZ, splits, blocks, s);
 }
 
 // f32: the weights as the GEMM reads them, written before the conv: w
-// (taps, C, CO) -> wt (taps, CO, C), K-major (tf32 wgmma takes no MN-major
+// (taps, C, CO) -> wt (taps, CO, C), every member's taps, K-major (tf32 wgmma takes no MN-major
 // operand), split into wt = tf32(w) (nearest, ties away, as the
 // activations) and wt_lo = w - wt, exact.  A 32 x 32 (ci, co) tile per
 // block through shared memory: reads coalesced along co, writes along ci.
@@ -592,8 +603,8 @@ weights_kernel(const float* __restrict__ w, float* __restrict__ wt,
 }
 
 int prepare_weights(const void* w, void* wt, void* wt_lo, int C, int CO,
-                    int KZ, cudaStream_t s) {
-  const dim3 grid((CO + 31) / 32, (C + 31) / 32, KZ * 9);
+                    int taps, cudaStream_t s) {
+  const dim3 grid((CO + 31) / 32, (C + 31) / 32, taps);
   weights_kernel<<<grid, dim3(32, 8), 0, s>>>(
       static_cast<const float*>(w), static_cast<float*>(wt),
       static_cast<float*>(wt_lo), C, CO);
@@ -606,10 +617,12 @@ bool misaligned(const void* p) {
 
 }  // namespace
 
-// x (N, H, W, C) and y (N, H, W, CO) NHWC, w (KZ, 3, 3, C, CO), all
-// contiguous, x, y and bf16's w 16-byte aligned, of one type: dtype 1 =
-// bf16 with C % 16 == 0, dtype 0 = f32 with C % 8 == 0; CO % 8 == 0.  wt
-// and wt_lo (KZ, 3, 3, CO, C), 16-byte aligned, are f32's scratch, which a
+// x (N, H, W, C) and y (N, H, W, CO) NHWC, w (members, KZ, 3, 3, C, CO),
+// all contiguous, x, y and bf16's w 16-byte aligned, of one type: dtype 1 =
+// bf16 with C % 16 == 0, dtype 0 = f32 with C % 8 == 0; CO % 8 == 0.
+// Planes [m * N / members, (m + 1) * N / members) belong to member m and
+// take its weights; N / members is a multiple of depth.  wt and wt_lo
+// (members, KZ, 3, 3, CO, C), 16-byte aligned, are f32's scratch, which a
 // first launch fills with the weights as the GEMM reads them
 // (`weights_kernel`); bf16 reads w itself (wt and wt_lo unused, may be
 // null).  The plan
@@ -622,13 +635,16 @@ bool misaligned(const void* p) {
 // for arguments the kernel does not take or a tensor map that
 // cuTensorMapEncodeTiled refuses).
 extern "C" int dgtta_conv3x3_wgmma(const void* x, const void* w, void* wt,
-                                   void* wt_lo, void* y, int N, int depth,
-                                   int H, int W, int C, int CO, int KZ,
-                                   int dtype, int layout, int wn, int kc,
-                                   int splits, int blocks, void* stream) {
+                                   void* wt_lo, void* y, int N, int members,
+                                   int depth, int H, int W, int C, int CO,
+                                   int KZ, int dtype, int layout, int wn,
+                                   int kc, int splits, int blocks,
+                                   void* stream) {
   const bool f32 = dtype == 0;
   const int span = kc * (f32 ? 4 : 2);
-  if (N <= 0 || depth <= 0 || N % depth != 0 || H <= 0 || W <= 0 || C <= 0 ||
+  if (N <= 0 || members <= 0 || N % members != 0 || depth <= 0 ||
+      (N / members) % depth != 0 || H <= 0 || W <= 0 || C <= 0 ||
+      members * KZ * 9 > 65535 ||
       C % (f32 ? 8 : 16) != 0 || CO <= 0 || CO % 8 != 0 ||
       (KZ != 1 && KZ != 3) || (dtype != 0 && dtype != 1) ||
       misaligned(x) || misaligned(y) || (!f32 && misaligned(w)) ||
@@ -640,18 +656,20 @@ extern "C" int dgtta_conv3x3_wgmma(const void* x, const void* w, void* wt,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32) {
-    const int err = prepare_weights(w, wt, wt_lo, C, CO, KZ, s);
+    const int err =
+        prepare_weights(w, wt, wt_lo, C, CO, members * KZ * 9, s);
     if (err != 0) return err;
     if (span == 64)
-      return launch_layout<float, 64>(x, wt, wt_lo, y, N, depth, H, W, C, CO,
-                                      KZ, layout, wn, splits, blocks, s);
-    return launch_layout<float, 32>(x, wt, wt_lo, y, N, depth, H, W, C, CO,
-                                    KZ, layout, wn, splits, blocks, s);
+      return launch_layout<float, 64>(x, wt, wt_lo, y, N, members, depth, H,
+                                      W, C, CO, KZ, layout, wn, splits,
+                                      blocks, s);
+    return launch_layout<float, 32>(x, wt, wt_lo, y, N, members, depth, H, W,
+                                    C, CO, KZ, layout, wn, splits, blocks, s);
   }
   using bf16 = __nv_bfloat16;
   if (span == 64)
-    return launch_layout<bf16, 64>(x, w, nullptr, y, N, depth, H, W, C, CO,
-                                   KZ, layout, wn, splits, blocks, s);
-  return launch_layout<bf16, 32>(x, w, nullptr, y, N, depth, H, W, C, CO, KZ,
-                                 layout, wn, splits, blocks, s);
+    return launch_layout<bf16, 64>(x, w, nullptr, y, N, members, depth, H, W,
+                                   C, CO, KZ, layout, wn, splits, blocks, s);
+  return launch_layout<bf16, 32>(x, w, nullptr, y, N, members, depth, H, W, C,
+                                 CO, KZ, layout, wn, splits, blocks, s);
 }

@@ -49,6 +49,14 @@
 //     writes its partial sums to its split's slice of a scratch buffer and
 //     a second kernel adds the slices in a fixed order: deterministic, no
 //     atomics.  With one split the first kernel writes dW.
+//   * Members.  An ensemble chunk's members run side by side in one launch:
+//     x and dy hold `members` groups of N planes (a member's batch, a
+//     multiple of `depth`), and blockIdx.y is the member.  Its blocks are
+//     those of a launch of that member alone, at planes offset by member x
+//     N in the tensor maps; its partial sums go to its own slices of the
+//     scratch and `sum_splits_kernel` adds each member's in split order
+//     into dW[member]: a member's sums are the bits of a launch of it
+//     alone, and never take a position of another member.
 //
 // f32, `wgrad_tf32x3_kernel<BN>`.  A block owns one z-tap, 32 input
 // channels, BN output channels (32; 64 where CO >= 64) and a split of
@@ -284,6 +292,9 @@ wgrad_tf32x3_kernel(const __grid_constant__ CUtensorMap tmx,
   const int dz = kz - KZ / 2;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  // member blockIdx.y: its first plane and its partial sums
+  const int p0 = blockIdx.y * (n_tiles / tiles_per_plane);
+  part += (size_t)blockIdx.y * (gridDim.x / per_split) * KZ * 9 * C * CO;
   // the next tile at or after t whose x plane lies inside the group
   auto next_valid = [&](int t) {
     while (t < t_end) {
@@ -316,11 +327,11 @@ wgrad_tf32x3_kernel(const __grid_constant__ CUtensorMap tmx,
         if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         uint8_t* b = ring + s * CF::kStage;
         mbar_expect_tx(&full[s], kHaloTx + CF::kDy);
-        tma_load_4d(b, &tmx, &full[s], ci0, w0 - 1, h0 - 1, n + dz);
+        tma_load_4d(b, &tmx, &full[s], ci0, w0 - 1, h0 - 1, p0 + n + dz);
 #pragma unroll
         for (int j = 0; j < BN / 32; ++j)
           tma_load_4d(b + kHalo + j * kDyBox, &tmdy, &full[s], co0 + 32 * j,
-                      w0, h0, n);
+                      w0, h0, p0 + n);
         ++it;
       }
     }
@@ -478,6 +489,9 @@ wgrad_bf16_zfirst_kernel(const __grid_constant__ CUtensorMap tmx,
   const int l_begin = split * steps_per_split;
   const int l_end = min(n_steps, l_begin + steps_per_split);
   const int half = KZ / 2;
+  // member blockIdx.y: its first plane and its partial sums
+  const int p0 = blockIdx.y * N;
+  part += (size_t)blockIdx.y * (gridDim.x / per_split) * KZ * 9 * C * CO;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kHS; ++s) {
@@ -507,12 +521,12 @@ wgrad_bf16_zfirst_kernel(const __grid_constant__ CUtensorMap tmx,
           if (hc >= kHS) mbar_wait(&hempty[s], ((hc / kHS) & 1) ^ 1);
           mbar_expect_tx(&hfull[s], kHaloTx);
           tma_load_4d(halos + s * kHalo, &tmx, &hfull[s], ci0, w0 - 1,
-                      h0 - 1, n - half + j);
+                      h0 - 1, p0 + n - half + j);
         }
         const int i = l - l_begin, s = i % kDS;
         if (i >= kDS) mbar_wait(&dempty[s], ((i / kDS) & 1) ^ 1);
         mbar_expect_tx(&dfull[s], kDy);
-        tma_load_4d(dys + s * kDy, &tmdy, &dfull[s], co0, w0, h0, n);
+        tma_load_4d(dys + s * kDy, &tmdy, &dfull[s], co0, w0, h0, p0 + n);
       }
     }
     return;
@@ -684,6 +698,9 @@ wgrad_bf16_desc_kernel(const __grid_constant__ CUtensorMap tmx,
   const int dz = kz - KZ / 2;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  // member blockIdx.y: its first plane and its partial sums
+  const int p0 = blockIdx.y * (n_tiles / tiles_per_plane);
+  part += (size_t)blockIdx.y * (gridDim.x / per_split) * KZ * 9 * C * CO;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -709,8 +726,8 @@ wgrad_bf16_desc_kernel(const __grid_constant__ CUtensorMap tmx,
         if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], kHaloTx + CF::kDy);
         tma_load_4d(sx + s * kHalo, &tmx, &full[s], ci0, w0 - 1, h0 - 1,
-                    n + dz);
-        tma_load_4d(sd + s * CF::kDy, &tmdy, &full[s], co0, w0, h0, n);
+                    p0 + n + dz);
+        tma_load_4d(sd + s * CF::kDy, &tmdy, &full[s], co0, w0, h0, p0 + n);
         ++it;
       }
     }
@@ -775,23 +792,24 @@ wgrad_bf16_desc_kernel(const __grid_constant__ CUtensorMap tmx,
   }
 }
 
+// dw[member][j] = the sum over k in order of part[member][k][j], for the
+// `members` x m entries of dw.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ dw, long long m,
-                                  int splits) {
+                                  long long total, int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+  if (i >= total) return;
+  const float* p = part + (i / m) * splits * m + i % m;
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * m + i];
+  for (int k = 0; k < splits; ++k) s += p[(size_t)k * m];
   dw[i] = s;
 }
 
-// The tensor maps: x as halo boxes of `box_c` channels (dense, padded
-// rows), dy as boxes of 32 channels with their span's swizzle.
 // The tensor maps: x as halo boxes of `box_c` channels (dense, padded rows,
 // or with their span's swizzle where `x_swizzled`), dy as boxes of `bn`
 // channels with their span's swizzle.
 bool make_maps(CUtensorMap* tmx, CUtensorMap* tmdy, const void* x,
-               const void* dy, int N, int H, int W, int C, int CO,
+               const void* dy, long long N, int H, int W, int C, int CO,
                CUtensorMapDataType type, int e, int box_c, int bn,
                bool x_swizzled) {
   const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
@@ -818,12 +836,12 @@ cudaError_t allow_smem(K kernel, int smem, bool& configured) {
 }
 
 template <int BN>
-int launch_f32(const void* x, const void* dy, float* part, int N, int depth,
-               int H, int W, int C, int CO, int KZ, int splits,
-               cudaStream_t stream) {
+int launch_f32(const void* x, const void* dy, float* part, int N,
+               int members, int depth, int H, int W, int C, int CO, int KZ,
+               int splits, cudaStream_t stream) {
   using CF = f32::Cfg<BN>;
   CUtensorMap tmx, tmdy;
-  if (!make_maps(&tmx, &tmdy, x, dy, N, H, W, C, CO,
+  if (!make_maps(&tmx, &tmdy, x, dy, (long long)N * members, H, W, C, CO,
                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, f32::kRow / 4, 32,
                  false))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -839,8 +857,8 @@ int launch_f32(const void* x, const void* dy, float* part, int N, int depth,
   const int co_tiles = (CO + BN - 1) / BN;
   const long long blocks = (long long)splits * KZ * ci_tiles * co_tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  wgrad_tf32x3_kernel<BN><<<(unsigned)blocks, f32::kThreads, CF::kSmem,
-                            stream>>>(tmx, tmdy, part, depth, C, CO, KZ,
+  wgrad_tf32x3_kernel<BN><<<dim3((unsigned)blocks, members), f32::kThreads,
+                            CF::kSmem, stream>>>(tmx, tmdy, part, depth, C, CO, KZ,
                                       ci_tiles, co_tiles, tiles_w,
                                       tiles_per_plane, n_tiles,
                                       tiles_per_split);
@@ -849,10 +867,10 @@ int launch_f32(const void* x, const void* dy, float* part, int N, int depth,
 
 
 int launch_bf16_zfirst(const void* x, const void* dy, float* part, int N,
-                       int depth, int H, int W, int C, int CO, int KZ,
-                       int splits, cudaStream_t stream) {
+                       int members, int depth, int H, int W, int C, int CO,
+                       int KZ, int splits, cudaStream_t stream) {
   CUtensorMap tmx, tmdy;
-  if (!make_maps(&tmx, &tmdy, x, dy, N, H, W, C, CO,
+  if (!make_maps(&tmx, &tmdy, x, dy, (long long)N * members, H, W, C, CO,
                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, bf::kRow / 2, kBN,
                  false))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -867,8 +885,8 @@ int launch_bf16_zfirst(const void* x, const void* dy, float* part, int N,
   const long long blocks =
       (long long)splits * ((C + kCi - 1) / kCi) * co_tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  wgrad_bf16_zfirst_kernel<<<(unsigned)blocks, bf::kThreads, bf::kSmem,
-                             stream>>>(tmx, tmdy, part, N, depth, C, CO, KZ,
+  wgrad_bf16_zfirst_kernel<<<dim3((unsigned)blocks, members), bf::kThreads,
+                             bf::kSmem, stream>>>(tmx, tmdy, part, N, depth, C, CO, KZ,
                                        co_tiles, tiles_w, n_steps,
                                        steps_per_split);
   return static_cast<int>(cudaGetLastError());
@@ -876,11 +894,11 @@ int launch_bf16_zfirst(const void* x, const void* dy, float* part, int N,
 
 template <int BN>
 int launch_bf16_desc(const void* x, const void* dy, float* part, int N,
-                     int depth, int H, int W, int C, int CO, int KZ,
-                     int splits, cudaStream_t stream) {
+                     int members, int depth, int H, int W, int C, int CO,
+                     int KZ, int splits, cudaStream_t stream) {
   using CF = bd::Cfg<BN>;
   CUtensorMap tmx, tmdy;
-  if (!make_maps(&tmx, &tmdy, x, dy, N, H, W, C, CO,
+  if (!make_maps(&tmx, &tmdy, x, dy, (long long)N * members, H, W, C, CO,
                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, bd::kCiTile, BN, true))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
@@ -895,8 +913,8 @@ int launch_bf16_desc(const void* x, const void* dy, float* part, int N,
   const int co_tiles = (CO + BN - 1) / BN;
   const long long blocks = (long long)splits * KZ * ci_tiles * co_tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  wgrad_bf16_desc_kernel<BN><<<(unsigned)blocks, bd::kThreads, CF::kSmem,
-                               stream>>>(
+  wgrad_bf16_desc_kernel<BN><<<dim3((unsigned)blocks, members),
+                               bd::kThreads, CF::kSmem, stream>>>(
       tmx, tmdy, part, depth, C, CO, KZ, ci_tiles, co_tiles, tiles_w,
       tiles_per_plane, n_tiles, tiles_per_split);
   return static_cast<int>(cudaGetLastError());
@@ -909,8 +927,11 @@ bool misaligned(const void* p) {
 }  // namespace
 
 // x (N, H, W, C) and dy (N, H, W, CO) NHWC, contiguous and 16-byte
-// aligned, CO % 8 == 0; dw (KZ, 3, 3, C, CO) f32; scratch holds splits *
-// KZ*9*C*CO f32 (unused when splits == 1).  `kernel`, as
+// aligned, CO % 8 == 0; planes [m * N / members, (m + 1) * N / members)
+// belong to member m (N / members a multiple of depth); dw (members, KZ, 3,
+// 3, C, CO) f32, dw[m] the gradient of member m's weights; scratch holds
+// members * splits * KZ*9*C*CO f32 (unused when splits == 1).  The splits
+// are those of one member's N / members planes.  `kernel`, as
 // kernels/conv3x3.py::wgrad_kernel names it: 0 f32, 32 output channels a
 // block; 1 f32, 64; 2 bf16 z-first; 3 bf16 by descriptor, 32; 4 the same,
 // 64 (f32 needs C % 8 == 0, bf16 C % 16 == 0).  The blocks are splits x
@@ -922,9 +943,13 @@ bool misaligned(const void* p) {
 // cuTensorMapEncodeTiled refuses).
 extern "C" int dgtta_conv3x3_wgrad_wgmma(const void* x, const void* dy,
                                          void* dw, void* scratch, int N,
-                                         int depth, int H, int W, int C,
-                                         int CO, int KZ, int splits,
-                                         int kernel, void* stream) {
+                                         int members, int depth, int H,
+                                         int W, int C, int CO, int KZ,
+                                         int splits, int kernel,
+                                         void* stream) {
+  if (N <= 0 || members <= 0 || members > 65535 || N % members != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  N /= members;  // one member's planes
   if (N <= 0 || depth <= 0 || N % depth != 0 || H <= 0 || W <= 0 || C <= 0 ||
       kernel < 0 || kernel > 4 || C % (kernel < 2 ? 8 : 16) != 0 ||
       CO <= 0 || CO % 8 != 0 || (KZ != 1 && KZ != 3) || splits <= 0 ||
@@ -937,17 +962,19 @@ extern "C" int dgtta_conv3x3_wgrad_wgmma(const void* x, const void* dy,
   float* part = splits == 1 ? static_cast<float*>(dw)
                             : static_cast<float*>(scratch);
   int (*const launch[5])(const void*, const void*, float*, int, int, int,
-                         int, int, int, int, int, cudaStream_t) = {
+                         int, int, int, int, int, int, cudaStream_t) = {
       launch_f32<32>, launch_f32<64>, launch_bf16_zfirst,
       launch_bf16_desc<32>, launch_bf16_desc<64>};
   const int err =
-      launch[kernel](x, dy, part, N, depth, H, W, C, CO, KZ, splits, s);
+      launch[kernel](x, dy, part, N, members, depth, H, W, C, CO, KZ, splits,
+                     s);
   if (err != 0) return err;
   if (splits > 1) {
-    const long long m = (long long)KZ * 9 * C * CO;
+    const long long m = (long long)KZ * 9 * C * CO, total = m * members;
     const int threads = 256;
-    sum_splits_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0,
-                        s>>>(part, static_cast<float*>(dw), m, splits);
+    sum_splits_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
+                        0, s>>>(part, static_cast<float*>(dw), m, total,
+                                splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

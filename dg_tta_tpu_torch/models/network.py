@@ -107,6 +107,25 @@ class Model:
                    compute_dtype=self.compute_dtype,
                    head_channel_idx=head_channel_idx)
 
+    def apply_members(self, net: PlainConvUNet, params: dict, x: torch.Tensor,
+                      deep_supervision: bool = False, head_channel_idx=None,
+                      mind_noise=None):
+        """`apply` of M ensemble members side by side, at TTA and inference
+        (no internal augmentation): params {name: (M, *shape)}
+        (`unet.stack_members`), x (M * b, D, H, W, C_img) member m's b
+        samples after member m - 1's, `mind_noise` the same rows.  A MIND
+        model takes each member's clip bound over that member's samples
+        (`ops/mind.mind3d(members=)`), as the JAX package's vmap does.
+        `net` gives the architecture; its own weights are not read."""
+        M = next(iter(params.values())).shape[0]
+        if self.uses_mind:
+            x = mind3d(x, noise=mind_noise,
+                       noise_scale=self.mind_noise_scale, members=M)
+        return net.forward_members(params, x,
+                                   deep_supervision=deep_supervision,
+                                   compute_dtype=self.compute_dtype,
+                                   head_channel_idx=head_channel_idx)
+
 
 def build_model(plans: dict, dataset_json: dict, trainer_name: str,
                 configuration: str = "3d_fullres") -> Model:

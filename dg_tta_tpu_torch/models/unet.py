@@ -27,6 +27,21 @@ parameters; `forward` computes on channels-last (B, D, H, W, C) tensors:
 * the conv bias before InstanceNorm is skipped: the norm's mean
   subtraction cancels it exactly;
 * 1x1x1 heads: a matmul, with `head_channel_idx` selecting output classes.
+
+`forward_members` runs the members of an ensemble chunk side by side, as
+the JAX package vmaps them: every parameter carries a leading member axis
+M (`stack_members`), and the batch holds member m's samples after member
+m - 1's.  `torch.func` cannot vmap the kernels' autograd Functions, so the
+member axis is explicit.  Each stride-1 conv is one launch with every
+member's weights (`kernels/conv3x3.py`, each member's planes the bits of
+its own launch).  The operations that sum across a member's positions
+run once per member on that member's samples, as its serial forward runs
+them: the stride-2 convs (cuDNN sees one member's shapes, TF32 off),
+InstanceNorm, the transposed convs and the heads.  A reduction or a
+matmul over the chunk's batch would split its sums by the chunk's size,
+and on the card that moved the members' updates 2-3e-2 of their norm off
+the serial run's (AdamW's sign steps; PERF.md §6).  The serial
+`forward` is the one-member model.
 """
 
 import contextlib
@@ -117,6 +132,13 @@ def _no_tf32():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def _per_member(fn, x, *params):
+    """fn on each member's samples of x with that member's slice of each
+    (M, ...) parameter, the results concatenated in member order."""
+    return torch.cat([fn(xm, *pm) for xm, *pm in
+                      zip(x.chunk(params[0].shape[0]), *params)])
+
+
 class _StridedConv3d(torch.autograd.Function):
     """`F.conv3d` of channels-first x whose forward and backward both run
     with cuDNN's TF32 off (module docstring)."""
@@ -143,8 +165,12 @@ class _StridedConv3d(torch.autograd.Function):
 
 def _conv(x, weight, stride):
     """Bias-free 3D conv of channels-last x with a torch-layout weight
-    (O, I, kd, kh, kw)."""
-    kernel = tuple(weight.shape[2:])
+    (O, I, kd, kh, kw), or with M members' weights (M, O, I, kd, kh, kw)
+    on x of M members' samples, member after member."""
+    kernel = tuple(weight.shape[-3:])
+    if tuple(stride) != (1, 1, 1) and weight.dim() == 6:
+        # once per member: cuDNN sees one member's shapes
+        return _per_member(lambda xm, wm: _conv(xm, wm, stride), x, weight)
     if tuple(stride) != (1, 1, 1):
         # library conv for the strided stage entries, TF32 off (module
         # docstring)
@@ -157,7 +183,8 @@ def _conv(x, weight, stride):
             f"stride-1 conv kernel {kernel}: the conv3x3 kernel takes 3x3 "
             "planes with 1 or 3 z-taps")
     B, D, H, W, C = x.shape
-    wk = weight.permute(2, 3, 4, 1, 0).contiguous()   # (kd, 3, 3, I, O)
+    # ([M,] kd, 3, 3, I, O): one launch with every member's weights
+    wk = weight.movedim((-5, -4), (-1, -2)).contiguous()
     y = conv3x3_op(x.reshape(B * D, H, W, C), wk, depth=D)
     return y.view(B, D, H, W, wk.shape[-1])
 
@@ -207,13 +234,64 @@ class PlainConvUNet(nn.Module):
         return F.leaky_relu(x, self.spec.leaky_slope)
 
     def _head(self, h, seg: nn.Conv3d, dt, head_channel_idx):
-        w = _cast(seg.weight, dt).reshape(seg.out_channels, seg.in_channels)
-        b = _cast(seg.bias, dt)
-        if head_channel_idx is not None:
-            idx = torch.as_tensor([int(i) for i in head_channel_idx],
-                                  dtype=torch.long, device=w.device)
-            w, b = w[idx], b[idx]
-        return h @ w.t() + b
+        return _linear_head(h, _cast(seg.weight, dt), _cast(seg.bias, dt),
+                            head_channel_idx)
+
+    def _block_members(self, x, params, prefix, blk: ConvBlock, dt):
+        x = _conv(x, _cast(params[prefix + ".conv.weight"], dt),
+                  blk.conv.stride)
+        eps = self.spec.norm_eps
+        x = _per_member(lambda xm, s, b: _instance_norm(xm, s, b, eps), x,
+                        _cast(params[prefix + ".norm.weight"], dt),
+                        _cast(params[prefix + ".norm.bias"], dt))
+        return F.leaky_relu(x, self.spec.leaky_slope)
+
+    def _head_members(self, h, params, prefix, dt, head_channel_idx):
+        return _per_member(
+            lambda hm, w, b: _linear_head(hm, w, b, head_channel_idx), h,
+            _cast(params[prefix + ".weight"], dt),
+            _cast(params[prefix + ".bias"], dt))
+
+    def forward_members(self, params: dict, x, deep_supervision: bool = False,
+                        compute_dtype=None,
+                        head_channel_idx: Optional[Sequence[int]] = None):
+        """`forward` of M members side by side (module docstring): params
+        {name: (M, *shape)} for every parameter (`stack_members`); x (M *
+        b, D, H, W, C_in), member m's b samples after member m - 1's.
+        Returns what `forward` returns, member-major along the batch."""
+        dt = resolve_compute_dtype(compute_dtype)
+        if dt is not None:
+            x = x.to(dt)
+        skips = []
+        h = x
+        for s, stage in enumerate(self.encoder.stages):
+            for ci, blk in enumerate(stage[0].convs):
+                h = self._block_members(
+                    h, params, f"encoder.stages.{s}.0.convs.{ci}", blk, dt)
+            skips.append(h)
+
+        dec = self.decoder
+        seg_outputs = []
+        lres = skips[-1]
+        for d in range(len(dec.stages)):
+            h = _per_member(
+                _conv_transpose, lres,
+                _cast(params[f"decoder.transpconvs.{d}.weight"], dt),
+                _cast(params[f"decoder.transpconvs.{d}.bias"], dt))
+            h = torch.cat([h, skips[-(d + 2)]], dim=-1)
+            for ci, blk in enumerate(dec.stages[d].convs):
+                h = self._block_members(
+                    h, params, f"decoder.stages.{d}.convs.{ci}", blk, dt)
+            lres = h
+            if deep_supervision:
+                seg_outputs.append(self._head_members(
+                    h, params, f"decoder.seg_layers.{d}", dt,
+                    head_channel_idx))
+        if deep_supervision:
+            return seg_outputs[::-1]
+        return self._head_members(lres, params,
+                                  f"decoder.seg_layers.{len(dec.stages) - 1}",
+                                  dt, head_channel_idx)
 
     def forward(self, x, deep_supervision: bool = False, compute_dtype=None,
                 head_channel_idx: Optional[Sequence[int]] = None):
@@ -250,6 +328,26 @@ class PlainConvUNet(nn.Module):
 
 def _cast(p, dt):
     return p if dt is None else p.to(dt)
+
+
+def _linear_head(h, weight, bias, head_channel_idx):
+    """A 1x1x1 head (torch's (O, I, 1, 1, 1) weight) on channels-last h, the
+    output classes `head_channel_idx` (None: all)."""
+    w = weight.reshape(weight.shape[0], weight.shape[1])
+    if head_channel_idx is not None:
+        idx = torch.as_tensor([int(i) for i in head_channel_idx],
+                              dtype=torch.long, device=w.device)
+        w, bias = w[idx], bias[idx]
+    return h @ w.t() + bias
+
+
+def stack_members(nets) -> dict:
+    """{name: (M, *shape)}: the parameters of the M networks `nets`
+    stacked along a new leading member axis, as fresh tensors (the input
+    of `forward_members`)."""
+    per = [dict(n.named_parameters()) for n in nets]
+    return {name: torch.stack([p[name].detach() for p in per])
+            for name in per[0]}
 
 
 @torch.no_grad()

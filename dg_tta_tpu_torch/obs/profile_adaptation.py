@@ -5,17 +5,22 @@ default plan through the CLI.
         [--dtype float32|bfloat16 ...]
         [--pretrained TS104_GIN|TS104_GIN_MIND|...]
         [--spatial-aug affine|deformable ...] [--patch-group N ...]
-        [--remat] [--exact-warp-grad] [--trace trace.json] [--no-cli]
+        [--ensemble-chunk M ...] [--remat] [--exact-warp-grad]
+        [--trace trace.json] [--no-cli]
 
 Each combination of `--dtype`, `--spatial-aug` (default: affine;
 `--spatial-aug affine deformable` profiles both back to back, for the
 deformable premium per step and per volume from one call) and
 `--patch-group` (default 1; `--patch-group 1 2 4` folds 1, 2 and 4 patch
-draws into each step, so that one call compares them on one card) runs
-both parts; `--remat` recomputes both branches in the backward
+draws into each step, so that one call compares them on one card) and
+`--ensemble-chunk` (default 1; `--ensemble-chunk 1 3` adapts 1 and 3
+members side by side, `tta/engine.TTAFunctions.chunk_run`) runs both
+parts; `--remat` recomputes both branches in the backward
 (`DGTTA_REMAT`) and `--exact-warp-grad` gives the unwarps their exact
 adjoint (`DGTTA_EXACT_WARP_GRAD`) in both.  The last lines print one
-JSON object per profiled combination (`summary:`):
+JSON object per profiled combination (`summary:`; a combination whose
+step does not fit the card's memory prints that and its summary says
+`out_of_memory`):
 
 1. Profile: the full-width U-Net of `--pretrained` (TS104_GIN by default;
    a MIND family computes its descriptor in every forward; 105 classes,
@@ -29,13 +34,15 @@ JSON object per profiled combination (`summary:`):
    stream, so device intervals do not overlap), the device kernels per
    step and per draw (every kernel the profiler saw, library ones
    included), the launches of the port's kernels and the peak device
-   memory.
+   memory.  With M members side by side a step takes each member's draws,
+   and the time per member-draw is the wall time over DRAWS x M.
 2. CLI (unless --no-cli): `prepare_tta` and `run_tta` of the default
    TEMPLATE_PLAN (12 epochs x 16 patches x 3 members; the plan's
    patch_group and remat set as given) on the synthetic workspace of
    `obs/synthetic.py`, with no member files, in `--dtype`
-   (`DGTTA_COMPUTE_DTYPE`, and `DGTTA_EXACT_WARP_GRAD` with
-   `--exact-warp-grad`, are set for the call and restored after it);
+   (`DGTTA_COMPUTE_DTYPE`, `DGTTA_ENSEMBLE_CHUNK`, and
+   `DGTTA_EXACT_WARP_GRAD` with `--exact-warp-grad`, are set for the call
+   and restored after it);
    prints the phases of `timings.json`, tta_sec_per_volume (adaptation +
    inference), the peak device memory, the members' final losses and the
    kernels' launches per route.
@@ -86,8 +93,10 @@ def _trainer(pretrained):
 
 def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
                   spatial_aug="affine", exact=False, patch_group=1,
-                  remat=False):
-    """Profile one epoch of DRAWS patch draws; returns its summary."""
+                  remat=False, chunk=1):
+    """Profile one epoch of DRAWS patch draws of `chunk` members side by
+    side; returns its summary."""
+    from dg_tta_tpu_torch.models.unet import stack_members
     from dg_tta_tpu_torch.obs.profile_inference import seeded_net, ts104_model
     from dg_tta_tpu_torch.obs.synthetic import synthetic_ct
     from dg_tta_tpu_torch.tta.draws import TorchDraws
@@ -105,7 +114,13 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
                    spatial_aug_type=spatial_aug)
     steps = DRAWS // patch_group
     net = seeded_net(model, 0, device)
-    opt = make_optimizer(plan, list(net.parameters()))
+    # one member: its own network; several: their stacked weights
+    params, member = None, 0
+    leaves = list(net.parameters())
+    if chunk > 1:
+        params, member = stack_members([net] * chunk), list(range(chunk))
+        leaves = [p.requires_grad_(True) for p in params.values()]
+    opt = make_optimizer(plan, leaves)
     vol, _ = synthetic_ct(np.random.default_rng(0), VOLUME_SHAPE)
     # a CT-like scale: the preprocessing maps HU to roughly unit variance
     vols = torch.from_numpy(vol.astype(np.float32) / 500.0)[None, ..., None]
@@ -116,7 +131,7 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
                              patch_group=patch_group, remat=remat)
     draws = TorchDraws(seed=0)
 
-    fns.epoch_train(net, opt, draws, 0, 0, vols, shapes)
+    fns.epoch_train(net, opt, draws, member, 0, vols, shapes, params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
@@ -125,7 +140,8 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        loss = fns.epoch_train(net, opt, draws, 0, 1, vols, shapes)
+        loss = fns.epoch_train(net, opt, draws, member, 1, vols, shapes,
+                               params)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -138,18 +154,21 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
     busy = sum(per_name.values())
     kernels = sum(counts.values())
     launches = {k: c.launches - before[k] for k, c in counters.items()}
+    losses = loss.reshape(-1).tolist()
     print(f"profile: device {torch.cuda.get_device_name(0)}; {pretrained}; "
           f"{spatial_aug}{' exact warp gradient' if exact else ''}; "
           f"{dtype}; patch_group {patch_group}{'; remat' if remat else ''}; "
-          f"one epoch of {DRAWS} patch draws in {steps} trained steps "
-          f"(batch {2 * patch_group} x 112x112x128: both branches) + AdamW;"
-          f" loss {float(loss):.5f}")
+          f"{chunk} member(s) side by side; one epoch of {DRAWS} patch "
+          f"draws a member in {steps} trained steps (batch "
+          f"{2 * patch_group * chunk} x 112x112x128: both branches) + "
+          f"AdamW; loss {losses}")
     print(f"profile: wall {wall * 1e3:.1f} ms = {wall * 1e3 / steps:.1f} "
-          f"ms/step = {wall * 1e3 / DRAWS:.1f} ms/draw (profiled), device "
-          f"busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
-          f"device kernels per step {kernels / steps:.1f} = per draw "
-          f"{kernels / DRAWS:.1f}, peak device memory {peak:.2f} GiB, "
-          f"launches {launches}")
+          f"ms/step = {wall * 1e3 / (DRAWS * chunk):.1f} ms/member-draw "
+          f"(profiled), device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / (wall * 1e3):.3f}, device kernels per step "
+          f"{kernels / steps:.1f} = per member-draw "
+          f"{kernels / (DRAWS * chunk):.1f}, peak device memory "
+          f"{peak:.2f} GiB, launches {launches}")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"{ms:10.1f} ms {100 * ms / busy:5.1f}% x{counts[name]:<6d} "
               f"{name[:110]}")
@@ -158,16 +177,17 @@ def profile_steps(dtype, trace=None, pretrained="TS104_GIN",
     return {"dtype": dtype, "pretrained": pretrained,
             "spatial_aug": spatial_aug, "exact": exact,
             "patch_group": patch_group, "remat": remat,
-            "ms_per_step": wall * 1e3 / steps, "ms_per_draw": wall * 1e3 / DRAWS,
+            "ensemble_chunk": chunk, "ms_per_step": wall * 1e3 / steps,
+            "ms_per_member_draw": wall * 1e3 / (DRAWS * chunk),
             "idle_share": 1 - busy / (wall * 1e3),
             "kernels_per_step": kernels / steps,
-            "kernels_per_draw": kernels / DRAWS, "peak_gib": peak,
-            "loss": float(loss)}
+            "kernels_per_member_draw": kernels / (DRAWS * chunk),
+            "peak_gib": peak, "launches": launches, "loss": losses}
 
 
 def run_default_plan(dtype="float32", pretrained="TS104_GIN",
                      spatial_aug="affine", exact=False, patch_group=1,
-                     remat=False):
+                     remat=False, chunk=1):
     from dg_tta_tpu_torch.cli.main import main as cli
     from dg_tta_tpu_torch.obs.synthetic import edit_plan, make_workspace
 
@@ -182,8 +202,10 @@ def run_default_plan(dtype="float32", pretrained="TS104_GIN",
         torch.cuda.reset_peak_memory_stats()
         before = _route_counts()
         saved = {k: os.environ.pop(k, None) for k in (
-            "DGTTA_COMPUTE_DTYPE", "DGTTA_EXACT_WARP_GRAD")}
+            "DGTTA_COMPUTE_DTYPE", "DGTTA_EXACT_WARP_GRAD",
+            "DGTTA_ENSEMBLE_CHUNK")}
         os.environ["DGTTA_COMPUTE_DTYPE"] = dtype
+        os.environ["DGTTA_ENSEMBLE_CHUNK"] = str(chunk)
         if exact:
             os.environ["DGTTA_EXACT_WARP_GRAD"] = "1"
         try:
@@ -209,7 +231,7 @@ def run_default_plan(dtype="float32", pretrained="TS104_GIN",
     print(f"cli: {pretrained} default plan, {spatial_aug}"
           f"{' exact warp gradient' if exact else ''}"
           f"{' remat' if remat else ''} patch_group {patch_group} "
-          f"({plan['epochs']} epochs x "
+          f"ensemble_chunk {chunk} ({plan['epochs']} epochs x "
           f"{plan['patches_to_be_accumulated']} patches x "
           f"{plan['ensemble_count']} members, {dtype}) on "
           f"{timings['device']}: "
@@ -234,6 +256,7 @@ def main(argv=None):
     p.add_argument("--spatial-aug", nargs="+", default=["affine"],
                    choices=["affine", "deformable"])
     p.add_argument("--patch-group", nargs="+", type=int, default=[1])
+    p.add_argument("--ensemble-chunk", nargs="+", type=int, default=[1])
     p.add_argument("--remat", action="store_true")
     p.add_argument("--exact-warp-grad", action="store_true")
     p.add_argument("--trace", default=None)
@@ -243,18 +266,34 @@ def main(argv=None):
     if bad:
         p.error(f"--patch-group must divide {DRAWS}, got {bad}")
     resolve_device("cuda")
-    combos = [(dt, aug, g) for dt in args.dtype for aug in args.spatial_aug
-              for g in args.patch_group]
+    if any(m < 1 for m in args.ensemble_chunk):
+        p.error(f"--ensemble-chunk must be >= 1, got {args.ensemble_chunk}")
+    combos = [(dt, aug, g, m) for dt in args.dtype
+              for aug in args.spatial_aug for g in args.patch_group
+              for m in args.ensemble_chunk]
     summaries = []
-    for dt, aug, g in combos:
+    for dt, aug, g, m in combos:
         trace = args.trace
         if trace and len(combos) > 1:   # one file per combination
-            trace = str(Path(trace).with_suffix(f".{dt}_{aug}_g{g}.json"))
-        summaries.append(profile_steps(dt, trace, args.pretrained, aug,
-                                       args.exact_warp_grad, g, args.remat))
+            trace = str(Path(trace).with_suffix(
+                f".{dt}_{aug}_g{g}_m{m}.json"))
+        try:
+            summaries.append(profile_steps(dt, trace, args.pretrained, aug,
+                                           args.exact_warp_grad, g,
+                                           args.remat, m))
+        except torch.cuda.OutOfMemoryError as e:
+            # a combination that does not fit the card is a result too
+            print(f"profile: {dt} patch_group {g} ensemble_chunk {m} does "
+                  f"not fit the card: {str(e).splitlines()[0]}")
+            summaries.append({"dtype": dt, "spatial_aug": aug,
+                              "patch_group": g, "ensemble_chunk": m,
+                              "out_of_memory": True})
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.empty_cache()
         if not args.no_cli:
             run_default_plan(dt, args.pretrained, aug, args.exact_warp_grad,
-                             g, args.remat)
+                             g, args.remat, m)
     for s in summaries:
         print("summary: " + json.dumps(s))
 

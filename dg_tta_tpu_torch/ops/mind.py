@@ -93,12 +93,21 @@ def smooth3d(img: torch.Tensor, sigma: float) -> torch.Tensor:
 
 
 def mind3d(img: torch.Tensor, noise=None, delta: int = 1, sigma: float = 1.0,
-           noise_scale: float = 0.05, group=None) -> torch.Tensor:
+           noise_scale: float = 0.05, group=None,
+           members=None) -> torch.Tensor:
     """The 12-channel MIND-SSC descriptor of (B, D, H, W, 1) `img`, in
     (0, 1], (B, D, H, W, 12).  `noise`: standard-normal draws of shape
     (B, D, H, W, 12), added to the edge maps times `noise_scale`; None
     (or noise_scale 0) adds none.  `group`: the process group of a
-    data-parallel step (module docstring), None for one process."""
+    data-parallel step (module docstring), None for one process.
+    `members` M: img (and noise) hold M ensemble members' samples, member
+    after member, and each member's descriptor is computed on its own
+    samples, its clip bound the mean over them (the JAX package's vmap
+    over members)."""
+    if members is not None:
+        noises = [None] * members if noise is None else noise.chunk(members)
+        return torch.cat([mind3d(x, n, delta, sigma, noise_scale, group)
+                          for x, n in zip(img.chunk(members), noises)])
     B, D, H, W, C = img.shape
     if C != 1:
         raise ValueError(f"MIND expects a single-channel volume, got "

@@ -12,7 +12,8 @@ whole adaptation, so the unit of work is a whole member's run
 evaluation), and those builders fold into the two below:
 
 * `sharded_member_run` (`make_sharded_member_run`): the members of one
-  chunk on the same volumes, a contiguous block of them per rank;
+  chunk on the same volumes, a contiguous block of them per rank, side by
+  side where a rank holds more than one (`TTAFunctions.run`);
 * `sharded_stream_run` (`make_sharded_stream_train` and
   `make_sharded_stream_eval`): S streams, each a member on its own
   volumes, a contiguous block of them per rank.
@@ -71,9 +72,10 @@ def sharded_member_run(fns, net0, draw_source, ids, vols, shapes,
                        return_nets: bool = True) -> Optional[list]:
     """Adapt the members `ids` of one chunk, `ranks` ranks (default all)
     taking a contiguous block each; the other ranks of the group take
-    none.  Each rank runs `fns.member_run(net0, draw_source, m, vols,
-    shapes, labels, log_fn)` for its members one after another, and
-    `save_member_fn(m, net, losses, dices)` as each finishes.  Returns, on
+    none.  Each rank runs its block through `fns.run(net0, draw_source,
+    block, vols, shapes, labels, log_fn)` (side by side where it holds
+    more than one member), then `save_member_fn(m, net, losses, dices)`
+    for each of them in order.  Returns, on
     rank 0, [(member, state_dict on the CPU or None without
     `return_nets`, losses (epochs,), dices (epochs,))] in `ids` order;
     None on the other ranks."""
@@ -85,14 +87,15 @@ def sharded_member_run(fns, net0, draw_source, ids, vols, shapes,
     rank = dist.get_rank()
     done = []
     if rank < ranks:
-        for i, m in shard(list(enumerate(ids)), rank, ranks):
-            net, lm, dm = fns.member_run(net0, draw_source, m, vols, shapes,
-                                         labels, log_fn)
+        block = shard(list(enumerate(ids)), rank, ranks)
+        runs = fns.run(net0, draw_source, [m for _, m in block], vols, shapes,
+                       labels, log_fn)
+        for (i, m), (net, lm, dm) in zip(block, runs):
             if save_member_fn is not None:
                 save_member_fn(m, net, lm, dm)
             done.append((i, m, _state_cpu(net) if return_nets else None, lm,
                          dm))
-            del net
+        del runs
     return _gather(done, len(ids))
 
 

@@ -34,7 +34,9 @@ draws.
 draws of one grouped step, in the forward's layout: `TorchDraws` gives
 group-g step s the draws of its ungrouped steps g*s .. g*s + g - 1, so a
 grouped run adapts on exactly the patches and augmentations of the
-ungrouped one.
+ungrouped one.  `member_draws` concatenates the draws of one step of each
+member of an ensemble chunk into the draws of the chunk's one step, in
+the side-by-side forward's layout (member after member).
 """
 
 import dataclasses
@@ -112,6 +114,36 @@ def group_draws(parts: list) -> PatchDraws:
         mind_noise=None if first.mind_noise is None else mind,
         field_a=None if first.field_a is None else field("field_a"),
         field_b=None if first.field_b is None else field("field_b"))
+
+
+def member_draws(parts: list) -> PatchDraws:
+    """One step of an ensemble chunk's members side by side, from each
+    member's draws of that step (`parts`, in member order): the per-patch
+    arrays and GIN nets of each member in turn; the MIND noise of the one
+    forward as each member's rows of both branches in turn (the forward
+    holds member m's 2B patches after member m - 1's); each branch's field
+    noise as each member's rows in turn."""
+    if len(parts) == 1:
+        return parts[0]
+    M = len(parts)
+
+    def cat(key):
+        return np.concatenate([getattr(p, key) for p in parts])
+
+    def rows(key):
+        def draw(shape, device):
+            return torch.cat([getattr(p, key)((shape[0] // M, *shape[1:]),
+                                              device) for p in parts])
+        return draw
+
+    first = parts[0]
+    return PatchDraws(
+        vol_idx=cat("vol_idx"), uniforms=cat("uniforms"),
+        noise_a=cat("noise_a"), noise_b=cat("noise_b"),
+        gin_a=_cat_gin([p.gin_a for p in parts]),
+        gin_b=_cat_gin([p.gin_b for p in parts]),
+        **{key: None if getattr(first, key) is None else rows(key)
+           for key in ("mind_noise", "field_a", "field_b")})
 
 
 class TorchDraws:

@@ -16,9 +16,12 @@ line and writes no plot).  With several GPUs (all the visible ones;
 `CUDA_VISIBLE_DEVICES` restricts them, `num_devices` sets the number)
 the plan's `ensemble_chunk` (default: as many members as GPUs, for a
 full-size patch; `DGTTA_ENSEMBLE_CHUNK` overrides it) spreads each chunk
-of members over one process per GPU (`adapt_samples`); on one GPU they
-run one after another (side by side on one GPU, as the JAX package vmaps
-a chunk, would need per-member weights in one conv launch: not ported).
+of members over one process per GPU (`adapt_samples`).  On one GPU a
+chunk of more than one member runs side by side, as the JAX package vmaps
+a chunk (`tta/engine.TTAFunctions.chunk_run`: one sequence of launches,
+each conv launch reading each member's weights); the default leaves a
+full-size patch at one member a chunk there, so `DGTTA_ENSEMBLE_CHUNK=3`
+(or the plan's `ensemble_chunk`) asks for three side by side.
 Phase 2 predicts each sample with its members and Phase 3 evaluates
 against the labels, both here on the first device, as in the JAX
 driver.
@@ -312,7 +315,8 @@ def adapt_samples(plan: TTAPlan, samples: List[TTASample], model, net,
 
     The plan's `ensemble_chunk` decides, with `num_devices`, how members
     spread over ranks (`parallel/tta.member_chunks`).  With one rank the
-    members adapt here, one after another.  With more, one launch of the
+    members adapt here, chunk after chunk, a chunk's members side by side
+    (`engine.tta_one_volume`).  With more, one launch of the
     engine's sharded worker (`engine.adapt_sharded`; `backend`: as in
     `engine.tta_one_volume`) runs every group: each rank loads the model
     and the groups' volumes on its device, reloads the modifier functions

@@ -58,11 +58,16 @@ The split engine (a TPU dispatch workaround) raises
 `ensemble_chunk` runs the members in chunks, as the JAX package does.  A
 chunk of size > 1 with more than one device spreads over
 `parallel/mesh.ranks_for(chunk, devices)` processes, one device each, a
-contiguous block of members each (`parallel/tta.sharded_member_run`); a
-chunk those do not divide, and every chunk on one device, runs its
-members one after another.  Side by side on one device, as the JAX
-package vmaps a chunk, is not ported: it needs per-member weights in one
-conv launch (ROADMAP A.6).
+contiguous block of members each (`parallel/tta.sharded_member_run`).  A
+chunk on one device (or a rank's block of it) runs its members side by
+side, as the JAX package vmaps a chunk (`TTAFunctions.chunk_run`): one
+sequence of launches adapts them all, every parameter carrying a leading
+member axis (`models/unet.stack_members`), each conv launch reading each
+member's own weights (`kernels/conv3x3.py`).  No member's math changes:
+each keeps its own patches and draws, its MIND clip bound and loss guard
+over its own patches, its own gradient (the chunk's loss is the sum of
+its members'), and its own AdamW (one optimizer over the stacked leaves:
+the update is elementwise).  A chunk of one member runs `member_run`.
 """
 
 import copy
@@ -82,11 +87,13 @@ from dg_tta_tpu_torch.core.patches import extract_batch
 from dg_tta_tpu_torch.kernels.warp import (warp_affine_flat, warp_affine_op,
                                            warp_flat, warp_flat_op)
 from dg_tta_tpu_torch.models.network import Model
+from dg_tta_tpu_torch.models.unet import stack_members
 from dg_tta_tpu_torch.ops.gin import gin_aug
 from dg_tta_tpu_torch.ops.mind import MIND_OUT_CHANNELS
 from dg_tta_tpu_torch.parallel.mesh import (default_backend, launch,
                                             visible_devices)
 from dg_tta_tpu_torch.parallel.tta import member_chunks, sharded_member_run
+from dg_tta_tpu_torch.tta.draws import member_draws
 from dg_tta_tpu_torch.tta.plan import TTAPlan
 
 
@@ -208,7 +215,20 @@ class TTAFunctions:
     #                           shapes, labels) -> mean Dice
     member_run: Callable     # (net, draws, member, vols, shapes[, labels,
     #                           log_fn]) -> (net, losses, dices)
+    chunk_run: Callable      # (net, draws, members, vols, shapes[, labels,
+    #                           log_fn]) -> [(net, losses, dices)]
     grads_enabled: bool
+
+    def run(self, net0, draw_source, members, vols, shapes, labels=None,
+            log_fn=None) -> list:
+        """[(adapted network, losses, dices)] of `members` on one device,
+        in order: side by side (`chunk_run`), or `member_run` for one."""
+        members = list(members)
+        if len(members) == 1:
+            return [self.member_run(net0, draw_source, members[0], vols,
+                                    shapes, labels, log_fn)]
+        return self.chunk_run(net0, draw_source, members, vols, shapes,
+                              labels, log_fn)
 
 
 def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
@@ -228,7 +248,6 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
     check_supported(plan)
     group = check_patch_group(plan, patch_group)
     patch_size = tuple(model.patch_size)
-    B = plan.batch_size * group
     B_eval = plan.batch_size
     n_acc = plan.patches_to_be_accumulated // group
     map_pre = [int(i) for i in np.asarray(map_idxs_pretrain).tolist()]
@@ -238,7 +257,6 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         b for b in ("branch_a", "branch_b")
         if plan.intensity_aug_function == "GIN"
         and _in_branch(plan.do_intensity_aug_in, b))
-    mind_shape = (2 * B, *patch_size, MIND_OUT_CHANNELS)
 
     def patch_draws(draw_source, member, epoch, step, vols):
         return draw_source.patch(member, epoch, step, vols.shape[0],
@@ -249,26 +267,38 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
     # the deformable fields' interpolation factor (JAX engine.py:281-285)
     # and the noise it takes per branch, (B, D//f, H//f, W//f, 3)
     field_factor = 5
-    field_shape = (B, *(s // field_factor for s in patch_size), 3)
 
-    def branch_aug(draws, imgs, branch_id):
+    def branch_aug(draws, imgs, branch_id, members=1):
         """One branch's input augmentation: GIN where the plan puts it in
         this branch, then the warp; returns the augmented input and what
         undoes the warp, or None: ("affine", theta, theta_inv, adjoint
-        scale) or ("grid", grid, grid_inv)."""
+        scale) or ("grid", grid, grid_inv).  With `members` > 1 (imgs and
+        draws a chunk's, member after member) GIN and the deformable
+        fields run once per member, as in each member's own run."""
         a = branch_id == "branch_a"
         if branch_id in gin_branches:
-            imgs = gin_aug(imgs, draws.gin_a if a else draws.gin_b)
+            gin = draws.gin_a if a else draws.gin_b
+            n = imgs.shape[0] // members
+            imgs = gin_aug(imgs, gin) if members == 1 else torch.cat(
+                [gin_aug(imgs[i:i + n], gin.rows(i, i + n))
+                 for i in range(0, imgs.shape[0], n)])
         if not _in_branch(plan.do_spatial_aug_in, branch_id):
             return imgs, None
         Bi, Cin = imgs.shape[0], imgs.shape[-1]
         xf = imgs.movedim(-1, 1).reshape(Bi, Cin, -1).contiguous()
         if deformable:
+            field_shape = (Bi, *(s // field_factor for s in patch_size), 3)
             noise = (draws.field_a if a else draws.field_b)(field_shape,
                                                            imgs.device)
-            grid, grid_inv = deformable_grids(
-                noise, patch_size, factor=0.5,
-                interpolation_factor=field_factor)
+            # a chunk's fields member by member, as a member's own run
+            # builds them (their smoothing convs sum in another order at
+            # another batch)
+            grids = [deformable_grids(n, patch_size, factor=0.5,
+                                      interpolation_factor=field_factor)
+                     for n in noise.chunk(members)]
+            grid, grid_inv = grids[0] if members == 1 else (
+                tuple(torch.cat(c) for c in zip(*[g[k] for g in grids]))
+                for k in (0, 1))
             xf = warp_flat(xf, patch_size, grid, padding_mode="border")
             ctx = ("grid", grid, grid_inv)
         else:
@@ -303,56 +333,96 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         return _warp_with_inverse(logits_flat, theta_inv, theta, adj_scale,
                                   patch_size, "zeros")
 
-    def both_branches_once(net, draws, imgs):
+    def apply(net, x, noise, params=None):
+        """The model on x: `net` alone, or with `params` the members'
+        stacked weights side by side (x member after member)."""
+        if params is None:
+            return model.apply(net, x, head_channel_idx=map_pre,
+                               mind_noise=noise)
+        return model.apply_members(net, params, x, head_channel_idx=map_pre,
+                                   mind_noise=noise)
+
+    def both_branches_once(net, draws, imgs, params=None):
         """Both branches through one network forward of batch 2B; returns
-        the unwarped channels-first flat (B, n_opt, N) logits of each."""
-        xa, ctx_a = branch_aug(draws, imgs, "branch_a")
-        xb, ctx_b = branch_aug(draws, imgs, "branch_b")
-        x = torch.cat([xa, xb], dim=0)
+        the unwarped channels-first flat (B, n_opt, N) logits of each.
+        With `params` (M members' stacked weights), imgs are M members' B
+        patches each, member after member, and the forward holds member
+        m's 2B patches (branch a, then b) after member m - 1's."""
+        M = 1 if params is None else next(iter(params.values())).shape[0]
+        xa, ctx_a = branch_aug(draws, imgs, "branch_a", M)
+        xb, ctx_b = branch_aug(draws, imgs, "branch_b", M)
+        if M == 1:
+            x = torch.cat([xa, xb], dim=0)
+        else:
+            x = torch.stack([xa.unflatten(0, (M, -1)),
+                             xb.unflatten(0, (M, -1))], dim=1).flatten(0, 2)
         if modify_input_fn is not None:
             x = modify_input_fn(x)
-        noise = (draws.mind_noise(mind_shape, x.device)
+        noise = (draws.mind_noise((x.shape[0], *patch_size,
+                                   MIND_OUT_CHANNELS), x.device)
                  if model.needs_mind_noise else None)
-        logits = model.apply(net, x, head_channel_idx=map_pre,
-                             mind_noise=noise)
+        logits = apply(net, x, noise, params)
         if modify_output_fn is not None:
             logits = modify_output_fn(logits)
-        lf = logits.movedim(-1, 1).reshape(2 * B, n_opt, -1).contiguous()
-        return (branch_unwarp_flat(lf[:B], ctx_a),
-                branch_unwarp_flat(lf[B:], ctx_b))
+        Bi = imgs.shape[0] // M
+        lf = logits.movedim(-1, 1).reshape(M, 2, Bi, n_opt, -1)
+        la, lb = (lf[:, i].reshape(M * Bi, n_opt, -1).contiguous()
+                  for i in (0, 1))
+        return branch_unwarp_flat(la, ctx_a), branch_unwarp_flat(lb, ctx_b)
 
-    def both_branches(net, draws, imgs):
+    def both_branches(net, draws, imgs, params=None):
         """`both_branches_once`; with `remat` (and a gradient to take)
         recomputed in the backward."""
         if remat and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(
-                both_branches_once, net, draws, imgs, use_reentrant=False)
-        return both_branches_once(net, draws, imgs)
+                both_branches_once, net, draws, imgs, params,
+                use_reentrant=False)
+        return both_branches_once(net, draws, imgs, params)
 
-    def patch_loss(net, draws, imgs):
-        la, lb = both_branches(net, draws, imgs)
-        return consistency_loss_flat(la, lb, start_class=1)
+    def patch_loss(net, draws, imgs, params=None):
+        """The loss; with `params`, each member's, (M,)."""
+        la, lb = both_branches(net, draws, imgs, params)
+        if params is None:
+            return consistency_loss_flat(la, lb, start_class=1)
+        M = next(iter(params.values())).shape[0]
+        return consistency_loss_flat(la, lb, start_class=1, members=M)
 
-    def draw_and_loss(net, draws, vols, shapes):
+    def draw_and_loss(net, draws, vols, shapes, params=None):
         imgs, _ = extract_batch(draws.vol_idx, draws.uniforms, vols, shapes,
-                                patch_size, B)
-        return patch_loss(net, draws, imgs)
+                                patch_size, len(draws.vol_idx))
+        return patch_loss(net, draws, imgs, params)
 
-    def epoch_train(net, opt, draw_source, member, epoch, vols, shapes):
+    def step_draws(draw_source, member, epoch, step, vols, params):
+        """A step's draws of member `member`, or with `params` those of the
+        members `member` side by side (`member_draws`)."""
+        if params is None:
+            return patch_draws(draw_source, member, epoch, step, vols)
+        return member_draws([patch_draws(draw_source, m, epoch, step, vols)
+                             for m in member])
+
+    def zero_losses(member, params, device):
+        return torch.zeros(() if params is None else len(member),
+                           device=device)
+
+    def epoch_train(net, opt, draw_source, member, epoch, vols, shapes,
+                    params=None):
         """n_acc patch steps (of B patches each), their summed gradient
         over n_acc, one AdamW step.  Returns the mean loss (a 0-d
-        tensor)."""
-        params = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
+        tensor).  With `params`, the stacked weights of the members
+        `member` (a list), their steps side by side: the sum of their
+        losses is differentiated, so each member's gradient is its own;
+        returns each member's mean loss, (M,)."""
+        leaves = [p for g in opt.param_groups for p in g["params"]]
+        for p in leaves:
             p.grad = None
-        loss_sum = torch.zeros((), device=vols.device)
+        loss_sum = zero_losses(member, params, vols.device)
         for step in range(n_acc):
-            d = patch_draws(draw_source, member, epoch, step, vols)
-            loss = draw_and_loss(net, d, vols, shapes)
-            loss.backward()
+            d = step_draws(draw_source, member, epoch, step, vols, params)
+            loss = draw_and_loss(net, d, vols, shapes, params)
+            loss.sum().backward()
             loss_sum = loss_sum + loss.detach()
         with torch.no_grad():
-            for p in params:
+            for p in leaves:
                 # the JAX package's gradient of an unused parameter (the
                 # conv bias before InstanceNorm, the deep-supervision heads)
                 # is zero, and AdamW still decays it
@@ -364,51 +434,66 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         return loss_sum / n_acc
 
     @torch.no_grad()
-    def epoch_fwd(net, draw_source, member, epoch, vols, shapes):
-        loss_sum = torch.zeros((), device=vols.device)
+    def epoch_fwd(net, draw_source, member, epoch, vols, shapes,
+                  params=None):
+        """The mean loss of an epoch's steps without an update; members
+        side by side as in `epoch_train`."""
+        loss_sum = zero_losses(member, params, vols.device)
         for step in range(n_acc):
-            d = patch_draws(draw_source, member, epoch, step, vols)
-            loss_sum = loss_sum + draw_and_loss(net, d, vols, shapes)
+            d = step_draws(draw_source, member, epoch, step, vols, params)
+            loss_sum = loss_sum + draw_and_loss(net, d, vols, shapes, params)
         return loss_sum / n_acc
 
     @torch.no_grad()
     def eval_step(net, draw_source, member, epoch, rep, vols, shapes,
-                  labels):
+                  labels, params=None):
         """Centre-patch Dice against the ground truth (tta.py:283-338 of
-        the reference), nanmean over the foreground classes."""
-        idx = draw_source.eval_volumes(member, epoch, rep, vols.shape[0],
-                                       B_eval)
+        the reference), nanmean over the foreground classes.  With
+        `params`, the members `member` side by side, each on its own
+        patches and noise: each member's Dice, (M,)."""
+        members = [member] if params is None else list(member)
+        idx = np.concatenate([
+            draw_source.eval_volumes(m, epoch, rep, vols.shape[0], B_eval)
+            for m in members])
         imgs, labs = extract_batch(idx, None, vols, shapes, patch_size,
-                                   B_eval, labels_padded=labels, fixed=True)
+                                   len(idx), labels_padded=labels,
+                                   fixed=True)
         if modify_input_fn is not None:
             imgs = modify_input_fn(imgs)
-        noise = (draw_source.eval_mind_noise(
-            member, epoch, rep, (B_eval, *patch_size, MIND_OUT_CHANNELS),
-            imgs.device) if model.needs_mind_noise else None)
-        logits = model.apply(net, imgs, head_channel_idx=map_pre,
-                             mind_noise=noise)
+        noise = (torch.cat([draw_source.eval_mind_noise(
+            m, epoch, rep, (B_eval, *patch_size, MIND_OUT_CHANNELS),
+            imgs.device) for m in members])
+            if model.needs_mind_noise else None)
+        logits = apply(net, imgs, noise, params)
         if modify_output_fn is not None:
             logits = modify_output_fn(logits)
         pred = logits.argmax(dim=-1)
         gt = map_label_argmaxed(labs[..., 0].long(), map_idxs_tta)
-        return torch.nanmean(dice_coeff(pred, gt, n_opt))
+        dices = [torch.nanmean(dice_coeff(p, g, n_opt)) for p, g in
+                 zip(pred.chunk(len(members)), gt.chunk(len(members)))]
+        return dices[0] if params is None else torch.stack(dices)
 
     n_ep, start_ep = int(plan.epochs), int(plan.start_tta_at_epoch)
 
-    def member_run(net0, draw_source, member, vols, shapes, labels=None,
-                   log_fn=None):
-        """One member's adaptation of a copy of `net0`.  Returns the
-        adapted network and the per-epoch losses and Dices ((epochs,)
-        numpy arrays; Dice NaN without labels).  log_fn(member, epoch,
-        loss, dice) runs after every epoch."""
-        net = copy.deepcopy(net0)
+    def released_optimizer(net, named):
+        """AdamW over the tensors of `named` ((name, tensor) pairs of
+        `net`'s parameter names) that the plan releases; each takes a
+        gradient where released."""
         mask = params_with_grad_mask(net, plan.params_with_grad)
         released = []
-        for name, p in net.named_parameters():
+        for name, p in named:
             p.requires_grad_(grads_enabled and mask[name])
             if mask[name]:
                 released.append(p)
-        opt = make_optimizer(plan, released)
+        return make_optimizer(plan, released)
+
+    def run_epochs(net, opt, draw_source, member, vols, shapes, labels,
+                   log_fn, params=None):
+        """Every epoch's training or warm-up and evaluation; log_fn(member,
+        epoch, loss, dice) after each epoch, for each member in order.
+        Returns the per-epoch losses and Dices, (epochs, members) numpy
+        arrays (Dice NaN without labels)."""
+        members = [member] if params is None else list(member)
         # repeats differ only by the volume draw or the MIND noise; with
         # neither, one evaluation is their mean
         deterministic = vols.shape[0] == 1 and not model.needs_mind_noise
@@ -417,29 +502,66 @@ def make_tta_functions(model: Model, plan: TTAPlan, map_idxs_pretrain,
         for ep in range(n_ep):
             if grads_enabled and ep >= start_ep:
                 loss = epoch_train(net, opt, draw_source, member, ep, vols,
-                                   shapes)
+                                   shapes, params)
             else:
-                loss = epoch_fwd(net, draw_source, member, ep, vols, shapes)
+                loss = epoch_fwd(net, draw_source, member, ep, vols, shapes,
+                                 params)
             if labels is None:
-                dice = float("nan")
+                dice = [float("nan")] * len(members)
             else:
-                dice = float(torch.stack([
+                dice = torch.stack([
                     eval_step(net, draw_source, member, ep, r, vols, shapes,
-                              labels) for r in range(eval_reps)]).mean())
-            losses.append(float(loss))
+                              labels, params)
+                    for r in range(eval_reps)]).mean(dim=0).reshape(-1) \
+                    .tolist()
+            losses.append(loss.reshape(-1).tolist())
             dices.append(dice)
             if log_fn is not None:
-                log_fn(member, ep, losses[-1], dice)
+                for m, lm, dm in zip(members, losses[-1], dice):
+                    log_fn(m, ep, lm, dm)
+        return (np.asarray(losses, np.float32).reshape(n_ep, len(members)),
+                np.asarray(dices, np.float32).reshape(n_ep, len(members)))
+
+    def member_run(net0, draw_source, member, vols, shapes, labels=None,
+                   log_fn=None):
+        """One member's adaptation of a copy of `net0`.  Returns the
+        adapted network and the per-epoch losses and Dices ((epochs,)
+        numpy arrays; Dice NaN without labels).  log_fn(member, epoch,
+        loss, dice) runs after every epoch."""
+        net = copy.deepcopy(net0)
+        opt = released_optimizer(net, net.named_parameters())
+        losses, dices = run_epochs(net, opt, draw_source, member, vols,
+                                   shapes, labels, log_fn)
         for p in net.parameters():
             p.requires_grad_(True)
-        return (net, np.asarray(losses, np.float32),
-                np.asarray(dices, np.float32))
+        return net, losses[:, 0], dices[:, 0]
+
+    def chunk_run(net0, draw_source, members, vols, shapes, labels=None,
+                  log_fn=None):
+        """The members `members` of a chunk adapted side by side, each from
+        a copy of `net0`'s weights (module docstring).  Returns [(adapted
+        network, losses, dices)] in member order, as `member_run` gives
+        each; log_fn(member, epoch, loss, dice) runs after every epoch for
+        each member in order."""
+        members = list(members)
+        params = stack_members([net0] * len(members))
+        opt = released_optimizer(net0, params.items())
+        losses, dices = run_epochs(net0, opt, draw_source, members, vols,
+                                   shapes, labels, log_fn, params)
+        out = []
+        for i in range(len(members)):
+            net = copy.deepcopy(net0)
+            with torch.no_grad():
+                for name, p in net.named_parameters():
+                    p.copy_(params[name][i])
+            out.append((net, losses[:, i], dices[:, i]))
+        return out
 
     return TTAFunctions(branch_aug=branch_aug, both_branches=both_branches,
                         patch_loss=patch_loss, draw_and_loss=draw_and_loss,
                         epoch_train=epoch_train, epoch_fwd=epoch_fwd,
                         eval_step=eval_step, member_run=member_run,
-                        grads_enabled=grads_enabled)
+                        chunk_run=chunk_run, grads_enabled=grads_enabled)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -580,9 +702,10 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
     member_indices: the global member ids to adapt (default all): a
     member's draws depend on its id only (`draw_source`), so a resume
     subset redraws what the full run would have.  save_member_fn(member,
-    net, losses, dices) runs as soon as a member finishes.
-    exact_warp_grad, patch_group, remat: as in `make_tta_functions`.
-    ensemble_chunk: members per chunk (None: all); num_devices: the
+    net, losses, dices) runs as soon as a member (on one device: a chunk)
+    finishes.  exact_warp_grad, patch_group, remat: as in
+    `make_tta_functions`.  ensemble_chunk: members per chunk (None: all),
+    a chunk on one device side by side; num_devices: the
     devices to spread a chunk over (default: the visible GPUs for CUDA
     volumes, 1 on the CPU); backend: the ranks' `torch.distributed`
     backend (default "nccl" on CUDA, "gloo" on the CPU; "gloo" lets the
@@ -610,15 +733,15 @@ def tta_one_volume(model: Model, plan: TTAPlan, pretrained_net,
     ranks = max((r for _, r in chunks), default=1)
     if ranks == 1:
         nets, losses, dices = [], [], []
-        for m in members:
-            net, lm, dm = fns.member_run(pretrained_net, draw_source, m,
-                                         vols_padded, true_shapes,
-                                         labels_padded, log_fn)
-            if save_member_fn is not None:
-                save_member_fn(m, net, lm, dm)
-            nets.append(net)
-            losses.append(lm)
-            dices.append(dm)
+        for ids, _ in chunks:
+            for m, (net, lm, dm) in zip(ids, fns.run(
+                    pretrained_net, draw_source, ids, vols_padded,
+                    true_shapes, labels_padded, log_fn)):
+                if save_member_fn is not None:
+                    save_member_fn(m, net, lm, dm)
+                nets.append(net)
+                losses.append(lm)
+                dices.append(dm)
         return nets, np.stack(losses, axis=1), np.stack(dices, axis=1)
 
     def cpu(t):

@@ -52,8 +52,8 @@ class TTAPlan:
     # --- adaptation knobs of the JAX package's plan (extensions over the
     # reference plan), so plan files round-trip between the two packages.
     # The driver hands patch_group, remat and ensemble_chunk to the engine
-    # (a chunk spreads over the GPUs, one member a process); the split
-    # engine raises. --------------------------------------------------------
+    # (a chunk spreads over the GPUs, one process each, and its members on
+    # one device run side by side); the split engine raises. --------------
     ensemble_chunk: Optional[int] = None
     patch_group: int = 1
     remat: bool = False

@@ -1397,3 +1397,79 @@ def test_augment_batch_warps_on_card_match_cpu(cuda_device, multires):
     ref_i, ref_s = augment_batch(draws, imgs, segs, cfg)
     assert torch.equal(got_s.cpu(), ref_s)
     assert _max_rel_err(got_i.cpu(), ref_i) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,CO,H,W", [
+    (1, 32, 19, 70),     # "c1"
+    (12, 32, 19, 37),    # "few", the MIND stem
+    (32, 32, 28, 32),    # the wgmma routes, big layout, several splits
+    (64, 128, 7, 8),     # small layout, clusters
+    (16, 36, 9, 11),     # "cuda_core" (CO % 8 != 0): a launch a member
+])
+def test_members_launch_equals_member_launches(cuda_device, dtype, C, CO,
+                                               H, W):
+    """Three members' weights in one launch of every route (forward, input
+    gradient, weight gradient) give each member's planes the bits of that
+    member's own launch, within the tolerances of the plain version; the
+    "cuda_core" route launches once per member."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import route_launches
+    M, n, D = 3, 8, 4
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(C + CO)
+    x = torch.from_numpy(rng.normal(size=(M * n, H, W, C)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(M, 3, 3, 3, C, CO))
+                         .astype(np.float32) / (27 * C) ** 0.5)
+    dy = torch.from_numpy(rng.normal(size=(M * n, H, W, CO))
+                          .astype(np.float32))
+    x, w, dy = (t.to(dt).to(cuda_device) for t in (x, w, dy))
+    route = conv3x3_route(C, CO, dt)
+    before = route_launches(conv3x3)[route]
+    y = conv3x3(x, w, D)
+    torch.cuda.synchronize()
+    assert route_launches(conv3x3)[route] - before == \
+        (M if route == "cuda_core" else 1)
+    ys = torch.cat([conv3x3(xm, wm, D) for xm, wm in zip(x.chunk(M), w)])
+    assert torch.equal(y, ys)
+    assert _max_rel_err(y, conv3x3_reference(x, w, D)) <= RTOL[dtype]
+    wt = w.flip((1, 2, 3)).transpose(-2, -1).contiguous()
+    dx = conv3x3(dy, wt, D)
+    assert torch.equal(dx, torch.cat([conv3x3(dm, wm, D) for dm, wm in
+                                      zip(dy.chunk(M), wt)]))
+    before = route_launches(conv3x3_wgrad)[route]
+    dw = conv3x3_wgrad(x, dy, D, members=M)
+    torch.cuda.synchronize()
+    assert route_launches(conv3x3_wgrad)[route] - before == \
+        (M if route == "cuda_core" else 1)
+    assert dw.shape == (M, 3, 3, 3, C, CO)
+    assert torch.equal(dw, torch.stack([
+        conv3x3_wgrad(xm, dm, D) for xm, dm in zip(x.chunk(M),
+                                                   dy.chunk(M))]))
+    ref = conv3x3_wgrad_reference(x, dy, D, members=M)
+    assert _max_rel_err(dw, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_members_conv_op_gradients_equal_member_ops(cuda_device, dtype):
+    """`conv3x3_op` on members' stacked weights: each member's output, input
+    gradient and weight gradient bit for bit its own op's on the card."""
+    M, n, D, H, W, C, CO = 3, 8, 4, 28, 32, 32, 64
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(M * n, H, W, C, generator=g).to(dt).to(cuda_device)
+    w = (torch.randn(M, 3, 3, 3, C, CO, generator=g) / 30).to(dt)
+    w = w.to(cuda_device)
+    dy = torch.randn(M * n, H, W, CO, generator=g).to(dt).to(cuda_device)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = conv3x3_op(xg, wg, D)
+    y.backward(dy)
+    for m in range(M):
+        xm = x.chunk(M)[m].clone().requires_grad_()
+        wm = w[m].clone().requires_grad_()
+        ym = conv3x3_op(xm, wm, D)
+        ym.backward(dy.chunk(M)[m])
+        assert torch.equal(y.chunk(M)[m], ym)
+        assert torch.equal(xg.grad.chunk(M)[m], xm.grad)
+        assert torch.equal(wg.grad[m], wm.grad)

@@ -267,21 +267,35 @@ def test_one_patch_step_matches_jax_value_and_grad(setup):
     assert unused > 0
 
 
+TRAJECTORY_PLAN = dict(epochs=3, patches_to_be_accumulated=2, lr=1e-3,
+                       ensemble_count=2, start_tta_at_epoch=1)
+
+
 @pytest.fixture(scope="module")
-def trajectories(setup):
+def jax_trajectory(setup):
+    """The JAX package's chunk of both members (vmapped on one device)."""
     params, vols, shapes, labels = setup
     params = _biased(params, 7)
-    plan_kw = dict(epochs=3, patches_to_be_accumulated=2, lr=1e-3,
-                   ensemble_count=2, start_tta_at_epoch=1)
-    key = jax.random.PRNGKey(1)
-    ref = jax_tta_one_volume(jax_model(), JaxPlan(**plan_kw), params,
+    ref = jax_tta_one_volume(jax_model(), JaxPlan(**TRAJECTORY_PLAN), params,
                              jnp.asarray(vols), jnp.asarray(shapes), IDX3,
-                             IDX3, key, labels_padded=jnp.asarray(labels))
-    got = tta_one_volume(port_model(), TTAPlan(**plan_kw), port_net(params),
-                         torch.from_numpy(vols), shapes, IDX3, IDX3,
-                         JaxDraws(key, n_acc=2),
-                         labels_padded=torch.from_numpy(labels))
-    return plan_kw, params, ref, got
+                             IDX3, jax.random.PRNGKey(1),
+                             labels_padded=jnp.asarray(labels))
+    return params, ref
+
+
+@pytest.fixture(scope="module", params=[1, None],
+                ids=["chunk_1", "chunk_all"])
+def trajectories(setup, jax_trajectory, request):
+    """The port's members one after another (`ensemble_chunk` 1) or side
+    by side (a chunk of all, the JAX package's default)."""
+    _, vols, shapes, labels = setup
+    params, ref = jax_trajectory
+    got = tta_one_volume(port_model(), TTAPlan(**TRAJECTORY_PLAN),
+                         port_net(params), torch.from_numpy(vols), shapes,
+                         IDX3, IDX3, JaxDraws(jax.random.PRNGKey(1), n_acc=2),
+                         labels_padded=torch.from_numpy(labels),
+                         ensemble_chunk=request.param)
+    return TRAJECTORY_PLAN, params, ref, got
 
 
 def _unused(name):
