@@ -19,8 +19,11 @@ Phases; any failure raises and the script exits non-zero:
    prints any wgmma that ptxas serialized (C7513, C7511, C7512), and
    fails if it serialized one of `conv3x3_wgrad_wgmma` for a running
    group's registers (C7513, C7511); that of `conv3x3_few`'s four kernels
-   (forward and weight gradient, bf16 and f32) `HGMMA` and their halo
-   loads (bf16: cp.async, `LDGSTS`; f32: `UTMALDG`), and that of
+   (forward and weight gradient, bf16 and f32) `HGMMA`, their ring of
+   staged planes filled by cp.async (`LDGSTS`) and, but for the bf16
+   weight gradient (both operands by descriptor), their A fragments
+   loaded by ldmatrix (`LDSM`), and fails if ptxas serialized any of
+   their wgmmas (C7513, C7511, C7512), and that of
    `conv3x3_c1`'s four (the C = 1 forward and weight gradient, bf16 and
    f32 3xTF32) tensor-core `HMMA` (mma.sync), the weight gradients' dy
    loads cp.async (`LDGSTS`), and that of the warp's affine-entry kernels
@@ -51,7 +54,7 @@ Phases; any failure raises and the script exits non-zero:
      at its window forward and its step forward, also forced onto the
      type's wgmma route (zero-padded to 16 channels: the route it took
      before) and the CUDA-core kernel, its bound counting the true C = 12
-     work;
+     work, and a second launch at the step shape bit for bit the first;
    * `conv3x3_wgrad` at the same shapes with the batch of a TTA step (two
      patches: both branches), f32 and bf16 (library: cuDNN's weight
      gradient, `torch.nn.grad.conv3d_weight`), with its route ("c1",
@@ -59,9 +62,9 @@ Phases; any failure raises and the script exits non-zero:
      also forced onto the CUDA-core kernel, and the f32 routes' per-step
      totals on the same shapes side by side; the MIND stem's shape too, on
      "few", forced onto the padded wgmma route and the CUDA-core kernel;
-     at the top level (the first shape with C > 1) two launches of each
-     type are held equal bit for bit (a fixed summation order, no
-     atomics);
+     at the top level (the first shape with C > 1) and at the stem two
+     launches of each type are held equal bit for bit (a fixed summation
+     order, no atomics);
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
      its adjoint (112 x 112 x 128, times 1 / |det|), and the nearest label
@@ -437,10 +440,10 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            # ptxas's register and spill report, and any wgmma it had to
-            # serialize (C7513, C7511)
+            # ptxas's register and spill report, and its notes on wgmma
+            # (C75xx: serialized, or fenced for registers)
             if any(k in line for k in ("registers", "spill", "wgmma",
-                                       "C7511", "C7513")):
+                                       "C75")):
                 log(f"  {name}: {line.strip()}")
     # the wgmma routes run on the tensor cores, fed by TMA: the bf16 and
     # the f32 (3xTF32) instantiations of conv3x3_wgmma (their A fragments
@@ -449,14 +452,16 @@ def phase_build():
     # A hand-loaded; bf16 z-first, A by ldmatrix; bf16 by descriptor),
     # whose wgmmas ptxas must not serialize for a running group's
     # registers (C7513, C7511); the "few" route's four kernels on the
-    # tensor cores, the bf16 ones fed by cp.async (LDGSTS), the f32 ones by
-    # TMA; the
+    # tensor cores, their rings of staged planes filled by cp.async
+    # (LDGSTS), A by ldmatrix (LDSM) but in the bf16 weight gradient, and
+    # no wgmma of theirs serialized (C7513, C7511, C7512); the
     # "c1" route's four by mma.sync (HMMA), the weight gradients' dy by
     # cp.async; the warp's affine entry stages its boxes by cp.async and
     # gathers from shared memory (LDS); the exact adjoint sums in shared
     # memory (ATOMS: compare-and-swap loops) and flushes by 16-byte global
     # reductions
     tma, cp_async = ("HGMMA", "UTMALDG"), ("HGMMA", "LDGSTS")
+    ring = ("HGMMA", "LDGSTS", "LDSM")
     halo = ("HGMMA", "UTMALDG", "LDSM")
     hmma, hmma_cp = ("HMMA",), ("HMMA", "LDGSTS")
     for name, marker, ops in (
@@ -465,10 +470,10 @@ def phase_build():
             ("conv3x3_wgrad_wgmma", "wgrad_tf32x3_kernel", tma),
             ("conv3x3_wgrad_wgmma", "wgrad_bf16_zfirst_kernel", halo),
             ("conv3x3_wgrad_wgmma", "wgrad_bf16_desc_kernel", tma),
-            ("conv3x3_few", "few_forward_bf16_kernel", cp_async),
-            ("conv3x3_few", "few_forward_f32_kernel", tma),
+            ("conv3x3_few", "few_forward_bf16_kernel", ring),
+            ("conv3x3_few", "few_forward_f32_kernel", ring),
             ("conv3x3_few", "few_wgrad_bf16_kernel", cp_async),
-            ("conv3x3_few", "few_wgrad_f32_kernel", tma),
+            ("conv3x3_few", "few_wgrad_f32_kernel", ring),
             ("conv3x3_c1", "c1_forward_kernelI13__nv_bfloat16", hmma),
             ("conv3x3_c1", "c1_forward_kernelIf", hmma),
             ("conv3x3_c1", "c1_wgrad_kernelI13__nv_bfloat16", hmma_cp),
@@ -482,16 +487,25 @@ def phase_build():
             raise AssertionError(f"{name} {marker}: {len(funcs)} functions, "
                                  f"SASS instruction counts {counts}")
         log(f"  {name} {marker}: {len(funcs)} instantiations, SASS {counts}")
-    wgrad_log = build.library_path("conv3x3_wgrad_wgmma").with_suffix(
-        ".log").read_text()
-    serialized = [line.strip() for line in wgrad_log.splitlines()
-                  if "C7513" in line or "C7511" in line]
-    if serialized:
-        raise AssertionError("conv3x3_wgrad_wgmma: ptxas serialized wgmmas "
-                             "for a running group's registers: "
-                             + "; ".join(serialized))
-    log("  conv3x3_wgrad_wgmma: no wgmma serialized for a running group's "
-        "registers (C7513, C7511)")
+    for name, codes in (("conv3x3_wgrad_wgmma", ("C7513", "C7511")),
+                        ("conv3x3_few", ("C7513", "C7511", "C7512"))):
+        text = build.library_path(name).with_suffix(".log").read_text()
+        serialized = [line.strip() for line in text.splitlines()
+                      if any(c in line for c in codes)]
+        if serialized:
+            raise AssertionError(f"{name}: ptxas serialized wgmmas: "
+                                 + "; ".join(serialized))
+        log(f"  {name}: no wgmma serialized ({', '.join(codes)})")
+        if name == "conv3x3_few":
+            # the wgmmas before which ptxas injected a warpgroup.arrive
+            # for their registers (C7519), per kernel
+            fenced = {k: sum("C7519" in line and k in line
+                             for line in text.splitlines())
+                      for k in ("few_forward_bf16_kernel",
+                                "few_forward_f32_kernel",
+                                "few_wgrad_bf16_kernel",
+                                "few_wgrad_f32_kernel")}
+            log(f"  {name}: warpgroup.arrive injected (C7519): {fenced}")
 
 
 def _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult=1):
@@ -640,6 +654,17 @@ def phase_kernels():
                         f"conv3x3 {name} {use} route={route} "
                         f"{(N, depth, H, W, C, CO)}: max abs err {err} > "
                         f"tol {tol}")
+                if route == main and use == "stem step forward":
+                    # a fixed order of sums: a second launch, bit for bit
+                    again = conv3x3(x, w, depth=depth)
+                    if not torch.equal(again, got):
+                        raise AssertionError(
+                            f"conv3x3 {name} {use} route={route}: two "
+                            f"launches differ by "
+                            f"{(again.float() - got.float()).abs().max()}")
+                    log(f"conv3x3 {name} {use} route={route}: two launches "
+                        f"equal bit for bit")
+                    del again
                 k_ms = time_ms(lambda: conv3x3(x, w, depth=depth,
                                                route=route))
                 dev = ""
@@ -731,7 +756,7 @@ def phase_wgrad():
                         f"conv3x3_wgrad {name} route={route} "
                         f"{(N, depth, H, W, C, CO)}: max abs err {err} > "
                         f"{WGRAD_RTOL * scale}")
-                if route == main and (depth, H, W, C, CO) == top:
+                if route == main and ((depth, H, W, C, CO) == top or stem):
                     # a fixed order of sums: a second launch, bit for bit
                     again = conv3x3_wgrad(x, dy, depth=depth)
                     if not torch.equal(again, got):

@@ -20,8 +20,11 @@ a launch error raises, and a misaligned tensor raises before the launch):
   gradient);
 * "few" (`csrc/conv3x3_few.cu`): 1 < C < 16 with CO % 8 == 0, f32
   (3xTF32) and bf16, the stem of a MIND model (C = 12): x read at its own
-  C into a halo in shared memory, the taps in the GEMM's K axis, the
-  weights packed once per call into that order (`pack_few_weights`);
+  C into a ring of staged planes in shared memory, a block walking the
+  planes of a tile so that each staged plane serves its three z-taps
+  (`few_plan`), the taps in the GEMM's K axis, the weights packed into
+  that order by the kernel itself (`pack_few_weights` is that matrix as a
+  plain tensor op);
 * "wgmma" (`csrc/conv3x3_wgmma.cu`): bf16 with C >= 16 and CO % 8 == 0,
   an implicit GEMM on the tensor cores fed by TMA: a halo of x staged per
   (z-tap, channel chunk) and read at the nine (ky, kx) shifts, the
@@ -179,8 +182,9 @@ def tf32_split(w: torch.Tensor):
     """(hi, lo) of an f32 tensor: hi = w rounded to the nearest tf32 value
     (ties away from zero; the low 13 mantissa bits cleared), lo = w - hi.
     hi and w agree to a factor of 2, so lo is exact and hi + lo == w.
-    The "few" route's weights; `csrc/conv3x3_wgmma.cu` computes the same
-    bits in its weight pass (`round_tf32`)."""
+    The kernels compute the same bits (`round_tf32`):
+    `csrc/conv3x3_wgmma.cu` in its weight pass, `csrc/conv3x3_few.cu` for
+    its weights and for each staged value of x."""
     bits = w.contiguous().view(torch.int32)
     hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
     return hi, w - hi
@@ -188,29 +192,34 @@ def tf32_split(w: torch.Tensor):
 
 def few_k(C: int, kz: int, dtype):
     """(Cs, Kp) of the "few" route for C input channels, kz z-taps and
-    compute type `dtype`: the channels per tap in its K order and K =
-    kz * 9 * Cs rounded up to the K step of one wgmma.  bf16 takes one k16
-    step per tap, 16 channels (zeros past C: its halo holds each pixel as
-    32 bytes, and a tap is a shift of the operand); f32 folds the taps at C
-    channels each into k8 steps (C = 12, kz = 3: 432 and 328)."""
+    compute type `dtype`: the channels per tap in its K order (zeros past
+    C) and K.  bf16 takes one k16 step per tap, 16 channels (its halo
+    holds each pixel as 32 bytes, and a tap is a shift of the operand):
+    Kp = kz * 9 * 16.  f32 reads a (kz, ky) row of taps as 3 x Cs
+    contiguous floats of its staged plane, Cs = C rounded up to 4 (the
+    16-byte rows of ldmatrix), padded to the k8 step: Kr = 3 x Cs rounded
+    up to 8 a row, Kp = kz * 3 * Kr (C = 12, kz = 3: 432 and 360)."""
     if dtype == torch.bfloat16:
         return 16, kz * 9 * 16
-    return C, -(-kz * 9 * C // 8) * 8
+    cs = -(-C // 4) * 4
+    return cs, kz * 3 * (-(-3 * cs // 8) * 8)
 
 
 def pack_few_weights(w: torch.Tensor, dtype=None) -> torch.Tensor:
     """The weights of the "few" route: w (3, 3, C, CO) or (kz, 3, 3, C, CO)
-    as a (Kp, CO) matrix in the GEMM's K order, row k = ((kz * 3 + ky) * 3
-    + kx) * Cs + ci, zero rows for the channels past C and past kz * 9 * Cs
-    (`few_k` for compute type `dtype`, w's type by default); members'
-    weights (M, kz, 3, 3, C, CO) as (M, Kp, CO), one such matrix each.  In
-    w's type, on w's device: a plain tensor op, once per call."""
+    as a (Kp, CO) matrix in the GEMM's K order, (kz, ky) row r of taps at
+    rows r * Kr + kx * Cs + ci, zero rows for the channels past C and past
+    3 x Cs in each row of Kr = Kp / (kz * 3) (`few_k` for compute type
+    `dtype`, w's type by default); members' weights (M, kz, 3, 3, C, CO)
+    as (M, Kp, CO), one such matrix each.  In w's type, on w's device.
+    The kernels build the same matrix in shared memory from w as it is
+    (f32: split by `tf32_split`'s bits); this is its plain statement."""
     w6 = _as_6d(w)
     M, kz, _, _, C, CO = w6.shape
     cs, kp = few_k(C, kz, w.dtype if dtype is None else dtype)
-    m = pad_channels(w6, cs, dim=-2).reshape(M, kz * 9 * cs, CO)
-    m = F.pad(m, (0, 0, 0, kp - m.shape[1])).contiguous()
-    return m if w.dim() == 6 else m[0]
+    m = pad_channels(w6, cs, dim=-2).reshape(M, kz * 3, 3 * cs, CO)
+    m = F.pad(m, (0, 0, 0, kp // (kz * 3) - 3 * cs)).reshape(M, kp, CO)
+    return m.contiguous() if w.dim() == 6 else m[0].contiguous()
 
 
 def _check_aligned(route, **tensors):
@@ -415,25 +424,91 @@ def _launch_c1(x, w6, y, depth):
 
 
 def _launch_few(x, w6, y, depth):
+    # the kernel packs (and in f32 splits) each member's weights into its
+    # K order itself, from w as it is
     fn = build.function("conv3x3_few", "dgtta_conv3x3_few",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                         + [ctypes.c_void_p])
-    # each member's weights in the GEMM's K order; f32 as a tf32 part and
-    # its remainder (3xTF32)
-    wk, wk_lo = pack_few_weights(w6), None
-    if x.dtype == torch.float32:
-        wk, wk_lo = tf32_split(wk)
-    N, H, W, C = x.shape
-    err = fn(x.data_ptr(), wk.data_ptr(),
-             0 if wk_lo is None else wk_lo.data_ptr(), y.data_ptr(), N,
-             w6.shape[0], depth, H, W, C, w6.shape[-1], w6.shape[1],
-             wk.shape[1], _DTYPE_CODES[x.dtype],
+    M, kz, _, _, C, CO = w6.shape
+    N, H, W, _ = x.shape
+    plan = few_plan(N // M, depth, H, W, C, CO, x.dtype, kz)
+    err = fn(x.data_ptr(), w6.data_ptr(), y.data_ptr(), N, M, depth, H, W,
+             C, CO, kz, plan["blocks"], _DTYPE_CODES[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 few kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
                            f"w {tuple(w6.shape)}, depth {depth}")
     return 1
+
+
+# conv3x3_few (csrc/conv3x3_few.cu), per (type, weight gradient?): the
+# tile of a step (output pixels or positions, rows x columns); the SMs of
+# an H100, each holding one block of any of the four kernels; the f32
+# weight gradient's m64 tiles of (ky, kx, ci) rows a block.  The source's
+# constants (kBfWG x kBfRow, kFH x kFW, kBgH x kBgW, kGH x kGW, kGMT, kZB),
+# which tests/test_torch_conv3x3_few.py holds these to.
+_FEW_TILE = {(torch.bfloat16, False): (4, 64), (torch.float32, False): (16, 16),
+             (torch.bfloat16, True): (8, 16), (torch.float32, True): (6, 8)}
+_FEW_SMS = 132
+_FEW_M_TILES = 2
+# the forwards' output planes a step (one accumulator each)
+_FEW_ZB = 2
+
+
+@functools.lru_cache(maxsize=None)
+def few_plan(N: int, depth: int, H: int, W: int, C: int, CO: int, dtype,
+             kz: int = 3, wgrad: bool = False) -> dict:
+    """How `csrc/conv3x3_few.cu` runs one call on the "few" route: x (N,
+    H, W, C) of one member (its planes, groups of `depth`), CO output
+    channels, kz z-taps; the forward, or with `wgrad` the weight gradient.
+    * tile: the output pixels (forward) or positions (weight gradient) of
+      a step, rows x columns (bf16 4 x 64 and 8 x 16, f32 16 x 16 and 6 x
+      8); tiles: a plane's; zb: the output planes of a step (the
+      forwards' two, one accumulator each, share each staged plane's
+      fragments; the weight gradients one); steps: tiles x ceil(depth /
+      zb) a volume, zb output planes of one tile each, ordered s = (volume
+      * tiles + tile) * ceil(depth / zb) + d / zb;
+    * rows: the blocks a step's outputs need side by side: ceil(CO / 32)
+      column tiles, times the f32 weight gradient's blocks of two m64
+      tiles of the 9 x C (ky, kx, ci) rows (two blocks at C = 15);
+    * run: the steps a block walks in order, ceil(steps / one wave), a
+      wave being 132 SMs (a block each) over the rows; blocks:
+      ceil(steps / run), of each member and row, none empty (the weight
+      gradient's splits, one partial sum each);
+    * walks: the runs of consecutive planes of one tile that the blocks
+      walk (a block's run starts one, and so does each tile and volume it
+      reaches); each stages kz - 1 planes beyond its first step's own, so
+      that `staged` = steps x zb + walks x (kz - 1) planes are staged, zb a
+      step elsewhere; `halo`: staged pixels per output pixel (or per
+      position): a staged plane's halo pixels x staged / (N x tiles x
+      tile);
+    * per_acc: the positions (weight gradient) or output pixels of a
+      step that one accumulator sums (the f32 weight gradient's
+      warpgroups take half a step's rows each); `longest`: the weight
+      gradient's run x per_acc, the longest sum one accumulator takes
+      (None for the forward, whose sums end with each step).
+    Every count comes from one member's planes, never from the launch's.
+    Cached."""
+    th, tw = _FEW_TILE[dtype, wgrad]
+    zb = 1 if wgrad else _FEW_ZB
+    tiles = -(-H // th) * -(-W // tw)
+    dsteps = -(-depth // zb)
+    steps = N // depth * dsteps * tiles
+    rows = -(-CO // 32)
+    if wgrad and dtype == torch.float32:
+        rows *= -(-(-(-9 * C // 64)) // _FEW_M_TILES)
+    run = -(-steps // max(1, _FEW_SMS // rows))
+    blocks = -(-steps // run)
+    walks = len(set(range(0, steps, run)) | set(range(0, steps, dsteps)))
+    staged = steps * zb + walks * (kz - 1)
+    halo_px = (th + 2) * (tw + 2)
+    # the f32 weight gradient's warpgroups sum half a step's positions each
+    per_acc = th * tw // (2 if wgrad and dtype == torch.float32 else 1)
+    return dict(tile=(th, tw), zb=zb, tiles=tiles, steps=steps, rows=rows,
+                run=run, blocks=blocks, walks=walks, staged=staged,
+                halo=halo_px * staged / (N * tiles * th * tw),
+                per_acc=per_acc, longest=run * per_acc if wgrad else None)
 
 
 _LAUNCH = {"cuda_core": _launch, "wgmma": _launch_wgmma,
@@ -544,12 +619,6 @@ _WGR_MIN_TILES = 16
 _C1_TILE = {torch.bfloat16: (8, 64), torch.float32: (4, 64)}
 _C1_TCO = 32
 _C1_TARGET_BLOCKS = 2 * 132
-# conv3x3_few's weight gradient (csrc/conv3x3_few.cu): positions per stage
-# (bf16 8 x 16, f32 4 x 16), 32 output channels per block; bf16 keeps 2
-# blocks per SM resident, f32 one
-_FEW_TILE = {torch.bfloat16: (8, 16), torch.float32: (4, 16)}
-_FEW_TCO = 32
-_FEW_TARGET_BLOCKS = {torch.bfloat16: 2 * 132, torch.float32: 132}
 
 
 def _wgrad_check(x, dy, depth, kz, members=None):
@@ -665,17 +734,6 @@ def wgrad_plan(N: int, H: int, W: int, C: int, CO: int, dtype,
                 longest=per * _WGR_TILE_H * _WGR_TILE_W)
 
 
-def wgrad_few_splits(x_shape, co: int, dtype) -> int:
-    """How many blocks share the sum over positions on the "few" route:
-    enough for one wave of `_FEW_TARGET_BLOCKS`, at least 8 position tiles
-    each."""
-    N, H, W, _ = x_shape
-    th, tw = _FEW_TILE[dtype]
-    tiles = N * (-(-H // th)) * (-(-W // tw))
-    return max(1, min(-(-tiles // 8), _FEW_TARGET_BLOCKS[dtype]
-                      // -(-co // _FEW_TCO)))
-
-
 def wgrad_c1_splits(x_shape, co: int, dtype) -> int:
     """How many blocks share the sum over positions on the "c1" route:
     one wave of `_C1_TARGET_BLOCKS` over the output-channel tiles, at least
@@ -736,7 +794,8 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                             + [ctypes.c_void_p])
     elif route == "few":
         _check_aligned(route, x=x, dy=dy)
-        splits = wgrad_few_splits(n_shape, CO, x.dtype)
+        splits = few_plan(N // M, depth, H, W, C, CO, x.dtype, kz,
+                          wgrad=True)["blocks"]
         fn = build.function("conv3x3_few", "dgtta_conv3x3_wgrad_few",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p])

@@ -22,92 +22,121 @@
 // bound by bytes, 0.127 ms for a window forward plus a trained step's
 // forward (three volumes) and 0.084 ms for a step's weight gradient (two);
 // f32 by its three tf32 products at 495 TFLOP/s, 0.595 and 0.397 ms.
+// x is read at its own C (no pad copy); C = 1 has conv3x3_c1.cu, and from
+// C = 16 on the wgmma routes need no padding.
 //
-// Why a route of its own.  The wgmma routes step 16 (bf16) or 8 (f32) input
-// channels per tap, each tap a K step with a TMA box of its own: C = 12 ran
-// on x and w zero-padded to 16 in device memory (a pad copy of x per call),
-// and the weight gradients' 64- and 32-channel M tiles were three quarters
-// and half zeros.  Here x is read at its own C and staged once per tile as
-// a zero-padded halo in shared memory; C = 1 has conv3x3_c1.cu, whose K
-// is the 27 taps alone (here each tap is a 16-channel step: 16x the MMAs
-// at C = 1), and from C = 16 on the wgmma routes need no padding.
+// The walk.  Every kernel cuts a member's planes into tiles of output
+// pixels (or of positions) and orders its steps, zb output planes of one
+// tile each (the forwards two, the weight gradients one), as s = (volume *
+// tiles + tile) * ceil(depth / zb) + d / zb.  A block walks a contiguous
+// run of steps (kernels/conv3x3.py::few_plan: one wave of blocks, 131 runs
+// of 24 steps for the window forward, 132 of 516 for the f32 weight
+// gradient of a trained step), so that it walks the planes of a tile in
+// order and keeps the planes it reads in a ring in shared memory: each
+// staged plane serves its three z-taps (the first design staged the three
+// planes of every output plane anew: 3.8-5.1 staged pixels per output
+// pixel, now 1.3-1.7).  Where a run starts, or crosses into the next tile
+// or volume, it stages the planes before its first step's own again;
+// planes outside the volume's group of `depth` planes are zeros, never the
+// neighbouring volume's.  The ring is filled by cp.async, each thread
+// waiting for its own copies before a barrier; the next step's planes are
+// copied during the tensor work that does not read their slots.  The
+// forwards' two output planes share each staged plane's A fragments (one
+// accumulator each; a plane serves z-tap i - z of output plane z).  The
+// forward writes every output plane from one step of one block: its bits
+// do not depend on the batch.  The weight gradients write one partial sum
+// per block into a scratch slice, and a second kernel adds the slices in a
+// fixed order: deterministic, no atomics (with one split the first kernel
+// writes dW).  KZ is a template argument and every wgmma descriptor a base
+// plus offsets: descriptor arithmetic between two wgmmas (a
+// generic-to-shared conversion, a ring modulo) took more time than the
+// wgmmas in the first weight gradient of this design (its skeleton alone,
+// no wgmma, ran 1.52 of its 1.80 ms).
 //
-// The halo.  A block stages the zero-padded halo of its tile (KZ planes x
-// rows x pixels; zeros past the plane and past the volume's group of
-// planes) in shared memory once, and every tap reads it at a shift: x is
-// read at its own C, with no copy.  Two halo buffers: the next tile's halo
-// loads while this one computes.  bf16 (pixels of 24 bytes at C = 12,
-// which TMA's 16-byte stride rule refuses) loads it with cp.async in 16-,
-// 8- or 4-byte units, element by element for odd C; f32 with one 5D TMA box
-// per tile where C % 4 == 0 (x seen as volumes x depth x H x W x C, whose
-// out-of-bounds fill gives the padding), cp.async otherwise.
-//
-// bf16 (bound by bytes; the tensor cores have room): each pixel of the
-// halo is one 32-byte row of 16 channels (channels C .. 15 zero, written
-// once), with the 32-byte swizzle (16-byte chunk ^= bit 7 of the address),
-// so that a tap is a shift of an operand's start and no index map is needed:
-//   * forward: an implicit GEMM, M = a row of 64 output pixels per
-//     warpgroup (four warpgroups, a 4 x 64 tile), N = 32 output channels,
-//     K = (kz, ky, kx, 16 channels), one k16 step per tap (27 at KZ = 3,
-//     against 21 for K = 27 x 12 padded to 336: padding that costs only
-//     tensor-core time).  A is loaded with ldmatrix from the halo row
-//     (row + ky, from pixel kx on) into registers; B is the weights, packed
-//     by the wrapper (`pack_few_weights`, 16 rows per tap) and staged once
-//     per persistent block, read by descriptor.  Read from shared memory by
-//     descriptor too, A (twice B's bytes at N = 32) made each m64n32k16
-//     wait on operand fetch longer than on the tensor cores; through
-//     ldmatrix it loads on the load units.  The three taps of a (kz, ky)
-//     are one wgmma group, whose
-//     fragments load once the previous group has retired: loading them
-//     while it runs makes ptxas serialize every wgmma (C7513), and the
-//     eight warpgroups of an SM keep the tensor cores busy meanwhile;
-//   * weight gradient: dW = im2col(x)^T dy, M = (kx, ci) for one (kz, ky):
-//     64 rows = four 16-channel atoms of an MN-major operand whose leading
-//     byte offset is one pixel (32 bytes), so atom kx reads the halo
-//     shifted by kx pixels (kx = 3 reads padding and is dropped), N = 32
-//     output channels, K = the 16 positions of a halo row per k16 step, B =
-//     dy, MN-major, cp.async'd into the 64-byte swizzle; both operands by
-//     descriptor, no gather.  Three warpgroups, one per ky, each with KZ
-//     accumulators; 8 x 16 positions per stage.  M = 9 x 64 rows for 324
-//     useful ones, against the 27 x 64 of the padded route.
-// f32 (bound by its three tf32 products): wgmma takes 32-bit operands from
-// shared memory only K-major and unsplit, so A comes from registers,
-// gathered by index from a dense halo of C-channel pixels and split there
-// into tf32 hi and lo, and the taps fold into the GEMM's K (forward) or M
-// (weight gradient) axis unpadded:
-//   * forward: M = 16 x 16 output pixels (four warpgroups), N = 32, K =
-//     (kz, ky, kx, ci) flattened, 27 C padded once to the k8 step (328 at
-//     C = 12, against 432 for C padded to 16); the weights (tf32 hi and
-//     remainder, packed by the wrapper) staged once per persistent block,
-//     K-major 32-byte rows with the 32-byte swizzle; a table maps each
-//     thread's k to its halo offset; each k8 step issues (lo, B_hi),
-//     (hi, B_lo), (hi, B_hi), kFGroup steps per wgmma group, two groups'
-//     fragments in registers.  K <= 405 at C < 16: the truncating
-//     accumulation needs no promotion;
-//   * weight gradient: M = (tap, ci) rows in m64 tiles (wg, wg + 6, ... per
-//     warpgroup, six warpgroups: one tile each at C = 12), N = 32, K = 4 x
-//     16 positions per stage, split over blocks.  The block transposes its
-//     dy tile in shared memory and splits it into tf32 hi and remainder
-//     there (B is K-major; no device-memory pre-pass).  Two accumulators per
-//     tile (hi B_hi; lo B_hi + hi B_lo) halve the chains of dependent
-//     wgmmas; every kPromote stages (512 positions) they are promoted into
-//     rounded sums in shared memory, as conv3x3_wgrad_wgmma.cu does.
-// Both weight gradients write one partial sum per block into a scratch
-// slice, and a second kernel adds the slices in a fixed order:
-// deterministic, no atomics.  With one split the first kernel writes dW.
+// f32 (bound by its three tf32 products).  wgmma takes 32-bit A operands
+// from shared memory only K-major, so A comes from registers by ldmatrix
+// (16-byte rows of four tf32), split into tf32 hi (`round_tf32`: the bits
+// of kernels/conv3x3.py::tf32_split) and the remainder (fed raw: the
+// tensor core truncates it):
+//   * forward: M = 16 x 16 output pixels (four warpgroups, a row of 16 per
+//     warp), N = 32, K = the (kz, ky) rows of taps: 3 x Cs contiguous
+//     floats from a pixel of the dense staged plane (Cs = C rounded up to
+//     4, zero channels past C), padded to Kr = 40 at C = 12, five k8 steps
+//     a row whose padded K reads the next pixel's first channels (finite;
+//     zero rows of B; each plane's tail is zeroed once).  The 48-byte
+//     pixels keep ldmatrix free of bank conflicts.  B = the weights in that
+//     order, packed, split and swizzled by the kernel itself into K-major
+//     32-byte rows (`pack_few_weights` is the same matrix as a plain tensor
+//     op), staged once per block (90 KB).  A group is one k8 step of one
+//     staged plane ((lo, B_hi), (hi, B_lo), (hi, B_hi) for each output
+//     plane it serves), ky the rotation of three fragment sets, two groups
+//     in flight.  A fragment is split as it is loaded and serves both
+//     output planes: a staged value is split at each of its loads, 3 ky x
+//     3 kx (and the padded K's reads), where the first design split it at
+//     each of its 27 (kz, ky, kx) uses.  Splitting each staged value once,
+//     into hi and lo planes as it landed, measured slower (a pass over the
+//     plane and a ring twice the size; and no room for it at C of 13-15).
+//     The ring holds the four raw planes a step reads and the next step's
+//     two, copied at the top of the step (186 KB with the weights at C =
+//     12).  At C of 13-15 (16-channel pixels, K = 48 a row of taps) six
+//     planes do not fit: four slots, the next step's two copied from
+//     mid-step on, into the slots of the first two once their fragments
+//     are loaded.  K = 27 x 40 = 360: the truncating accumulation needs no
+//     promotion;
+//   * weight gradient: x plane d meets dy planes d + 1, d, d - 1: M = (ky,
+//     kx, ci) rows (two m64 tiles for 108), one accumulator per z-tap, so
+//     that A loads once for three wgmmas; N = 32; K = 6 x 8 positions a
+//     step, four warpgroups (two m64 tiles x two halves of the step's rows,
+//     the halves' sums added at the end).  A row's K quad must be four
+//     positions 16 bytes apart, so each staged x plane is written, split,
+//     as three kx-shifted channel-major copies (A_kx[ci][row][p] =
+//     x[row][p + kx][ci], 68 floats a channel: four banks apart); each dy
+//     plane is transposed and split into K-major B in a ring of four.  x
+//     and dy come through double raw buffers, copied two steps ahead.  A
+//     group is one k8 step (nine wgmmas), three a step, two in flight;
+//     every kPromote steps (384 positions an accumulator) the accumulators
+//     are added into rounded sums in shared memory (the tensor cores
+//     truncate).
+// bf16 (bound by bytes; the tensor cores have room): each staged pixel is
+// one 32-byte row of 16 channels (C .. 15 zero, written once), with the
+// 32-byte swizzle (16-byte chunk ^= bit 7 of the address), so that a tap
+// is a shift of an operand's start:
+//   * forward: M = a row of 64 output pixels per warpgroup (a 4 x 64
+//     tile), N = 32, K = (kz, ky, kx, 16 channels), one k16 step per tap;
+//     A by ldmatrix from the staged plane's row, B (the weights, packed by
+//     the kernel) by descriptor.  A group is a (staged plane, ky) row of
+//     three taps for each output plane it serves, ky the rotation of three
+//     fragment sets, two groups in flight; the ring holds the four planes
+//     a step reads and the two of the next step.  K stays 27 x 16 for 324
+//     useful: folding the taps' 12 channels into K needs 16-byte rows that
+//     start at 24-byte pixels, which ldmatrix refuses for every other
+//     pixel (a table-driven gather was bound by the load units);
+//   * weight gradient: M = (kx, ci) for one (kz, ky): 64 rows = four
+//     16-channel atoms of an MN-major operand whose leading byte offset is
+//     one pixel (32 bytes), so atom kx reads the halo shifted by kx pixels
+//     (kx = 3 reads padding and is dropped), N = 32, K = the 16 positions of
+//     a halo row per k16 step, B = dy, MN-major, cp.async'd into the
+//     64-byte swizzle; both operands by descriptor, no gather.  Three
+//     warpgroups, one per ky, each with KZ accumulators, one block an SM
+//     (two spilled at 80 registers); 8 x 16 positions a step.  The ring
+//     holds six planes and three dy tiles: the next step's copies are
+//     started before this step's group, while the last one runs.  M stays
+//     9 x 64 rows for 324 useful: an atom is 16 channels of one pixel, and
+//     12-channel pixels would need a 24-byte leading offset.
 //
 // Members.  An ensemble chunk's members run side by side in one launch: x,
 // y and dy hold `members` groups of N / members planes (a member's batch),
-// wk and dW one set of weights per member, and blockIdx.z is the member.
-// Its blocks are those of a launch of that member alone, on its planes
-// (the f32 halo map's volumes offset by the member's first volume), its
-// weights and its slices of the partial sums: a member's outputs and
-// weight gradient are the bits of a launch of it alone.
+// w and dW one set of weights per member, and blockIdx.z is the member.
+// Its blocks are those of a launch of that member alone, on its planes,
+// its weights and its slices of the partial sums (the plan is computed
+// from one member's planes): a member's outputs and weight gradient are
+// the bits of a launch of it alone.
 
 #include <cuda_bf16.h>
 #include <stddef.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -116,32 +145,39 @@ namespace {
 using namespace dgtta;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBN = 32;  // output channels per block
-constexpr int kPx = 32;  // bf16 halo: bytes per pixel (16 channels)
+constexpr int kBN = 32;   // output channels per block
+constexpr int kSmemMax = 232448;  // 227 KB: sm_90's opt-in shared memory
+constexpr int kPx = 32;   // bf16 halo: bytes per pixel (16 channels)
 // bf16 forward: four warpgroups, one row of 64 output pixels each
 constexpr int kBfWG = 4;
 constexpr int kBfRow = 64;
 constexpr int kBfHR = kBfWG + 2, kBfHW = kBfRow + 2;
 // bf16 weight gradient: three warpgroups (one per ky), 8 x 16 positions
-// per stage, halo rows of 20 pixels (16 + kx <= 3, the last two padding)
+// per step, halo rows of 20 pixels (16 + kx <= 3, the last two padding);
+// six planes (two steps' groups in flight and the next plane) and three
+// dy tiles in their rings
 constexpr int kBgWG = 3;
 constexpr int kBgH = 8, kBgW = 16;
 constexpr int kBgHR = kBgH + 2, kBgHW = 20;
+constexpr int kBgRing = 6, kBgDy = 3;
 // f32 forward: four warpgroups, 16 x 16 output pixels
 constexpr int kFThreads = 512;
 constexpr int kFH = 16, kFW = 16;
 constexpr int kFHR = kFH + 2, kFHW = kFW + 2;
-constexpr int kFGroup = 4;  // k8 steps per wgmma group
-// f32 weight gradient: six warpgroups (one m64 tile each at C = 12), 4 x 16
-// positions per stage
-constexpr int kGWG = 6;
-constexpr int kGThreads = kGWG * 128;
-constexpr int kGH = 4, kGW = 16;
+// f32 weight gradient: four warpgroups, two m64 tiles of (ky, kx, ci) rows
+// x two halves of a step's 6 x 8 positions (one k8 step per row); four dy
+// planes in the ring (d - 1 .. d + 1 for this step; the last step's groups
+// read d - 2 .. d)
+constexpr int kGMT = 2;
+constexpr int kGThreads = 2 * kGMT * 128;
+constexpr int kGH = 6, kGW = 8;
 constexpr int kGPos = kGH * kGW;
 constexpr int kGHR = kGH + 2, kGHW = kGW + 2;
-constexpr int kPromote = 8;  // f32 weight gradient: stages between promotions
+constexpr int kGCh = kGHR * kGW + 4;  // A_kx buffers: floats per channel
+constexpr int kGDy = 4;
+constexpr int kPromote = 16;  // f32 weight gradient: steps between promotions
 constexpr int kRawRow = 36;  // f32 dy tile: floats per position row (144 B)
-constexpr int kDyT = kGPos / 8 * 1024;  // f32: one of dyT_hi, dyT_lo
+constexpr int kDyT = kGH * 1024;  // f32: one of dyT_hi, dyT_lo
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -181,12 +217,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The halo copy unit: the widest of 16, 8 and 4 bytes that divides a
-// pixel's C channels, 0 where none does (odd C in bf16).
-__device__ __forceinline__ int copy_unit(int bytes) {
-  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 0;
-}
-
 struct Plain {
   __device__ __forceinline__ int operator()(int off) const { return off; }
 };
@@ -196,175 +226,144 @@ struct Swz32 {
   }
 };
 
-// Stages the zero-padded halo of a tile into hs: KZ planes (n + kz - KZ/2;
-// zeros outside the group of `depth` planes) x HR rows (from h0 - 1) x HW
-// pixels (from w0 - 1), row pitch `pitch` pixels of `stride` bytes each,
-// byte `off` of the buffer at hs + swz(off) (hs on the swizzle's 1024-byte
-// grid, so that the swizzle follows the address).  The block's `threads`
-// share the units evenly.  U > 0: cp.async in U-byte units, UPP of them
-// per pixel (0: C * sizeof(T) / U, known only at run time); U == 0:
-// element by element with plain loads and stores.
-template <typename T, int HR, int HW, int U, int UPP, typename Swz>
-__device__ __forceinline__ void stage_halo(uint8_t* hs,
-                                           const T* __restrict__ x, int n,
-                                           int depth, int H, int W, int C,
-                                           int KZ, int h0, int w0, int pitch,
-                                           int stride, int threads, Swz swz) {
-  const int d = n % depth;
-  const int bytes = C * (int)sizeof(T);
-  // units per pixel: a constant where the caller knows it
-  const int upp = U == 0 ? C : UPP > 0 ? UPP : bytes / U;
-  for (int i = threadIdx.x; i < KZ * HR * HW * upp; i += threads) {
-    const int r = i / (HW * upp), rem = i - r * (HW * upp);
-    const int p = rem / upp, k = rem - p * upp;
-    const int dz = r / HR - KZ / 2, h = h0 - 1 + r % HR, ww = w0 - 1 + p;
-    const bool ok = d + dz >= 0 && d + dz < depth && h >= 0 && h < H &&
-                    ww >= 0 && ww < W;
-    const ptrdiff_t px = ok ? ((ptrdiff_t)(n + dz) * H + h) * W + ww : 0;
-    const int off = r * pitch * stride + p * stride;
-    if constexpr (U > 0) {
-      cp_async<U>(hs + swz(off + k * U),
-                  reinterpret_cast<const char*>(x + px * C) + (ok ? k * U : 0),
-                  ok);
-    } else {
-      *reinterpret_cast<T*>(hs + swz(off + k * (int)sizeof(T))) =
-          ok ? x[px * C + k] : zero<T>();
-    }
-  }
-}
+template <int V>
+using Int = std::integral_constant<int, V>;
 
-// stage_halo with the widest copy unit that divides a pixel's C channels:
-// 16, 8 or 4 bytes, element by element where none does (odd C in bf16);
-// the stem's C = 12 (3 units of 8 bytes in bf16, of 16 in f32) with its
-// index arithmetic by constants.
-template <typename T, int HR, int HW, typename Swz>
-__device__ __forceinline__ void stage_halo_unit(uint8_t* hs, const T* x,
-                                                int n, int depth, int H,
-                                                int W, int C, int KZ, int h0,
-                                                int w0, int pitch, int stride,
-                                                int threads, Swz swz) {
+// Calls f(Int<U>, Int<UPP>) for the copy unit of a pixel of C channels of
+// T: the widest of 16, 8 and 4 bytes that divides it, 0 where none does
+// (odd C in bf16: element by element), UPP units per pixel (0: C * sizeof(T)
+// / U, known only at run time); the stem's C = 12 (3 units of 8 bytes in
+// bf16, of 16 in f32) with its index arithmetic by constants.
+template <typename T, typename F>
+__device__ __forceinline__ void by_unit(int C, F&& f) {
   const int bytes = C * (int)sizeof(T);
   if (C == 12) {
-    constexpr int kU = sizeof(T) == 2 ? 8 : 16;
-    stage_halo<T, HR, HW, kU, 3>(hs, x, n, depth, H, W, C, KZ, h0, w0, pitch,
-                                 stride, threads, swz);
-    return;
-  }
-  switch (copy_unit(bytes)) {
-    case 16:
-      stage_halo<T, HR, HW, 16, 0>(hs, x, n, depth, H, W, C, KZ, h0, w0,
-                                   pitch, stride, threads, swz);
-      break;
-    case 8:
-      stage_halo<T, HR, HW, 8, 0>(hs, x, n, depth, H, W, C, KZ, h0, w0,
-                                  pitch, stride, threads, swz);
-      break;
-    case 4:
-      stage_halo<T, HR, HW, 4, 0>(hs, x, n, depth, H, W, C, KZ, h0, w0,
-                                  pitch, stride, threads, swz);
-      break;
-    default:
-      stage_halo<T, HR, HW, 0, 0>(hs, x, n, depth, H, W, C, KZ, h0, w0,
-                                  pitch, stride, threads, swz);
+    f(Int<sizeof(T) == 2 ? 8 : 16>(), Int<3>());
+  } else if (bytes % 16 == 0) {
+    f(Int<16>(), Int<0>());
+  } else if (bytes % 8 == 0) {
+    f(Int<8>(), Int<0>());
+  } else if (sizeof(T) == 4 || bytes % 4 == 0) {
+    f(Int<4>(), Int<0>());
+  } else if constexpr (sizeof(T) == 2) {
+    f(Int<0>(), Int<0>());
   }
 }
 
-// The f32 kernels' halo buffers: KZ planes x HR rows x HW pixels x C
-// floats, dense, rounded up to 1024 bytes.
-__host__ __device__ __forceinline__ int f32_halo_floats(int KZ, int HR,
-                                                        int HW, int C) {
-  return (KZ * HR * HW * C + 255) / 256 * 256;
+// The units of one staged plane that this thread owns: unit k of pixel q
+// of halo row r, for i = threadIdx.x, + threads, ... over HR x HW pixels
+// of `upp` units.  f(r, q, k).
+template <int HR, int HW, typename F>
+__device__ __forceinline__ void for_units(int upp, int threads, F&& f) {
+  for (int i = threadIdx.x; i < HR * HW * upp; i += threads) {
+    const int r = i / (HW * upp), rem = i - r * (HW * upp);
+    const int q = rem / upp;
+    f(r, q, rem - q * upp);
+  }
 }
 
-// Loads the f32 halo of the tile at (n, h0, w0) into buffer b: one TMA box
-// of x seen as (volumes, depth, H, W, C), planes d - KZ/2 .. (zeros past
-// the volume and the plane: the box's out-of-bounds fill), counted in bytes
-// on bar[b], where the tensor map exists (C % 4 == 0: 16-byte pixel
-// strides); else cp.async by every thread.  wait() waits for the k-th load
-// into buffer b.
-template <int HR, int HW>
-struct F32Halo {
-  const CUtensorMap* map;
-  bool tma;
-  float* buf;
-  int floats;
-  uint64_t* bar;
-  const float* x;  // the member's planes (the cp.async path)
-  int depth, H, W, C, KZ, threads;
-  int vol0;        // the member's first volume (the TMA path)
-
-  __device__ __forceinline__ void init() const {
-    if (tma && threadIdx.x == 0) {
-      mbar_init(&bar[0], 1);
-      mbar_init(&bar[1], 1);
-      fence_barrier_init();
-    }
-  }
-  __device__ __forceinline__ void load(int b, int n, int h0, int w0) const {
-    float* dst = buf + b * floats;
-    if (tma) {
-      if (threadIdx.x == 0) {
-        mbar_expect_tx(&bar[b], KZ * HR * HW * C * 4);
-        tma_load_5d(dst, map, &bar[b], 0, w0 - 1, h0 - 1,
-                    n % depth - KZ / 2, vol0 + n / depth);
-      }
+// Copies plane p of volume `vol` of the halo tile from (h0 - 1, w0 - 1),
+// HR rows x HW pixels, into hs: pixel (r, q) at byte swz(r * pitch *
+// stride + q * stride) (hs on the swizzle's 1024-byte grid, so that the
+// swizzle follows the address), its C channels by this thread's units
+// (U > 0: cp.async in U-byte units; U == 0: element by element with plain
+// loads and stores).  Zeros past the plane and outside 0 <= p < depth.
+template <typename T, int HR, int HW, int U, int UPP, typename Swz>
+__device__ __forceinline__ void copy_plane(uint8_t* hs,
+                                           const T* __restrict__ x, int vol,
+                                           int p, int depth, int H, int W,
+                                           int C, int h0, int w0, int pitch,
+                                           int stride, int threads, Swz swz) {
+  const int upp = U == 0 ? C : UPP > 0 ? UPP : C * (int)sizeof(T) / U;
+  const bool in = p >= 0 && p < depth;
+  const T* xp = x + ((size_t)vol * depth + (in ? p : 0)) * H * W * C;
+  for_units<HR, HW>(upp, threads, [&](int r, int q, int k) {
+    const int h = h0 - 1 + r, w = w0 - 1 + q;
+    const bool ok = in && h >= 0 && h < H && w >= 0 && w < W;
+    const T* src = xp + ((size_t)(ok ? h : 0) * W + (ok ? w : 0)) * C;
+    const int off = r * pitch * stride + q * stride;
+    if constexpr (U > 0) {
+      cp_async<U>(hs + swz(off + k * U),
+                  reinterpret_cast<const char*>(src) + (ok ? k * U : 0), ok);
     } else {
-      stage_halo_unit<float, HR, HW>(reinterpret_cast<uint8_t*>(dst), x, n,
-                                     depth, H, W, C, KZ, h0, w0, HW, C * 4,
-                                     threads, Plain());
+      *reinterpret_cast<T*>(hs + swz(off + k * (int)sizeof(T))) =
+          ok ? src[k] : zero<T>();
     }
-  }
-  __device__ __forceinline__ void wait(int b, int k) const {
-    if (tma) mbar_wait(&bar[b], k & 1);
-  }
-};
+  });
+}
 
 // Zeroes `bytes` (a multiple of 16) of shared memory from p.
-__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes,
-                                          int threads) {
+__device__ __forceinline__ void zero_smem(void* p, int bytes, int threads) {
   for (int i = threadIdx.x; i < bytes / 16; i += threads)
     reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// bf16 halo bytes of one buffer: KZ planes x HR rows x pitch pixels x 32 B,
-// rounded up to 1024 (each buffer starts on the swizzle's 1024-byte grid)
-__host__ __device__ __forceinline__ int bf_halo_bytes(int KZ, int HR,
-                                                      int pitch) {
-  return (KZ * HR * pitch * kPx + 1023) / 1024 * 1024;
+// bf16 halo bytes of one staged plane: HR rows x pitch pixels x 32 B,
+// rounded up to 1024 (each slot starts on the swizzle's 1024-byte grid)
+__host__ __device__ __forceinline__ int bf_slot_bytes(int HR, int pitch) {
+  return (HR * pitch * kPx + 1023) / 1024 * 1024;
 }
+
+// The step's place: output planes d .. d + zb - 1 (the weight gradients:
+// zb = 1) of tile `tile` of volume `vol`, s = (vol * tiles + tile) *
+// dsteps + d / zb, dsteps = ceil(depth / zb) steps a tile of a volume.
+struct Step {
+  int vol, tile, j, d;
+  __device__ __forceinline__ Step(int s, int dsteps, int tiles, int zb) {
+    const int tv = s / dsteps;
+    j = s - tv * dsteps;
+    d = zb * j;
+    vol = tv / tiles;
+    tile = tv - vol * tiles;
+  }
+};
 
 // ---- bf16 forward ----------------------------------------------------------
 
-__global__ void __launch_bounds__(kBfWG * 128, 2)
+// The forwards compute kZB = 2 output planes a step, one accumulator each.
+// KZ (1 or 3) is a template argument in all four kernels, and every
+// descriptor is a base computed once plus offsets: descriptor arithmetic
+// per wgmma (a generic-to-shared conversion, a modulo) between two wgmmas
+// cost more than the wgmmas in the first weight-gradient kernel.
+constexpr int kZB = 2;
+
+// The ring holds the kZB + KZ - 1 planes a step reads and the kZB planes of
+// the next step, copied while this step's groups run.
+template <int KZ>
+__global__ void __launch_bounds__(kBfWG * 128, 1)
 few_forward_bf16_kernel(const bf16* __restrict__ x,
-                        const bf16* __restrict__ wk, bf16* __restrict__ y,
-                        int depth, int H, int W, int C, int CO, int KZ,
-                        int tiles_w, int tiles_per_plane, int n_tiles) {
+                        const bf16* __restrict__ w, bf16* __restrict__ y,
+                        int depth, int H, int W, int C, int CO, int tiles_w,
+                        int tiles, int steps, int per) {
   constexpr int kThreads = kBfWG * 128;
+  constexpr int kLead = KZ / 2, kReads = kZB + 2 * kLead;
+  constexpr int kSlots = kReads + kZB;
+  constexpr int kTaps = KZ * 9;  // one k16 step (16 channels) per tap
   extern __shared__ uint8_t smem_raw[];
-  const int steps = KZ * 9;  // one k16 step (16 channels) per tap
-  // [B: steps x 1 KB] [halo x 2]
+  // [B: kTaps x 1 KB] [ring: kSlots planes]
   uint8_t* sb = align_1024(smem_raw);
-  uint8_t* halo = sb + steps * 1024;
-  const int hb = bf_halo_bytes(KZ, kBfHR, kBfHW);
+  uint8_t* ring = sb + kTaps * 1024;
+  const int sbytes = bf_slot_bytes(kBfHR, kBfHW);
   const int co0 = blockIdx.y * kBN;
+  const int dsteps = (depth + kZB - 1) / kZB;
   {  // member blockIdx.z: its planes and weights
-    const size_t plane = (size_t)(n_tiles / tiles_per_plane) * H * W;
+    const size_t plane = (size_t)(steps / tiles / dsteps * depth) * H * W;
     x += blockIdx.z * plane * C;
     y += blockIdx.z * plane * CO;
-    wk += (size_t)blockIdx.z * steps * 16 * CO;
+    w += (size_t)blockIdx.z * kTaps * C * CO;
   }
 
-  zero_smem(halo, 2 * hb, kThreads);  // channels C .. 15 stay zero
-  // the packed weights (k = tap * 16 + ci): one 32-byte row per output
-  // channel per tap, the 32-byte swizzle
-  for (int i = threadIdx.x; i < steps * 16 * kBN; i += kThreads) {
-    const int k = i / kBN, c = i % kBN;
-    const bf16 v = co0 + c < CO ? wk[(size_t)k * CO + co0 + c] : zero<bf16>();
-    *reinterpret_cast<bf16*>(
-        sb + swz32((k / 16) * 1024 + c * 32 + (k % 16) * 2)) = v;
+  zero_smem(ring, kSlots * sbytes, kThreads);  // channels C .. 15 stay zero
+  // the weights (k = tap * 16 + ci, zero past C): one 32-byte row per
+  // output channel per tap, the 32-byte swizzle
+  for (int i = threadIdx.x; i < kTaps * 16 * kBN; i += kThreads) {
+    const int k = i / kBN, c = i % kBN, tap = k / 16, ci = k % 16;
+    const bool ok = ci < C && co0 + c < CO;
+    *reinterpret_cast<bf16*>(sb + swz32(tap * 1024 + c * 32 + ci * 2)) =
+        ok ? w[((size_t)tap * C + ci) * CO + co0 + c] : zero<bf16>();
   }
-  __syncthreads();  // the zeros land before the first copies
+  fence_proxy_async();  // the weights are read by wgmma (async proxy)
+  __syncthreads();      // the zeros land before the first copies
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -372,72 +371,94 @@ few_forward_bf16_kernel(const bf16* __restrict__ x,
   // (pixels 0-7 | 8-15 of the warp's 16) x (channels 0-7 | 8-15)
   const int lpix = 16 * warp + lane % 8 + 8 * ((lane / 8) & 1);
   const int lchunk = 16 * (lane / 16);
-  auto stage = [&](uint8_t* hs, int tile) {
-    const int n = tile / tiles_per_plane, tt = tile % tiles_per_plane;
-    stage_halo_unit<bf16, kBfHR, kBfHW>(hs, x, n, depth, H, W, C, KZ,
-                                        (tt / tiles_w) * kBfWG,
-                                        (tt % tiles_w) * kBfRow, kBfHW, kPx,
-                                        kThreads, Swz32());
-  };
+  const uint64_t db0 = smem_desc(sb, 16, 8 * kPx, kPx);
 
-  int tile = blockIdx.x;
-  if (tile < n_tiles) stage(halo, tile);
-  cp_async_commit();
-  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
-    cp_async_wait<0>();
-    fence_proxy_async();  // the halo and the weights are read by wgmma
-    __syncthreads();
-    const uint8_t* hs = halo + (it & 1) * hb;
-    if (tile + (int)gridDim.x < n_tiles)
-      stage(halo + ((it + 1) & 1) * hb, tile + gridDim.x);
+  const int s0 = blockIdx.x * per, s1 = min(steps, s0 + per);
+  for (int s = s0; s < s1; ++s) {
+    const Step st(s, dsteps, tiles, kZB);
+    const int h0 = (st.tile / tiles_w) * kBfWG;
+    const int w0 = (st.tile % tiles_w) * kBfRow;
+    auto slot = [&](int p) { return ring + ((p + 1) % kSlots) * sbytes; };
+    auto copy = [&](int p) {
+      by_unit<bf16>(C, [&](auto u, auto upp) {
+        copy_plane<bf16, kBfHR, kBfHW, decltype(u)::value,
+                   decltype(upp)::value>(slot(p), x, st.vol, p, depth, H, W,
+                                         C, h0, w0, kBfHW, kPx, kThreads,
+                                         Swz32());
+      });
+    };
+    if (s == s0 || st.j == 0) {
+      // a new run of planes: its first step's planes (the last step's
+      // fragments are loaded: every slot is free)
+      __syncthreads();
+      for (int p = st.d - kLead; p < st.d + kZB + kLead; ++p) copy(p);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();  // this thread's copies of the step's planes
+    __syncthreads();     // every thread's
+    // the next step's planes, into the slots of the planes before d -
+    // lead (read by the last step alone)
+    if (s + 1 < s1 && st.j + 1 < dsteps)
+      for (int p = st.d + kZB + kLead; p < st.d + 2 * kZB + kLead; ++p)
+        copy(p);
     cp_async_commit();
 
-    float acc[16];
+    float acc[kZB][16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-    fence_operands(acc);
-    // a row of taps (kz, ky, kx = 0..2) per wgmma group; the fragments of
-    // a row are loaded once its predecessor has retired (loading them while
-    // it runs makes ptxas serialize the wgmmas), the other warpgroups of the
-    // SM filling the tensor cores meanwhile
-    uint32_t fr[3][4];
-    auto load = [&](int row, uint32_t(&f)[3][4]) {
-      const int base = ((row / 3) * kBfHR + wg + row % 3) * kBfHW + lpix;
+    for (int z = 0; z < kZB; ++z) {
 #pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-        ldmatrix_x4(f[kx], hs + swz32((base + kx) * kPx + lchunk));
-    };
-    auto issue = [&](int row, uint32_t(&f)[3][4]) {
-      wgmma_fence();
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-        wgmma_m64n32k16_rs(
-            acc, f[kx],
-            smem_desc(sb + (row * 3 + kx) * 1024, 16, 8 * kPx, kPx));
-      wgmma_commit();
-    };
-    for (int row = 0; row < 3 * KZ; ++row) {
-      load(row, fr);
-      issue(row, fr);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) fence_regs(fr[kx]);
+      for (int i = 0; i < 16; ++i) acc[z][i] = 0.f;
+      fence_operands(acc[z]);
     }
-    fence_operands(acc);
+    // per staged plane d - lead + i and ky, one wgmma group: the fragments
+    // of its three taps load once and serve each output plane d + z it
+    // reaches (z-tap i - z); ky is the fragment set: a set loads while the
+    // group before it runs, and two groups are in flight.  (The planes'
+    // loop peeled, so that no branch parts two wgmmas, spilled 316 bytes
+    // and ran 1.6x slower.)
+    uint32_t fr[3][3][4];
+#pragma unroll 1
+    for (int i = 0; i < kReads; ++i) {
+      const uint8_t* hs = slot(st.d - kLead + i);
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const int base = (ky + wg) * kBfHW + lpix;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+          ldmatrix_x4(fr[ky][kx], hs + swz32((base + kx) * kPx + lchunk));
+        wgmma_fence();
+#pragma unroll
+        for (int z = 0; z < kZB; ++z) {
+          const int kz = i - z;
+          if (kz < 0 || kz >= KZ) continue;
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+            wgmma_m64n32k16_rs(acc[z], fr[ky][kx],
+                               db0 + ((kz * 3 + ky) * 3 + kx) * 64);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+    }
+    wgmma_wait<0>();
 
-    const int n = tile / tiles_per_plane, tt = tile % tiles_per_plane;
-    const int h = (tt / tiles_w) * kBfWG + wg;
-    if (h < H) {
+    const int h = h0 + wg;
+#pragma unroll
+    for (int z = 0; z < kZB; ++z) {
+      fence_operands(acc[z]);
+      if (h >= H || st.d + z >= depth) continue;
+      bf16* yp =
+          y + (((size_t)st.vol * depth + st.d + z) * H + h) * W * CO;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int w = (tt % tiles_w) * kBfRow + 16 * warp + g + 8 * i;
-        if (w >= W) continue;
-        bf16* yp = y + (((size_t)n * H + h) * W + w) * CO;
+        const int ww = w0 + 16 * warp + g + 8 * i;
+        if (ww >= W) continue;
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
           const int co = co0 + 8 * j + 2 * t;
-          if (co < CO) store_pair(yp + co, acc[4 * j + 2 * i],
-                                  acc[4 * j + 2 * i + 1]);
+          if (co < CO)
+            store_pair(yp + (size_t)ww * CO + co, acc[z][4 * j + 2 * i],
+                       acc[z][4 * j + 2 * i + 1]);
         }
       }
     }
@@ -446,247 +467,304 @@ few_forward_bf16_kernel(const bf16* __restrict__ x,
 
 // ---- f32 forward -----------------------------------------------------------
 
-__global__ void __launch_bounds__(kFThreads)
-few_forward_f32_kernel(const __grid_constant__ CUtensorMap tmx, int tma,
-                       const float* __restrict__ x,
-                       const float* __restrict__ wk,
-                       const float* __restrict__ wk_lo, float* __restrict__ y,
-                       int depth, int H, int W, int C, int CO, int KZ, int Kp,
-                       int tiles_w, int tiles_per_plane, int n_tiles) {
-  extern __shared__ uint8_t smem_raw[];
-  const int steps = Kp / 8;
-  // [B_hi: steps x 1 KB] [B_lo] [(step, t) -> halo offsets of the thread's
-  // two k] [halo x 2] [2 mbarriers]
-  uint8_t* sb = align_1024(smem_raw);
-  int2* ktab = reinterpret_cast<int2*>(sb + 2 * steps * 1024);
-  const int hn = f32_halo_floats(KZ, kFHR, kFHW, C);
-  float* halo = reinterpret_cast<float*>(
-      sb + 2 * steps * 1024 + (steps * 32 + 1023) / 1024 * 1024);
-  // member blockIdx.z: its planes and weights
-  const int planes = n_tiles / tiles_per_plane;
-  x += blockIdx.z * (size_t)planes * H * W * C;
-  y += blockIdx.z * (size_t)planes * H * W * CO;
-  wk += (size_t)blockIdx.z * Kp * CO;
-  wk_lo += (size_t)blockIdx.z * Kp * CO;
-  const F32Halo<kFHR, kFHW> hl{&tmx, tma != 0, halo, hn,
-                               reinterpret_cast<uint64_t*>(halo + 2 * hn), x,
-                               depth, H, W, C, KZ, kFThreads,
-                               (int)blockIdx.z * (planes / depth)};
-  hl.init();
-  const int co0 = blockIdx.y * kBN;
+// Channels a staged f32 pixel holds (C rounded up to 4: 16-byte rows for
+// ldmatrix) and K of one (kz, ky) row of taps (3 pixels, rounded up to the
+// k8 step).
+__host__ __device__ __forceinline__ int f32_cs(int C) { return (C + 3) & ~3; }
+__host__ __device__ __forceinline__ int f32_kr(int C) {
+  return (3 * f32_cs(C) + 7) & ~7;
+}
+// Floats of one staged f32 plane: 18 x 18 pixels and 4 past the last (the
+// padded K reads of its last row of taps).
+__host__ __device__ __forceinline__ int f32_plane_floats(int C) {
+  return kFHR * kFHW * f32_cs(C) + 4;
+}
 
-  for (int i = threadIdx.x; i < Kp * kBN; i += kFThreads) {
-    const int k = i / kBN, c = i % kBN;
-    const int off = swz32((k / 8) * 1024 + c * 32 + (k % 8) * 4);
-    const bool ok = co0 + c < CO;
-    const size_t src = (size_t)k * CO + co0 + c;
-    *reinterpret_cast<float*>(sb + off) = ok ? wk[src] : 0.f;
-    *reinterpret_cast<float*>(sb + steps * 1024 + off) =
-        ok ? wk_lo[src] : 0.f;
+// The ring holds the kZB + KZ - 1 raw planes a step reads and, with kOwn
+// (where they fit beside the weights: C <= 12, or one z-tap), the kZB
+// planes of the next step, copied at the top of the step; without (C of
+// 13-15 at three z-taps) the next step's planes are copied into the slots
+// of the first kZB once their fragments are loaded, mid-step, behind a
+// barrier.  (The ring's depth as a run-time argument ran 13% slower at the
+// stem than six slots as a constant.)
+template <int KZ, bool kOwn>
+__global__ void __launch_bounds__(kFThreads, 1)
+few_forward_f32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w, float* __restrict__ y,
+                       int depth, int H, int W, int C, int CO, int tiles_w,
+                       int tiles, int steps, int per) {
+  constexpr int kLead = KZ / 2, kReads = kZB + 2 * kLead;
+  constexpr int kSlots = kReads + (kOwn ? kZB : 0);
+  extern __shared__ uint8_t smem_raw[];
+  const int Cs = f32_cs(C), Kr = f32_kr(C), ksr = Kr / 8;
+  const int nk = KZ * 3 * ksr;  // k8 steps
+  const int pf = f32_plane_floats(C);
+  // [B_hi: nk x 1 KB] [B_lo] [ring: kSlots planes]
+  uint8_t* sb = align_1024(smem_raw);
+  float* ring = reinterpret_cast<float*>(sb + 2 * nk * 1024);
+  const int co0 = blockIdx.y * kBN;
+  const int dsteps = (depth + kZB - 1) / kZB;
+  {  // member blockIdx.z: its planes and weights
+    const size_t plane = (size_t)(steps / tiles / dsteps * depth) * H * W;
+    x += blockIdx.z * plane * C;
+    y += blockIdx.z * plane * CO;
+    w += (size_t)blockIdx.z * KZ * 9 * C * CO;
   }
-  // the thread's k in step s: 8 s + t and 4 further (wgmma's tf32 A
-  // fragment), as halo offsets (-1 past the valid K: zero)
-  const int kvalid = KZ * 9 * C;
-  auto koff = [&](int k) {
-    if (k >= kvalid) return -1;
-    const int tap = k / C, ci = k % C;
-    return (((tap / 9) * kFHR + (tap / 3) % 3) * kFHW + tap % 3) * C + ci;
-  };
-  for (int i = threadIdx.x; i < steps * 4; i += kFThreads) {
-    const int k = (i / 4) * 8 + i % 4;
-    ktab[i] = make_int2(koff(k), koff(k + 4));
+
+  // channels past C and the tails stay zero
+  zero_smem(ring, kSlots * pf * 4, kFThreads);
+  // the weights: row k = r * Kr + kx * Cs + ci of (kz, ky) row r (zero
+  // where kx = 3 or ci >= C), split into tf32 hi and the remainder, one
+  // K-major 1 KB tile per k8 step, 32-byte rows with the 32-byte swizzle
+  for (int i = threadIdx.x; i < nk * 8 * kBN; i += kFThreads) {
+    const int k = i / kBN, c = i % kBN;
+    const int r = k / Kr, j = k - r * Kr, kx = j / Cs, ci = j - kx * Cs;
+    const bool ok = kx < 3 && ci < C && co0 + c < CO;
+    const float v = ok ? w[((size_t)(r * 3 + kx) * C + ci) * CO + co0 + c]
+                       : 0.f;
+    const uint32_t hi = round_tf32(v);
+    const int off = swz32((k / 8) * 1024 + c * 32 + (k % 8) * 4);
+    *reinterpret_cast<uint32_t*>(sb + off) = hi;
+    *reinterpret_cast<float*>(sb + nk * 1024 + off) = v - __uint_as_float(hi);
   }
   fence_proxy_async();  // the weights are read by wgmma (async proxy)
+  __syncthreads();
 
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  // this thread's fragment rows: pixels (m0 / 16, m0 % 16) and 8 further
-  const int m0 = wg * 64 + warp * 16 + g;
-  const int pix0 = ((m0 / kFW) * kFHW + m0 % kFW) * C;
-  const int pix1 = pix0 + 8 * C;
+  // the warp's row of 16 output pixels; the row this lane addresses for
+  // ldmatrix: matrix q = lane / 8 is (pixels 0-7 | 8-15) x (k 0-3 | 4-7)
+  const int orow = 4 * wg + warp;
+  const int loff = (orow * kFHW + lane % 8 + 8 * ((lane / 8) & 1)) * Cs +
+                   4 * (lane / 16);
+  const uint64_t db0 = smem_desc(sb, 16, 256, 32);
+  const uint64_t dlo = (uint64_t)(nk * 1024) >> 4;  // B_lo, 16-byte units
 
-  auto stage = [&](int b, int tile) {
-    const int n = tile / tiles_per_plane, tt = tile % tiles_per_plane;
-    hl.load(b, n, (tt / tiles_w) * kFH, (tt % tiles_w) * kFW);
-  };
+  const int s0 = blockIdx.x * per, s1 = min(steps, s0 + per);
+  for (int s = s0; s < s1; ++s) {
+    const Step st(s, dsteps, tiles, kZB);
+    const int h0 = (st.tile / tiles_w) * kFH, w0 = (st.tile % tiles_w) * kFW;
+    auto slot = [&](int p) { return ring + ((p + 1) % kSlots) * pf; };
+    auto copy = [&](int p) {
+      by_unit<float>(C, [&](auto u, auto upp) {
+        copy_plane<float, kFHR, kFHW, decltype(u)::value,
+                   decltype(upp)::value>(
+            reinterpret_cast<uint8_t*>(slot(p)), x, st.vol, p, depth, H, W,
+            C, h0, w0, kFHW, Cs * 4, kFThreads, Plain());
+      });
+    };
+    if (s == s0 || st.j == 0) {
+      // a new run of planes: its first step's planes (every slot is free
+      // once the last step's fragments are loaded)
+      __syncthreads();
+      for (int p = st.d - kLead; p < st.d + kZB + kLead; ++p) copy(p);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();  // this thread's copies of the step's planes
+    __syncthreads();     // every thread's
+    // the next step's planes: into their own slots now, or into the slots
+    // of the first kZB planes once every thread has loaded their fragments
+    const bool next = s + 1 < s1 && st.j + 1 < dsteps;
+    auto copy_next = [&]() {
+      if (next)
+        for (int p = st.d + kZB + kLead; p < st.d + 2 * kZB + kLead; ++p)
+          copy(p);
+      cp_async_commit();
+    };
+    if constexpr (kOwn) copy_next();
 
-  __syncthreads();  // the mbarriers are initialised
-  int tile = blockIdx.x;
-  if (tile < n_tiles) stage(0, tile);
-  cp_async_commit();
-  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
-    const float* hs = halo + (it & 1) * hn;
-    if (tile + (int)gridDim.x < n_tiles) stage((it + 1) & 1, tile + gridDim.x);
-    cp_async_commit();
-    cp_async_wait<1>();
-    hl.wait(it & 1, it >> 1);
-    __syncthreads();
-
-    float acc[16];
+    float acc[kZB][16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-    fence_operands(acc);
-    // kFGroup steps per wgmma group, two groups' fragments ([hi 4, lo 4]
-    // per step): the next group is gathered while the last one runs
-    uint32_t fr[2][kFGroup][8] = {};
-    auto gather = [&](int s0, uint32_t(&f)[kFGroup][8]) {
+    for (int z = 0; z < kZB; ++z) {
 #pragma unroll
-      for (int j = 0; j < kFGroup; ++j) {
-        if (s0 + j >= steps) break;
-        const int2 ko = ktab[(s0 + j) * 4 + t];
-        const float v[4] = {ko.x >= 0 ? hs[pix0 + ko.x] : 0.f,
-                            ko.x >= 0 ? hs[pix1 + ko.x] : 0.f,
-                            ko.y >= 0 ? hs[pix0 + ko.y] : 0.f,
-                            ko.y >= 0 ? hs[pix1 + ko.y] : 0.f};
+      for (int i = 0; i < 16; ++i) acc[z][i] = 0.f;
+      fence_operands(acc[z]);
+    }
+    // a k8 step of a staged plane per wgmma group: its A fragments load
+    // and split once and serve each output plane d + z it reaches (z-tap
+    // i - z); ky is the fragment set ([hi 4, lo 4]): a set loads while the
+    // group before it runs, and two groups are in flight
+    uint32_t fr[3][8];
+    auto plane = [&](int i, auto z0, auto z1) {
+      if constexpr (!kOwn) {
+        if (i == kZB) {
+          __syncthreads();
+          copy_next();
+        }
+      }
+      const float* ph = slot(st.d - kLead + i) + loff;
+      for (int j = 0; j < ksr; ++j) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint32_t hi = cvt_tf32(v[q]);
-          f[j][q] = hi;
-          f[j][4 + q] = cvt_tf32(__fsub_rn(v[q], __uint_as_float(hi)));
+        for (int ky = 0; ky < 3; ++ky) {
+          uint32_t(&hi)[4] = *reinterpret_cast<uint32_t(*)[4]>(fr[ky]);
+          uint32_t(&lo)[4] = *reinterpret_cast<uint32_t(*)[4]>(fr[ky] + 4);
+          ldmatrix_x4(hi, ph + ky * kFHW * Cs + 8 * j);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float v = __uint_as_float(hi[q]);
+            hi[q] = round_tf32(v);
+            lo[q] = __float_as_uint(v - __uint_as_float(hi[q]));
+          }
+          // the k8 step's B for ky (its (kz, ky) rows), in 16-byte units
+          const uint64_t dj = db0 + (uint64_t)((ky * ksr + j) * 64);
+          wgmma_fence();
+          // (lo, B_hi), (hi, B_lo), (hi, B_hi), the output planes
+          // alternating
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+#pragma unroll
+            for (int z = decltype(z0)::value; z < decltype(z1)::value; ++z) {
+              const uint64_t db = dj + (uint64_t)((i - z) * 3 * ksr * 64);
+              wgmma_m64n32k8_tf32(acc[z], p == 0 ? lo : hi,
+                                  p == 1 ? db + dlo : db);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
         }
       }
     };
-    auto issue = [&](int s0, uint32_t(&f)[kFGroup][8]) {
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < kFGroup; ++j) {
-        const int s = s0 + j;
-        if (s >= steps) break;
-        const uint32_t(&hi)[4] = *reinterpret_cast<uint32_t(*)[4]>(f[j]);
-        const uint32_t(&lo)[4] = *reinterpret_cast<uint32_t(*)[4]>(f[j] + 4);
-        const uint64_t db = smem_desc(sb + s * 1024, 16, 256, 32);
-        const uint64_t dbl = smem_desc(sb + (steps + s) * 1024, 16, 256, 32);
-        wgmma_m64n32k8_tf32(acc, lo, db);
-        wgmma_m64n32k8_tf32(acc, hi, dbl);
-        wgmma_m64n32k8_tf32(acc, hi, db);
-      }
-      wgmma_commit();
-    };
-    auto fence_group = [&](uint32_t(&f)[kFGroup][8]) {
-#pragma unroll
-      for (int j = 0; j < kFGroup; ++j) fence_regs(f[j]);
-    };
-    for (int s0 = 0; s0 < steps; s0 += 2 * kFGroup) {
-      gather(s0, fr[0]);
-      issue(s0, fr[0]);
-      wgmma_wait<1>();
-      fence_group(fr[1]);  // the previous group has retired
-      if (s0 + kFGroup < steps) {
-        gather(s0 + kFGroup, fr[1]);
-        issue(s0 + kFGroup, fr[1]);
-        wgmma_wait<1>();
-        fence_group(fr[0]);
-      }
+    plane(0, Int<0>(), Int<1>());
+#pragma unroll 1
+    for (int i = 1; i < kReads - 1; ++i) plane(i, Int<0>(), Int<2>());
+    plane(kReads - 1, Int<1>(), Int<2>());
+    if constexpr (!kOwn && kReads == kZB) {  // one z-tap: after every plane
+      __syncthreads();
+      copy_next();
     }
     wgmma_wait<0>();
-    fence_group(fr[0]);
-    fence_group(fr[1]);
-    fence_operands(acc);
 
-    const int n = tile / tiles_per_plane, tt = tile % tiles_per_plane;
-    const int h0 = (tt / tiles_w) * kFH, w0 = (tt % tiles_w) * kFW;
+    const int h = h0 + orow;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = m0 + 8 * i;
-      const int h = h0 + r / kFW, w = w0 + r % kFW;
-      if (h >= H || w >= W) continue;
-      float* yp = y + (((size_t)n * H + h) * W + w) * CO;
+    for (int z = 0; z < kZB; ++z) {
+      fence_operands(acc[z]);
+      if (h >= H || st.d + z >= depth) continue;
+      float* yp =
+          y + (((size_t)st.vol * depth + st.d + z) * H + h) * W * CO;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int co = co0 + 8 * j + 2 * t;
-        if (co < CO) store_pair(yp + co, acc[4 * j + 2 * i],
-                                acc[4 * j + 2 * i + 1]);
+      for (int i = 0; i < 2; ++i) {
+        const int ww = w0 + g + 8 * i;
+        if (ww >= W) continue;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int co = co0 + 8 * j + 2 * t;
+          if (co < CO)
+            store_pair(yp + (size_t)ww * CO + co, acc[z][4 * j + 2 * i],
+                       acc[z][4 * j + 2 * i + 1]);
+        }
       }
     }
-    __syncthreads();  // the halo buffer is free for the tile after next
   }
 }
 
 // ---- bf16 weight gradient --------------------------------------------------
 
-__global__ void __launch_bounds__(kBgWG * 128, 2)
+template <int KZ>
+__global__ void __launch_bounds__(kBgWG * 128, 1)
 few_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                       float* __restrict__ part, int depth, int H, int W,
-                      int C, int CO, int KZ, int tiles_w, int tiles_per_plane,
-                      int n_tiles, int tiles_per_split) {
+                      int C, int CO, int tiles_w, int tiles, int steps,
+                      int per) {
   constexpr int kThreads = kBgWG * 128;
   constexpr int kPos = kBgH * kBgW;
   constexpr int kDyBytes = kPos * kBN * 2;  // 64-byte rows, one per position
   extern __shared__ uint8_t smem_raw[];
-  // [dy x 2] [halo x 2]
+  // [dy x kBgDy] [ring: kBgRing planes]
   uint8_t* dys = align_1024(smem_raw);
-  uint8_t* halo = dys + 2 * kDyBytes;
-  const int hb = bf_halo_bytes(KZ, kBgHR, kBgHW);
+  uint8_t* ring = dys + kBgDy * kDyBytes;
+  const int sbytes = bf_slot_bytes(kBgHR, kBgHW);
 
   const int co0 = blockIdx.y * kBN;
-  const int t_begin = blockIdx.x * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
   const int ky = threadIdx.x / 128;  // the warpgroup's ky
   {  // member blockIdx.z: its planes and partial sums
-    const size_t plane = (size_t)(n_tiles / tiles_per_plane) * H * W;
+    const size_t plane = (size_t)(steps / tiles) * H * W;
     x += blockIdx.z * plane * C;
     dy += blockIdx.z * plane * CO;
     part += (size_t)blockIdx.z * gridDim.x * KZ * 9 * C * CO;
   }
 
-  zero_smem(halo, 2 * hb, kThreads);  // channels C .. 15, pixels 18, 19
-  __syncthreads();
+  zero_smem(ring, kBgRing * sbytes, kThreads);  // channels C .. 15, pixels
+  __syncthreads();                              // 18 and 19
 
-  auto stage = [&](int b, int tile) {
-    const int n = tile / tiles_per_plane, tt = tile % tiles_per_plane;
-    const int h0 = (tt / tiles_w) * kBgH, w0 = (tt % tiles_w) * kBgW;
-    stage_halo_unit<bf16, kBgHR, kBgW + 2>(halo + b * hb, x, n, depth, H, W,
-                                           C, KZ, h0, w0, kBgHW, kPx,
-                                           kThreads, Swz32());
-    uint8_t* d = dys + b * kDyBytes;
-    // 16-byte chunks of dy[n, h0 + p / 16, w0 + p % 16, co0 : co0 + 32],
-    // MN-major 64-byte rows with the 64-byte swizzle (chunk ^= bits 7-8)
-    for (int c = threadIdx.x; c < kPos * 4; c += kThreads) {
-      const int p = c / 4, j = c % 4;
-      const int h = h0 + p / kBgW, w = w0 + p % kBgW, co = co0 + 8 * j;
-      const bool ok = h < H && w < W && co < CO;
-      cp_async<16>(d + p * 64 + ((j ^ ((p >> 1) & 3)) << 4),
-                   ok ? dy + (((size_t)n * H + h) * W + w) * CO + co : dy,
-                   ok);
-    }
-  };
-
-  float acc[3][16];
+  float acc[KZ][16];
 #pragma unroll
-  for (int kz = 0; kz < 3; ++kz) {
+  for (int kz = 0; kz < KZ; ++kz) {
 #pragma unroll
     for (int q = 0; q < 16; ++q) acc[kz][q] = 0.f;
     fence_operands(acc[kz]);
   }
-  if (t_begin < t_end) stage(0, t_begin);
-  cp_async_commit();
-  for (int it = 0, tile = t_begin; tile < t_end; ++it, ++tile) {
+  constexpr int lead = KZ / 2;
+  // descriptors: the ring's first slot at the warpgroup's halo row ky, and
+  // the first dy tile; a step adds constant offsets (16-byte units)
+  const uint64_t da0 =
+      smem_desc(ring + ky * kBgHW * kPx, kPx, 8 * kPx, kPx);
+  const uint64_t db0 = smem_desc(dys, kDyBytes, 512, 64);
+  const int s0 = blockIdx.x * per, s1 = min(steps, s0 + per);
+  for (int s = s0, i = 0; s < s1; ++s, ++i) {
+    const Step st(s, depth, tiles, 1);
+    const int h0 = (st.tile / tiles_w) * kBgH, w0 = (st.tile % tiles_w) * kBgW;
+    auto slot = [&](int p) { return ring + ((p + 1) % kBgRing) * sbytes; };
+    auto dslot = [&](int k) { return dys + (k % kBgDy) * kDyBytes; };
+    auto copy = [&](int p) {
+      by_unit<bf16>(C, [&](auto u, auto upp) {
+        copy_plane<bf16, kBgHR, kBgW + 2, decltype(u)::value,
+                   decltype(upp)::value>(slot(p), x, st.vol, p, depth, H, W,
+                                         C, h0, w0, kBgHW, kPx, kThreads,
+                                         Swz32());
+      });
+    };
+    // 16-byte chunks of dy[plane, h0 + q / 16, w0 + q % 16, co0 : co0 +
+    // 32], MN-major 64-byte rows with the 64-byte swizzle (chunk ^= bits
+    // 7-8)
+    auto copy_dy = [&](int k, int d) {
+      uint8_t* dd = dslot(k);
+      const bf16* dp = dy + ((size_t)st.vol * depth + d) * H * W * CO;
+      for (int c = threadIdx.x; c < kPos * 4; c += kThreads) {
+        const int q = c / 4, j = c % 4;
+        const int h = h0 + q / kBgW, ww = w0 + q % kBgW, co = co0 + 8 * j;
+        const bool ok = h < H && ww < W && co < CO;
+        cp_async<16>(dd + q * 64 + ((j ^ ((q >> 1) & 3)) << 4),
+                     ok ? dp + ((size_t)h * W + ww) * CO + co : dy, ok);
+      }
+    };
+    if (s == s0 || st.d == 0) {
+      // a new run of planes: every group retired, every slot free
+      wgmma_wait<0>();
+      __syncthreads();
+      for (int p = st.d - lead; p <= st.d + lead; ++p) copy(p);
+      copy_dy(i, st.d);
+      cp_async_commit();
+    }
     cp_async_wait<0>();
     fence_proxy_async();  // halo and dy are read by wgmma (async proxy)
     __syncthreads();
-    const uint8_t* hs = halo + (it & 1) * hb;
-    const uint8_t* d = dys + (it & 1) * kDyBytes;
+    // the next step's plane and dy tile, into slots that neither this
+    // step's group nor the last one (still running) reads
+    if (s + 1 < s1 && st.d + 1 < depth) {
+      copy(st.d + lead + 1);
+      copy_dy(i + 1, st.d + 1);
+    }
+    cp_async_commit();
+
+    const uint64_t db = db0 + (uint64_t)((i % kBgDy) * (kDyBytes >> 4));
     wgmma_fence();
 #pragma unroll
-    for (int kz = 0; kz < 3; ++kz) {
-      if (kz >= KZ) break;
+    for (int kz = 0; kz < KZ; ++kz) {
+      const uint64_t da =
+          da0 + (uint64_t)(((st.d - lead + kz + 1) % kBgRing) *
+                           (sbytes >> 4));
 #pragma unroll
-      for (int r = 0; r < kBgH; ++r) {
+      for (int r = 0; r < kBgH; ++r)
         // K: the 16 positions of row r; M: (kx, ci), atom kx one pixel on
-        const uint8_t* a = hs + (kz * kBgHR + r + ky) * kBgHW * kPx;
-        wgmma_m64n32k16<1, 1>(acc[kz], smem_desc(a, kPx, 8 * kPx, kPx),
-                              smem_desc(d + r * 16 * 64, kDyBytes, 512, 64));
-      }
+        wgmma_m64n32k16<1, 1>(acc[kz], da + r * (kBgHW * kPx >> 4),
+                              db + r * (16 * 64 >> 4));
     }
     wgmma_commit();
     wgmma_wait<1>();
-    __syncthreads();  // every warpgroup has retired the previous stage
-    if (tile + 1 < t_end) stage((it + 1) & 1, tile + 1);
-    cp_async_commit();
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int kz = 0; kz < 3; ++kz) fence_operands(acc[kz]);
+  for (int kz = 0; kz < KZ; ++kz) fence_operands(acc[kz]);
 
   // rows of warp w: kx = w (w = 3 is padding), ci = g, g + 8
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
@@ -694,8 +772,7 @@ few_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   if (warp == 3) return;
   float* out = part + (size_t)blockIdx.x * KZ * 9 * C * CO;
 #pragma unroll
-  for (int kz = 0; kz < 3; ++kz) {
-    if (kz >= KZ) break;
+  for (int kz = 0; kz < KZ; ++kz) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int ci = g + 8 * i;
@@ -714,201 +791,250 @@ few_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
 // ---- f32 weight gradient ---------------------------------------------------
 
-// MT: m64 tiles per warpgroup (the warpgroup's tiles are wg, wg + 6, ...).
-template <int MT>
+// Floats of the A buffer: (hi, lo) x 3 kx-shifted copies x C channels of
+// kGCh floats.
+__host__ __device__ __forceinline__ int f32_abuf_floats(int C) {
+  return 2 * 3 * C * kGCh;
+}
+
+// The raw x plane (kGHR x kGHW pixels of C floats), split, into the three
+// kx-shifted channel-major copies of A: A_kx[ci][r * kGW + q] = x[r][q +
+// kx][ci], hi at ah and the remainder at al.  CC: C where it is a
+// constant (the stem's 12), 0 where it is not.
+template <int CC>
+__device__ __forceinline__ void convert_x(const float* __restrict__ raw,
+                                          float* ah, float* al, int C_) {
+  const int C = CC > 0 ? CC : C_;
+  for (int e = threadIdx.x; e < 3 * C * kGHR * kGW; e += kGThreads) {
+    const int ci = e % C, j = e / C;
+    const int q = j % kGW, r = (j / kGW) % kGHR, kx = j / (kGW * kGHR);
+    const float v = raw[(r * kGHW + q + kx) * C + ci];
+    const float hv = __uint_as_float(round_tf32(v));
+    const int o = (kx * C + ci) * kGCh + r * kGW + q;
+    ah[o] = hv;
+    al[o] = v - hv;
+  }
+}
+
+template <int KZ>
 __global__ void __launch_bounds__(kGThreads, 1)
-few_wgrad_f32_kernel(const __grid_constant__ CUtensorMap tmx, int tma,
-                     const float* __restrict__ x, const float* __restrict__ dy,
+few_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                      float* __restrict__ part, int depth, int H, int W, int C,
-                     int CO, int KZ, int tiles_w, int tiles_per_plane,
-                     int n_tiles, int tiles_per_split) {
-  constexpr int kDyBytes = kGPos * kRawRow * 4;
-  constexpr int kSteps = kGPos / 8;
+                     int CO, int tiles_w, int tiles, int steps, int per) {
   extern __shared__ uint8_t smem_raw[];
-  // [dyT_hi, dyT_lo] [dy x 2] [halo x 2] [promoted sums] [2 mbarriers]
+  const int mrows = 9 * C;  // (ky, kx, ci); the z-taps are accumulators
+  const int mgroups = ((mrows + 63) / 64 + kGMT - 1) / kGMT;
+  // [dyT ring: kGDy x (hi, lo)] [A] [raw x x 2] [raw dy x 2] [promoted
+  // sums]
   uint8_t* dyt = align_1024(smem_raw);
-  uint8_t* dys = dyt + 2 * kDyT;
-  const int hn = f32_halo_floats(KZ, kGHR, kGHW, C);
-  float* halo = reinterpret_cast<float*>(dys + 2 * kDyBytes);
-  // tot[(i * 16 + q) * kGThreads + thread]: the rounded sums the
-  // accumulators are promoted into (registers hold two fragment sets and
-  // two accumulators per tile instead)
-  float* tot = halo + 2 * hn;
-  // member blockIdx.z: its planes and partial sums
-  const int planes = n_tiles / tiles_per_plane;
-  x += blockIdx.z * (size_t)planes * H * W * C;
-  dy += blockIdx.z * (size_t)planes * H * W * CO;
-  part += (size_t)blockIdx.z * gridDim.x * KZ * 9 * C * CO;
-  const F32Halo<kGHR, kGHW> hl{&tmx, tma != 0, halo, hn,
-                               reinterpret_cast<uint64_t*>(
-                                   tot + MT * 16 * kGThreads),
-                               x, depth, H, W, C, KZ, kGThreads,
-                               (int)blockIdx.z * (planes / depth)};
-  hl.init();
-
-  const int co0 = blockIdx.y * kBN;
-  const int t_begin = blockIdx.x * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-
+  const int af = f32_abuf_floats(C);
+  float* ah = reinterpret_cast<float*>(dyt + kGDy * 2 * kDyT);
+  float* al = ah + af / 2;
+  float* rawx = ah + af;
+  const int rxf = kGHR * kGHW * C;
+  float* rawdy = rawx + 2 * rxf;
+  // tot[(kz * 16 + q) * kGThreads + thread]: the rounded sums the
+  // accumulators are promoted into
+  float* tot = rawdy + 2 * kGPos * kRawRow;
+  {  // member blockIdx.z: its planes and partial sums
+    const size_t plane = (size_t)(steps / tiles) * H * W;
+    x += blockIdx.z * plane * C;
+    dy += blockIdx.z * plane * CO;
+    part += (size_t)blockIdx.z * gridDim.x * KZ * 9 * C * CO;
+  }
+  const int co0 = (blockIdx.y / mgroups) * kBN;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  // M rows m = (tap, ci), tap-major as dW; this thread's fragment rows in
-  // its warpgroup's m64 tiles: their halo offsets at position 0, -1 past
-  // KZ x 9 x C
-  const int mrows = KZ * 9 * C;
-  const int my_tiles =
-      min(MT, ((mrows + 63) / 64 - wg + kGWG - 1) / kGWG);
-  int roff[MT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = 64 * (wg + kGWG * i) + 16 * warp + g + 8 * r;
+  // warpgroup wg: m64 tile mt of the block's row (a tile past the last,
+  // C = 15's, runs on rows past 9 x C: no branch around its wgmmas, which
+  // ptxas would serialize, C7518) and half kh of each step's positions
+  const int mt = (blockIdx.y % mgroups) * kGMT + wg % kGMT;
+  const int kh = wg / kGMT;
+  // this lane's ldmatrix row m = (ky, kx, ci): its offset in A at position
+  // 0 (rows past 9 x C read row 0 and are dropped); matrix lane / 8 is
+  // (rows 0-7 | 8-15) x (positions 0-3 | 4-7)
+  int loff = 4 * (lane / 16);
+  {
+    const int m = 64 * mt + 16 * warp + lane % 8 + 8 * ((lane / 8) & 1);
+    if (m < mrows) {
       const int tap = m / C, ci = m % C;
-      roff[i][r] =
-          m < mrows
-              ? (((tap / 9) * kGHR + (tap / 3) % 3) * kGHW + tap % 3) * C + ci
-              : -1;
+      loff += ((tap % 3) * C + ci) * kGCh + (tap / 3) * kGW;
     }
-
-  // per tile: [0] the hi B_hi products, [1] the corrections lo B_hi and
-  // hi B_lo (two chains of dependent wgmmas, not one)
-  float acc[MT][2][16];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-#pragma unroll
-      for (int q = 0; q < 16; ++q) acc[i][p][q] = 0.f;
-      fence_operands(acc[i][p]);
-    }
-#pragma unroll
-    for (int q = 0; q < 16; ++q)
-      tot[(i * 16 + q) * kGThreads + threadIdx.x] = 0.f;
   }
+  constexpr int lead = KZ / 2;
+  // the dy ring's descriptor (a slot adds 2 kDyT, a k8 step 1 KB, lo kDyT)
+  const uint64_t db0 = smem_desc(dyt, 16, 256, 32);
 
-  auto stage = [&](int b, int tile) {
-    const int n = tile / tiles_per_plane, tt = tile % tiles_per_plane;
-    const int h0 = (tt / tiles_w) * kGH, w0 = (tt % tiles_w) * kGW;
-    hl.load(b, n, h0, w0);
-    uint8_t* d = dys + b * kDyBytes;
-    // 16-byte chunks of dy[n, h0 + p / 16, w0 + p % 16, co0 : co0 + 32],
-    // plain rows of kRawRow floats
-    for (int c = threadIdx.x; c < kGPos * 8; c += kGThreads) {
-      const int p = c / 8, j = c % 8;
-      const int h = h0 + p / kGW, w = w0 + p % kGW, co = co0 + 4 * j;
-      const bool ok = h < H && w < W && co < CO;
-      cp_async<16>(d + p * kRawRow * 4 + j * 16,
-                   ok ? dy + (((size_t)n * H + h) * W + w) * CO + co : dy,
-                   ok);
+  float acc[KZ][16];
+#pragma unroll
+  for (int kz = 0; kz < KZ; ++kz) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      acc[kz][q] = 0.f;
+      tot[(kz * 16 + q) * kGThreads + threadIdx.x] = 0.f;
+    }
+    fence_operands(acc[kz]);
+  }
+  // the accumulators' sums, added into tot with rounding (the tensor
+  // cores truncate)
+  auto promote = [&]() {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kz = 0; kz < KZ; ++kz) {
+      fence_operands(acc[kz]);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        tot[(kz * 16 + q) * kGThreads + threadIdx.x] += acc[kz][q];
+        acc[kz][q] = 0.f;
+      }
+      fence_operands(acc[kz]);
     }
   };
+  uint32_t fr[3][8];  // [set][hi 4, lo 4]
 
-  uint32_t fr[2][8] = {};  // [buffer][hi 4, lo 4]
-  __syncthreads();  // the mbarriers are initialised
-  if (t_begin < t_end) stage(0, t_begin);
-  cp_async_commit();
-  for (int it = 0, tile = t_begin; tile < t_end; ++it, ++tile) {
-    const int b = it & 1;
-    if (tile + 1 < t_end) stage(b ^ 1, tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    hl.wait(b, it >> 1);
-    const float* hs = halo + b * hn;
-    const float* d = reinterpret_cast<const float*>(dys + b * kDyBytes);
-    // dyT[s][co][8 positions] = tf32 hi and remainder of dy, K-major
-    // 32-byte rows with the 32-byte swizzle, one 1 KB tile per k8 step
-    __syncthreads();
-    {
-      const int co = (threadIdx.x / 8) % kBN, j8 = threadIdx.x % 8;
-#pragma unroll
-      for (int s = threadIdx.x / (8 * kBN); s < kSteps;
-           s += kGThreads / (8 * kBN)) {
-        const float v = d[(8 * s + j8) * kRawRow + co];
-        const uint32_t hi = cvt_tf32(v);
-        const int off = swz32(s * 1024 + co * 32 + j8 * 4);
-        *reinterpret_cast<uint32_t*>(dyt + off) = hi;
-        *reinterpret_cast<float*>(dyt + kDyT + off) =
-            __fsub_rn(v, __uint_as_float(hi));
+  const int s0 = blockIdx.x * per, s1 = min(steps, s0 + per);
+  for (int s = s0, i = 0; s < s1; ++s, ++i) {
+    const Step st(s, depth, tiles, 1);
+    const int h0 = (st.tile / tiles_w) * kGH, w0 = (st.tile % tiles_w) * kGW;
+    // dy plane n's slot of the ring (n >= -1)
+    auto dslot = [&](int n) { return dyt + ((n + 1) & (kGDy - 1)) * 2 * kDyT; };
+    // step s + k walks on in this tile
+    auto walks_to = [&](int k) { return s + k < s1 && st.d + k < depth; };
+    // x plane p and dy plane n into raw buffer b (cp.async)
+    auto copy_x = [&](int p, int b) {
+      by_unit<float>(C, [&](auto u, auto upp) {
+        copy_plane<float, kGHR, kGHW, decltype(u)::value,
+                   decltype(upp)::value>(
+            reinterpret_cast<uint8_t*>(rawx + b * rxf), x, st.vol, p, depth,
+            H, W, C, h0, w0, kGHW, C * 4, kGThreads, Plain());
+      });
+    };
+    auto copy_dy = [&](int n, int b) {
+      const bool in = n >= 0 && n < depth;
+      const float* dp =
+          dy + ((size_t)st.vol * depth + (in ? n : 0)) * H * W * CO;
+      float* rd = rawdy + b * kGPos * kRawRow;
+      for (int c = threadIdx.x; c < kGPos * 8; c += kGThreads) {
+        const int q = c / 8, j = c % 8;
+        const int h = h0 + q / kGW, ww = w0 + q % kGW, co = co0 + 4 * j;
+        const bool ok = in && h < H && ww < W && co < CO;
+        cp_async<16>(rd + q * kRawRow + 4 * j,
+                     ok ? dp + ((size_t)h * W + ww) * CO + co : dy, ok);
       }
+    };
+    // raw dy buffer b, split, into n's slot: dyT[k8 step][co][8
+    // positions] = tf32 hi and remainder, K-major 32-byte rows with the
+    // 32-byte swizzle, one 1 KB tile per k8 step (a row of 8 positions)
+    auto convert_dy = [&](int n, int b) {
+      uint8_t* dh = dslot(n);
+      const float* rd = rawdy + b * kGPos * kRawRow;
+      const int co = (threadIdx.x / 8) % kBN, j8 = threadIdx.x % 8;
+      for (int k = threadIdx.x / (8 * kBN); k < kGH;
+           k += kGThreads / (8 * kBN)) {
+        const float v = rd[(8 * k + j8) * kRawRow + co];
+        const uint32_t hi = round_tf32(v);
+        const int off = swz32(k * 1024 + co * 32 + j8 * 4);
+        *reinterpret_cast<uint32_t*>(dh + off) = hi;
+        *reinterpret_cast<float*>(dh + kDyT + off) = v - __uint_as_float(hi);
+      }
+    };
+    // Step s stages x plane d and dy plane d + lead through raw buffer i %
+    // 2, as cp.async group G(s); the groups are committed in step order,
+    // one a step (empty where the walk ends), G(s + 2) during step s, so
+    // that at the top of step s only G(s + 1) may still be in flight.
+    if (st.d == 0 || s == s0) {
+      // a new run of planes: every group retired (the dy slots are free),
+      // its dy planes before d + lead one at a time, then G(s), G(s + 1)
+      wgmma_wait<0>();
+      __syncthreads();
+      for (int n = st.d - lead; n < st.d + lead; ++n) {
+        copy_dy(n, i % 2);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        convert_dy(n, i % 2);
+        __syncthreads();
+      }
+      copy_x(st.d, i % 2);
+      copy_dy(st.d + lead, i % 2);
+      cp_async_commit();
+      if (walks_to(1)) {
+        copy_x(st.d + 1, (i + 1) % 2);
+        copy_dy(st.d + 1 + lead, (i + 1) % 2);
+      }
+      cp_async_commit();
     }
+    cp_async_wait<1>();  // G(s)
+    __syncthreads();
+    // x plane d into A (the last step's fragments are loaded), dy plane d
+    // + lead into the slot of plane d + lead - 4 (the last step's groups
+    // read d + lead - 3 .. d + lead - 1)
+    if (C == 12)
+      convert_x<12>(rawx + (i % 2) * rxf, ah, al, C);
+    else
+      convert_x<0>(rawx + (i % 2) * rxf, ah, al, C);
+    convert_dy(st.d + lead, i % 2);
     fence_proxy_async();  // dyT is read by wgmma (async proxy)
     __syncthreads();
+    // G(s + 2), into the raw buffers just converted
+    if (walks_to(2)) {
+      copy_x(st.d + 2, i % 2);
+      copy_dy(st.d + 2 + lead, i % 2);
+    }
+    cp_async_commit();
 
+    // one k8 step (a row of 8 positions) per wgmma group, three a step (a
+    // half of its rows): A loads once for the KZ z-taps, each its own dy
+    // plane (x plane d pairs with dy plane d + lead - kz) and accumulator;
+    // the fragment sets rotate across steps, two groups in flight
+    uint64_t db[KZ];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i >= my_tiles) break;  // uniform over the warpgroup
-      const int ra = roff[i][0], rb = roff[i][1];
+    for (int kz = 0; kz < KZ; ++kz)
+      db[kz] = db0 + (uint64_t)(((st.d + lead - kz + 1) & (kGDy - 1)) *
+                                (2 * kDyT >> 4) + kh * (kGH / 2) * 64);
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        uint32_t(&f)[8] = fr[s & 1];
-        // k8 step s: positions (s / 2, 8 (s % 2) + t) and 4 further
-        const int p0 = ((s / 2) * kGHW + 8 * (s % 2) + t) * C;
-        const float v[4] = {ra >= 0 ? hs[ra + p0] : 0.f,
-                            rb >= 0 ? hs[rb + p0] : 0.f,
-                            ra >= 0 ? hs[ra + p0 + 4 * C] : 0.f,
-                            rb >= 0 ? hs[rb + p0 + 4 * C] : 0.f};
+    for (int k = 0; k < kGH / 2; ++k) {
+      const int row = kh * (kGH / 2) + k;
+      uint32_t(&hi)[4] = *reinterpret_cast<uint32_t(*)[4]>(fr[k]);
+      uint32_t(&lo)[4] = *reinterpret_cast<uint32_t(*)[4]>(fr[k] + 4);
+      ldmatrix_x4(hi, ah + loff + row * kGW);
+      ldmatrix_x4(lo, al + loff + row * kGW);
+      wgmma_fence();
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint32_t hi = cvt_tf32(v[q]);
-          f[q] = hi;
-          f[4 + q] = cvt_tf32(__fsub_rn(v[q], __uint_as_float(hi)));
-        }
-        const uint32_t(&hi)[4] = *reinterpret_cast<uint32_t(*)[4]>(f);
-        const uint32_t(&lo)[4] = *reinterpret_cast<uint32_t(*)[4]>(f + 4);
-        const uint64_t bh = smem_desc(dyt + s * 1024, 16, 256, 32);
-        const uint64_t bl = smem_desc(dyt + kDyT + s * 1024, 16, 256, 32);
-        wgmma_fence();
-        wgmma_m64n32k8_tf32(acc[i][1], lo, bh);
-        wgmma_m64n32k8_tf32(acc[i][0], hi, bh);
-        wgmma_m64n32k8_tf32(acc[i][1], hi, bl);
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_regs(fr[(s + 1) & 1]);  // the previous step's group retired
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int kz = 0; kz < KZ; ++kz)
+          wgmma_m64n32k8_tf32(acc[kz], p == 0 ? lo : hi,
+                              db[kz] + k * 64 + (p == 1 ? kDyT >> 4 : 0));
       }
+      wgmma_commit();
+      wgmma_wait<1>();
     }
-    wgmma_wait<0>();
-    fence_regs(fr[0]);
-    fence_regs(fr[1]);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      fence_operands(acc[i][0]);
-      fence_operands(acc[i][1]);
-    }
-    if ((it + 1) % kPromote == 0) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-#pragma unroll
-        for (int q = 0; q < 16; ++q) {
-          tot[(i * 16 + q) * kGThreads + threadIdx.x] +=
-              acc[i][0][q] + acc[i][1][q];
-          acc[i][0][q] = acc[i][1][q] = 0.f;
-        }
-        fence_operands(acc[i][0]);
-        fence_operands(acc[i][1]);
-      }
-    }
-    __syncthreads();  // this stage's buffers are free for the next refill
+    if ((i + 1) % kPromote == 0) promote();
   }
-
+  promote();
+  __syncthreads();
+  // the two halves' sums, in order, by the warpgroups of half 0
+  if (kh != 0) return;
   float* out = part + (size_t)blockIdx.x * KZ * 9 * C * CO;
+  const int other = threadIdx.x + kGMT * 128;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    if (i >= my_tiles) break;
+  for (int kz = 0; kz < KZ; ++kz) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int m = 64 * (wg + kGWG * i) + 16 * warp + g + 8 * r;
-      if (roff[i][r] < 0) continue;
+      const int m = 64 * mt + 16 * warp + g + 8 * r;
+      if (m >= mrows) continue;
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int co = co0 + 8 * j + 2 * t;
-        const int q = 4 * j + 2 * r;
-        const float* tq = tot + (i * 16 + q) * kGThreads + threadIdx.x;
+        const int q = kz * 16 + 4 * j + 2 * r;
         if (co < CO)
-          *reinterpret_cast<float2*>(out + (size_t)m * CO + co) =
-              make_float2(tq[0] + (acc[i][0][q] + acc[i][1][q]),
-                          tq[kGThreads] +
-                              (acc[i][0][q + 1] + acc[i][1][q + 1]));
+          *reinterpret_cast<float2*>(out + (size_t)(kz * mrows + m) * CO +
+                                     co) =
+              make_float2(tot[q * kGThreads + threadIdx.x] +
+                              tot[q * kGThreads + other],
+                          tot[(q + 1) * kGThreads + threadIdx.x] +
+                              tot[(q + 1) * kGThreads + other]);
       }
     }
   }
@@ -940,158 +1066,124 @@ cudaError_t allow_smem(K kernel, int smem, int& configured) {
   return e;
 }
 
-// Blocks for a persistent grid: as many as the device holds at once, split
-// over `co_tiles` output-channel tiles (of each member), at most one per
-// tile.
-template <typename K>
-int persistent_blocks(K kernel, int threads, int smem, int n_tiles,
-                      int co_tiles, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return static_cast<int>(e);
-  *blocks =
-      std::max(1, std::min(n_tiles, std::max(1, per_sm) * sms / co_tiles));
-  return 0;
-}
+// The walk of one launch: th x tw tiles of a member's planes, its steps
+// (tiles x ceil(depth / zb) per volume: zb output planes a step) and the
+// steps of each of `blocks` blocks; false where `blocks` is not a count
+// kernels/conv3x3.py::few_plan gives (every block walks at least one step).
+struct Walk {
+  int tiles_w, tiles, steps, per;
+  bool init(int N, int members, int depth, int zb, int H, int W, int th,
+            int tw, int blocks) {
+    tiles_w = (W + tw - 1) / tw;
+    tiles = ((H + th - 1) / th) * tiles_w;
+    steps = N / members / depth * ((depth + zb - 1) / zb) * tiles;
+    if (blocks <= 0 || blocks > steps) return false;
+    per = (steps + blocks - 1) / blocks;
+    return (blocks - 1) * per < steps;
+  }
+};
 
-int launch_forward_bf16(const void* x, const void* wk, void* y, int N,
+template <int KZ>
+int launch_forward_bf16(const void* x, const void* w, void* y, int N,
                         int members, int depth, int H, int W, int C, int CO,
-                        int KZ, int Kp, cudaStream_t s) {
-  if (Kp != KZ * 9 * 16) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 1024 + KZ * 9 * 1024 + 2 * bf_halo_bytes(KZ, kBfHR, kBfHW);
+                        int blocks, cudaStream_t s) {
+  Walk wk;
+  if (!wk.init(N, members, depth, kZB, H, W, kBfWG, kBfRow, blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 1024 + KZ * 9 * 1024 +
+                   (2 * kZB + KZ - 1) * bf_slot_bytes(kBfHR, kBfHW);
   static int configured = 0;
-  const cudaError_t e = allow_smem(few_forward_bf16_kernel, smem, configured);
+  const cudaError_t e =
+      allow_smem(few_forward_bf16_kernel<KZ>, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles_w = (W + kBfRow - 1) / kBfRow;
-  const int tiles_per_plane = ((H + kBfWG - 1) / kBfWG) * tiles_w;
-  const int n_tiles = N / members * tiles_per_plane;  // one member's
-  const int co_tiles = (CO + kBN - 1) / kBN;
-  int blocks = 0;
-  const int err = persistent_blocks(few_forward_bf16_kernel, kBfWG * 128,
-                                    smem, n_tiles, co_tiles * members,
-                                    &blocks);
-  if (err != 0) return err;
-  few_forward_bf16_kernel<<<dim3(blocks, co_tiles, members), kBfWG * 128,
-                            smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wk),
-      static_cast<bf16*>(y), depth, H, W, C, CO, KZ, tiles_w,
-      tiles_per_plane, n_tiles);
+  few_forward_bf16_kernel<KZ><<<dim3(blocks, (CO + kBN - 1) / kBN, members),
+                                kBfWG * 128, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<bf16*>(y), depth, H, W, C, CO, wk.tiles_w, wk.tiles,
+      wk.steps, wk.per);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TMA map of an f32 halo box (KZ planes x HR rows x HW pixels x C) of
-// x seen as (volumes, depth, H, W, C): built where C % 4 == 0 (TMA needs
-// 16-byte strides between pixels); *tma = 0 elsewhere (cp.async).
-bool f32_halo_map(CUtensorMap* map, int* tma, const void* x, int N,
-                  int depth, int H, int W, int C, int KZ, int HR, int HW) {
-  *tma = 0;
-  if (C % 4 != 0) return true;
-  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)depth, (cuuint64_t)(N / depth)};
-  const cuuint64_t strides[4] = {
-      (cuuint64_t)C * 4, (cuuint64_t)W * C * 4, (cuuint64_t)H * W * C * 4,
-      (cuuint64_t)depth * H * W * C * 4};
-  const cuuint32_t box[5] = {(cuuint32_t)C, (cuuint32_t)HW, (cuuint32_t)HR,
-                             (cuuint32_t)KZ, 1};
-  if (!make_map(map, x, 5, dims, strides, box,
-                CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, false))
-    return false;
-  *tma = 1;
-  return true;
-}
-
-int launch_forward_f32(const void* x, const void* wk, const void* wk_lo,
-                       void* y, int N, int members, int depth, int H, int W,
-                       int C, int CO, int KZ, int Kp, cudaStream_t s) {
-  if (Kp != (KZ * 9 * C + 7) / 8 * 8 || wk_lo == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tmx = {};
-  int tma = 0;
-  if (!f32_halo_map(&tmx, &tma, x, N, depth, H, W, C, KZ, kFHR, kFHW))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int steps = Kp / 8;
-  const int smem = 1024 + 2 * steps * 1024 +
-                   (steps * 32 + 1023) / 1024 * 1024 +
-                   2 * f32_halo_floats(KZ, kFHR, kFHW, C) * 4 + 16;
+template <int KZ, bool kOwn>
+int launch_forward_f32_ring(const void* x, const void* w, void* y,
+                            int members, int depth, int H, int W, int C,
+                            int CO, int blocks, const Walk& wk, int smem,
+                            cudaStream_t s) {
   static int configured = 0;
-  const cudaError_t e = allow_smem(few_forward_f32_kernel, smem, configured);
+  const cudaError_t e =
+      allow_smem(few_forward_f32_kernel<KZ, kOwn>, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles_w = (W + kFW - 1) / kFW;
-  const int tiles_per_plane = ((H + kFH - 1) / kFH) * tiles_w;
-  const int n_tiles = N / members * tiles_per_plane;  // one member's
-  const int co_tiles = (CO + kBN - 1) / kBN;
-  int blocks = 0;
-  const int err = persistent_blocks(few_forward_f32_kernel, kFThreads, smem,
-                                    n_tiles, co_tiles * members, &blocks);
-  if (err != 0) return err;
-  few_forward_f32_kernel<<<dim3(blocks, co_tiles, members), kFThreads, smem,
-                           s>>>(
-      tmx, tma, static_cast<const float*>(x), static_cast<const float*>(wk),
-      static_cast<const float*>(wk_lo), static_cast<float*>(y), depth, H, W,
-      C, CO, KZ, Kp, tiles_w, tiles_per_plane, n_tiles);
+  few_forward_f32_kernel<KZ, kOwn>
+      <<<dim3(blocks, (CO + kBN - 1) / kBN, members), kFThreads, smem, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w),
+          static_cast<float*>(y), depth, H, W, C, CO, wk.tiles_w, wk.tiles,
+          wk.steps, wk.per);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int KZ>
+int launch_forward_f32(const void* x, const void* w, void* y, int N,
+                       int members, int depth, int H, int W, int C, int CO,
+                       int blocks, cudaStream_t s) {
+  Walk wk;
+  if (!wk.init(N, members, depth, kZB, H, W, kFH, kFW, blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the ring: the next step's planes in slots of their own where they fit
+  const int nk = KZ * 3 * f32_kr(C) / 8;
+  const int fixed = 1024 + 2 * nk * 1024, plane = f32_plane_floats(C) * 4;
+  const int own = fixed + (2 * kZB + KZ - 1) * plane;
+  if (own <= kSmemMax)
+    return launch_forward_f32_ring<KZ, true>(x, w, y, members, depth, H, W,
+                                             C, CO, blocks, wk, own, s);
+  if constexpr (KZ == 3)
+    return launch_forward_f32_ring<KZ, false>(
+        x, w, y, members, depth, H, W, C, CO, blocks, wk,
+        fixed + (kZB + KZ - 1) * plane, s);
+  return static_cast<int>(cudaErrorInvalidValue);  // one z-tap fits at any C
+}
+
+template <int KZ>
 int launch_wgrad_bf16(const void* x, const void* dy, float* part, int N,
                       int members, int depth, int H, int W, int C, int CO,
-                      int KZ, int splits, cudaStream_t s) {
-  const int smem = 1024 + 2 * kBgH * kBgW * kBN * 2 +
-                   2 * bf_halo_bytes(KZ, kBgHR, kBgHW);
+                      int splits, cudaStream_t s) {
+  Walk wk;
+  if (!wk.init(N, members, depth, 1, H, W, kBgH, kBgW, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 1024 + kBgDy * kBgH * kBgW * kBN * 2 +
+                   kBgRing * bf_slot_bytes(kBgHR, kBgHW);
   static int configured = 0;
-  const cudaError_t e = allow_smem(few_wgrad_bf16_kernel, smem, configured);
+  const cudaError_t e =
+      allow_smem(few_wgrad_bf16_kernel<KZ>, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles_w = (W + kBgW - 1) / kBgW;
-  const int tiles_per_plane = ((H + kBgH - 1) / kBgH) * tiles_w;
-  const int n_tiles = N / members * tiles_per_plane;  // one member's
-  few_wgrad_bf16_kernel<<<dim3(splits, (CO + kBN - 1) / kBN, members),
-                          kBgWG * 128, smem, s>>>(
+  few_wgrad_bf16_kernel<KZ><<<dim3(splits, (CO + kBN - 1) / kBN, members),
+                              kBgWG * 128, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dy), part, depth,
-      H, W, C, CO, KZ, tiles_w, tiles_per_plane, n_tiles,
-      (n_tiles + splits - 1) / splits);
+      H, W, C, CO, wk.tiles_w, wk.tiles, wk.steps, wk.per);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT>
+template <int KZ>
 int launch_wgrad_f32(const void* x, const void* dy, float* part, int N,
                      int members, int depth, int H, int W, int C, int CO,
-                     int KZ, int splits, cudaStream_t s) {
-  CUtensorMap tmx = {};
-  int tma = 0;
-  if (!f32_halo_map(&tmx, &tma, x, N, depth, H, W, C, KZ, kGHR, kGHW))
+                     int splits, cudaStream_t s) {
+  Walk wk;
+  if (!wk.init(N, members, depth, 1, H, W, kGH, kGW, splits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 1024 + 2 * kDyT + 2 * kGPos * kRawRow * 4 +
-                   2 * f32_halo_floats(KZ, kGHR, kGHW, C) * 4 +
-                   MT * 16 * kGThreads * 4 + 16;
+  // the m64 tiles of the 9 x C rows, two a block (C = 15: three, a second
+  // block row)
+  const int mgroups = ((9 * C + 63) / 64 + kGMT - 1) / kGMT;
+  const int smem = 1024 + kGDy * 2 * kDyT + f32_abuf_floats(C) * 4 +
+                   2 * kGHR * kGHW * C * 4 + 2 * kGPos * kRawRow * 4 +
+                   KZ * 16 * kGThreads * 4;
   static int configured = 0;
-  const cudaError_t e = allow_smem(few_wgrad_f32_kernel<MT>, smem, configured);
+  const cudaError_t e = allow_smem(few_wgrad_f32_kernel<KZ>, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles_w = (W + kGW - 1) / kGW;
-  const int tiles_per_plane = ((H + kGH - 1) / kGH) * tiles_w;
-  const int n_tiles = N / members * tiles_per_plane;  // one member's
-  few_wgrad_f32_kernel<MT><<<dim3(splits, (CO + kBN - 1) / kBN, members),
+  few_wgrad_f32_kernel<KZ><<<dim3(splits, (CO + kBN - 1) / kBN * mgroups,
+                                  members),
                              kGThreads, smem, s>>>(
-      tmx, tma, static_cast<const float*>(x), static_cast<const float*>(dy), part,
-      depth, H, W, C, CO, KZ, tiles_w, tiles_per_plane, n_tiles,
-      (n_tiles + splits - 1) / splits);
+      static_cast<const float*>(x), static_cast<const float*>(dy), part,
+      depth, H, W, C, CO, wk.tiles_w, wk.tiles, wk.steps, wk.per);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The f32 weight gradient's m64 tiles per warpgroup: a sixth of the
-// KZ x 9 x C rows' tiles, rounded up (C = 12, KZ = 3: 324 rows, six tiles,
-// one each; C = 15: seven).
-int launch_wgrad_f32_mt(const void* x, const void* dy, float* part, int N,
-                        int members, int depth, int H, int W, int C, int CO,
-                        int KZ, int splits, cudaStream_t s) {
-  if ((KZ * 9 * C + 63) / 64 <= kGWG)
-    return launch_wgrad_f32<1>(x, dy, part, N, members, depth, H, W, C, CO,
-                               KZ, splits, s);
-  return launch_wgrad_f32<2>(x, dy, part, N, members, depth, H, W, C, CO, KZ,
-                             splits, s);
 }
 
 bool misaligned(const void* p) {
@@ -1111,38 +1203,39 @@ bool bad_shape(int N, int members, int depth, int H, int W, int C, int CO,
 // x (N, H, W, C) and y (N, H, W, CO) NHWC, contiguous, x and y 16-byte
 // aligned, one type: dtype 0 = f32, 1 = bf16; 1 < C < 16, CO % 8 == 0.
 // Planes [m * N / members, (m + 1) * N / members) take member m's weights
-// (N / members a multiple of depth).  wk: each member's weights packed in
-// the K order (kz, ky, kx, ci), a (members, Kp, CO) array
-// (`pack_few_weights`): bf16 16 rows per tap (ci padded with zeros), Kp =
-// KZ*9*16; f32 C rows per tap, zero rows past KZ*9*C up to Kp, a multiple
-// of 8, wk = the tf32 part and wk_lo the remainder (bf16: wk_lo unused,
-// may be null).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
-extern "C" int dgtta_conv3x3_few(const void* x, const void* wk,
-                                 const void* wk_lo, void* y, int N,
-                                 int members, int depth, int H, int W, int C,
-                                 int CO, int KZ, int Kp, int dtype,
+// (N / members a multiple of depth).  w: each member's weights (members,
+// KZ, 3, 3, C, CO) as they are, in x's type (the kernel packs them).
+// `blocks`: the blocks of each member and output-channel tile, each
+// walking ceil(steps / blocks) of its member's steps (few_plan; a step
+// computes two output planes of a tile).  Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for arguments the kernel does not
+// take).
+extern "C" int dgtta_conv3x3_few(const void* x, const void* w, void* y,
+                                 int N, int members, int depth, int H, int W,
+                                 int C, int CO, int KZ, int blocks, int dtype,
                                  void* stream) {
   if (bad_shape(N, members, depth, H, W, C, CO, KZ, dtype) || misaligned(x) ||
-      misaligned(y) || wk == nullptr)
+      misaligned(y) || w == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_forward_f32(x, wk, wk_lo, y, N, members, depth, H, W, C, CO,
-                              KZ, Kp, s);
-  return launch_forward_bf16(x, wk, y, N, members, depth, H, W, C, CO, KZ, Kp,
-                             s);
+  auto run = [&](auto kz) {
+    constexpr int K = decltype(kz)::value;
+    return dtype == 1 ? launch_forward_bf16<K>(x, w, y, N, members, depth,
+                                               H, W, C, CO, blocks, s)
+                      : launch_forward_f32<K>(x, w, y, N, members, depth, H,
+                                              W, C, CO, blocks, s);
+  };
+  return KZ == 3 ? run(Int<3>()) : run(Int<1>());
 }
 
 // x (N, H, W, C) and dy (N, H, W, CO) NHWC, contiguous and 16-byte aligned,
 // dtype 0 = f32, 1 = bf16; 1 < C < 16, CO % 8 == 0; planes [m * N /
 // members, ...) belong to member m; dw (members, KZ, 3, 3, C, CO) f32;
 // scratch holds members * splits * KZ*9*C*CO f32 (unused when splits ==
-// 1).  Block b of a member sums its position tiles [b * ceil(tiles /
-// splits), ...), a tile being
-// 8 x 16 positions in bf16 and 4 x 16 in f32.  Returns cudaGetLastError()
-// after the launches (cudaErrorInvalidValue for arguments the kernels do
-// not take).
+// 1).  Block b of a member walks its steps [b * ceil(steps / splits), ...),
+// a step being one plane of a tile of 8 x 16 positions in bf16 and 6 x 8
+// in f32.  Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for arguments the kernels do not take).
 extern "C" int dgtta_conv3x3_wgrad_few(const void* x, const void* dy,
                                        void* dw, void* scratch, int N,
                                        int members, int depth, int H, int W,
@@ -1155,11 +1248,14 @@ extern "C" int dgtta_conv3x3_wgrad_few(const void* x, const void* dy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = splits == 1 ? static_cast<float*>(dw)
                             : static_cast<float*>(scratch);
-  const int err =
-      dtype == 0 ? launch_wgrad_f32_mt(x, dy, part, N, members, depth, H, W, C,
-                                       CO, KZ, splits, s)
-                 : launch_wgrad_bf16(x, dy, part, N, members, depth, H, W, C,
-                                     CO, KZ, splits, s);
+  auto run = [&](auto kz) {
+    constexpr int K = decltype(kz)::value;
+    return dtype == 0 ? launch_wgrad_f32<K>(x, dy, part, N, members, depth, H,
+                                            W, C, CO, splits, s)
+                      : launch_wgrad_bf16<K>(x, dy, part, N, members, depth,
+                                             H, W, C, CO, splits, s);
+  };
+  const int err = KZ == 3 ? run(Int<3>()) : run(Int<1>());
   if (err != 0) return err;
   if (splits > 1) {
     const int m = KZ * 9 * C * CO, total = m * members;

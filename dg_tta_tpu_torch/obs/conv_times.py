@@ -1,9 +1,9 @@
 """Times of the tensor-core conv3x3 forward (`conv3x3`, routes "wgmma" and
-"wgmma_tf32x3") or weight gradient (`--wgrad`) of one or more checkouts
-of the port on one card, for comparing a change with its parent in one
-call.
+"wgmma_tf32x3"), weight gradient (`--wgrad`) or MIND-stem kernels
+(`--few`) of one or more checkouts of the port on one card, for comparing
+a change with its parent in one call.
 
-    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits|--wgrad] CHECKOUT ...
+    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits|--wgrad|--few] CHECKOUT ...
 
 Run it by path.  For each CHECKOUT, in the order given (e.g. parent,
 change, change, parent: the card's clocks drift within a call), a
@@ -42,6 +42,23 @@ the grid of the checkout's route) and the error against the plain
 version, held to chip_smoke's WGRAD_RTOL; then per type the row (a
 trained step: each shape times its convs, chip_smoke's
 `conv3x3_wgrad_wgmma*` rows) and the grouped step.
+
+With `--few` it times both kernels of the "few" route (`conv3x3` and
+`conv3x3_wgrad` at the MIND stem, `chip_smoke.STEM_SHAPE`, C = 12 -> 32),
+in f32 and bf16: the forward at a window's batch (one volume) and a
+trained step's (two), the weight gradient at a trained step's; both at
+the grouped runs' batches (`chip_smoke.GROUPED_RUNS`) and with three
+members side by side (`chip_smoke.CHUNK`, a trained step's batch each,
+one launch).  Per shape: device and eager ms as above, `F.conv3d` or
+cuDNN's `conv3d_weight` (device ms, TF32 off in f32; at the rows' shapes
+alone), the bound (`chip_smoke`'s: the larger of the operations
+on the route's unit and the bytes of x, w and y, or x, dy and dW),
+TFLOP/s at the device time, the blocks and the steps (output plane
+tiles) each block walks (`kernels.conv3x3.few_plan` where the checkout
+has it; else the forward's "-" and the weight gradient's splits), and
+the error against the plain version at KERNEL_RTOL / WGRAD_RTOL.  Rows
+as PERF.md's kernel table counts them: the forward's window + step, the
+weight gradient's step.
 """
 
 import json
@@ -268,12 +285,155 @@ def one_wgrad(checkout: str) -> dict:
     return out
 
 
+def _few_cases(cs, name):
+    """(use, volumes a member, members, weight gradient?, in the row?) of
+    the stem shapes timed for type `name`."""
+    cases = [("window forward", 1, 1, False, True),
+             ("step forward", 2, 1, False, True),
+             ("step wgrad", 2, 1, True, True)]
+    for n, g in cs.GROUPED_RUNS:
+        if n == name:
+            cases += [(f"patch_group {g} step forward", 2 * g, 1, False,
+                       False),
+                      (f"patch_group {g} step wgrad", 2 * g, 1, True, False)]
+    cases += [(f"{cs.CHUNK} members step forward", 2, cs.CHUNK, False, False),
+              (f"{cs.CHUNK} members step wgrad", 2, cs.CHUNK, True, False)]
+    return cases
+
+
+def _few_blocks(cc, N, depth, H, W, C, CO, dtype, wgrad):
+    """(blocks, steps a block walks) of one member's launch: the
+    checkout's `few_plan`, else the first design's weight-gradient splits
+    (its forward's grid came from the occupancy at run time)."""
+    if hasattr(cc, "few_plan"):
+        p = cc.few_plan(N, depth, H, W, C, CO, dtype, wgrad=wgrad)
+        return p["blocks"], p["run"]
+    if wgrad:
+        return cc.wgrad_few_splits((N, H, W, C), CO, dtype), None
+    return None, None
+
+
+def one_few(checkout: str) -> dict:
+    """The times of `checkout`'s "few" kernels at the MIND stem (in its own
+    process)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from dg_tta_tpu_torch.kernels import conv3x3 as cc
+
+    depth, H, W, C, CO = cs.STEM_SHAPE
+    out = {"checkout": checkout}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        gen = torch.Generator().manual_seed(6)
+        shapes = []
+        rows = {k: dict(device_ms=0.0, eager_ms=0.0, library_ms=0.0,
+                        bound_ms=0.0) for k in ("forward", "wgrad")}
+        for use, vols, M, wgrad, in_row in _few_cases(cs, name):
+            N = M * vols * depth
+            x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
+            xs = x.view(M, vols, depth, H, W, C).permute(0, 1, 5, 2, 3, 4)
+            if wgrad:
+                dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
+                dys = dy.view(M, vols, depth, H, W, CO) \
+                    .permute(0, 1, 5, 2, 3, 4)
+                members = M if M > 1 else None
+
+                def run():
+                    return cc.conv3x3_wgrad(x, dy, depth=depth,
+                                            members=members)
+
+                def lib():
+                    for m in range(M):
+                        torch.nn.grad.conv3d_weight(
+                            xs[m], (CO, C, 3, 3, 3), dys[m], padding=1)
+
+                with cs.tf32_off():
+                    ref = cc.conv3x3_wgrad_reference(x, dy, depth=depth,
+                                                     members=members)
+                    # cuDNN's f32 weight gradient takes ~0.4 s a volume:
+                    # timed at the row's shape alone
+                    lib_ms = (cs.device_ms(lib, reps=2 if name == "float32"
+                                           else 5) if in_row else None)
+                rtol = cs.WGRAD_RTOL
+                nbytes = (x.numel() + dy.numel()) * x.element_size() \
+                    + M * 27 * C * CO * 4
+                w_shape = (3, 3, 3, C, CO)
+            else:
+                w = (torch.randn((M, 3, 3, 3, C, CO), generator=gen)
+                     * (2.0 / (27 * C)) ** 0.5).to(dt).cuda()
+                if M == 1:
+                    w = w[0]
+                ws = w.view(M, 3, 3, 3, C, CO).permute(0, 5, 4, 1, 2, 3) \
+                    .contiguous()
+
+                def run():
+                    return cc.conv3x3(x, w, depth=depth)
+
+                def lib():
+                    for m in range(M):
+                        F.conv3d(xs[m], ws[m], padding=1)
+
+                with cs.tf32_off():
+                    ref = cc.conv3x3_reference(x, w, depth=depth)
+                    lib_ms = cs.device_ms(lib, reps=10) if in_row else None
+                rtol = cs.KERNEL_RTOL[name]
+                nbytes = (x.numel() + w.numel() + N * H * W * CO) \
+                    * x.element_size()
+                w_shape = w.shape
+            got = run()
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= rtol * scale:
+                raise AssertionError(f"{checkout} {name} {use} "
+                                     f"{(N, H, W, C, CO)}: max abs err {err}"
+                                     f" > {rtol * scale}")
+            del got, ref
+            dev = cs.device_ms(run, reps=10)
+            eager = cs.time_ms(run)
+            ops = cc.conv3x3_flops(x.shape, w_shape, depth)
+            bound = max(cs._ops_ms(ops, name, "few"),
+                        nbytes / cs.PEAK_BYTES * 1e3)
+            blocks, run_len = _few_blocks(cc, N // M, depth, H, W, C, CO, dt,
+                                          wgrad)
+            res = dict(use=use, N=N, members=M, depth=depth, H=H, W=W, C=C,
+                       CO=CO, device_ms=dev, eager_ms=eager,
+                       library_ms=lib_ms, bound_ms=bound,
+                       tflops=ops / dev / 1e9, blocks=blocks, run=run_len,
+                       max_rel_err=err / scale)
+            shapes.append(res)
+            if in_row:
+                tot = rows["wgrad" if wgrad else "forward"]
+                for key in ("device_ms", "eager_ms", "library_ms",
+                            "bound_ms"):
+                    tot[key] += res[key]
+            print(f"{checkout} few {name} {use} N={N} members={M} {H}x{W} "
+                  f"{C}->{CO} device_ms={dev:.4f} eager_ms={eager:.4f} "
+                  f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
+                  f"bound_ms={bound:.4f} "
+                  f"TFLOP/s={res['tflops']:.1f} blocks={blocks} "
+                  f"run={run_len} rel_err={err / scale:.2e} "
+                  f"(tol {rtol:.1e})", flush=True)
+            del x
+        for kind, tot in rows.items():
+            print(f"{checkout} few {name} {kind} row "
+                  f"({'window + step' if kind == 'forward' else 'a step'}): "
+                  + " ".join(f"{k}={v:.4f}" for k, v in tot.items()),
+                  flush=True)
+        out[name] = {"shapes": shapes, "rows": rows}
+    return out
+
+
 def main(argv):
     splits = "--splits" in argv
     wgrad = "--wgrad" in argv
-    argv = [a for a in argv if a not in ("--splits", "--wgrad")]
+    few = "--few" in argv
+    argv = [a for a in argv if a not in ("--splits", "--wgrad", "--few")]
     if argv[:1] == ["--one"]:
-        res = one_wgrad(argv[1]) if wgrad else one(argv[1], splits)
+        res = (one_few(argv[1]) if few else one_wgrad(argv[1]) if wgrad
+               else one(argv[1], splits))
         print(json.dumps(res), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -284,7 +444,7 @@ def main(argv):
         root = Path(checkout).resolve()
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "--one", checkout] + ["--splits"] * splits
-                       + ["--wgrad"] * wgrad,
+                       + ["--wgrad"] * wgrad + ["--few"] * few,
                        cwd=root, check=True,
                        timeout=900, env={**os.environ,
                                          "PYTHONPATH": str(root)})

@@ -113,30 +113,42 @@ def _im2col(x, kz):
 @pytest.mark.parametrize("layout", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kz", [1, 3])
 def test_folded_k_order_matches_jax(kz, layout):
-    """The "few" route's GEMM in f32: an im2col of x in the kernel's
-    (kz, ky, kx, ci) order (f32: 12 channels per tap, zero-padded to K =
-    328; bf16: 16 channels per tap, K = 432), times the matrix
-    `pack_few_weights` returns on the CPU equals JAX's `conv3x3_pallas`
-    (one z-tap, interpret mode) and the JAX U-Net's `_conv` (three) within
-    TOL: the index map the kernel uses."""
+    """The "few" route's GEMM: an im2col of x in the kernel's (kz, ky, kx,
+    ci) order (f32: each (kz, ky) row of taps the 3 x 12 floats of three
+    pixels of the staged plane and, in its K padding to 40, the first 4
+    channels of the next pixel, K = 360; bf16: 16 channels per tap, K =
+    432), times the matrix `pack_few_weights` returns on the CPU equals
+    JAX's `conv3x3_pallas` (one z-tap, interpret mode) and the JAX U-Net's
+    `_conv` (three) within TOL: the index map the kernel uses, whose
+    padded K reads land on zero rows."""
     from dg_tta_tpu_torch.kernels.conv3x3 import few_k, pack_few_weights
 
     B, D, H, W, C, CO = 2, 3, 7, 10, 12, 32
     x, w = _inputs(12, B * D, H, W, C, CO, "float32",
                    kz=None if kz == 1 else 3)
     cs, kp_route = few_k(C, kz, getattr(torch, layout))
-    # f32: 27 x 12 = 324 rows -> 41 k8 steps, 9 x 12 = 108 -> 14; bf16:
-    # one k16 step of 16 channels per tap
-    assert (cs, kp_route) == {(3, "float32"): (12, 328),
+    # f32: 9 (kz, ky) rows of 36 -> 40 (five k8 steps), 3 rows at one
+    # z-tap; bf16: one k16 step of 16 channels per tap
+    assert (cs, kp_route) == {(3, "float32"): (12, 360),
                               (3, "bfloat16"): (16, 432),
-                              (1, "float32"): (12, 112),
+                              (1, "float32"): (12, 120),
                               (1, "bfloat16"): (16, 144)}[kz, layout]
     m = pack_few_weights(torch.from_numpy(w), getattr(torch, layout))
     assert m.dtype == torch.float32 and m.shape == (kp_route, CO)
-    assert not m[kz * 9 * cs:].any()
-    xs = np.pad(x, ((0, 0),) * 3 + ((0, cs - C),))
-    cols = _im2col(xs.reshape(B, D, H, W, cs), kz)
-    cols = np.pad(cols, ((0, 0),) * 4 + ((0, kp_route - cols.shape[-1]),))
+    kr = kp_route // (kz * 3)
+    rows = m.reshape(kz * 3, kr, CO)
+    assert not rows[:, 3 * cs:].any()
+    # the kernel's A: a (kz, ky) row of taps is kr contiguous values of
+    # the staged plane from the pixel (h + ky - 1, w - 1): its three
+    # pixels' cs channels and then the next pixel's first channels
+    xs = np.pad(x, ((0, 0),) * 3 + ((0, cs - C),)).reshape(B, D, H, W, cs)
+    xp = np.pad(xs, ((0, 0), (1, 1), (1, 1), (1, 3), (0, 0)))
+    flat = xp.reshape(B, D + 2, H + 2, -1)
+    cols = np.concatenate(
+        [flat[:, z:z + D, ky:ky + H][..., np.arange(W)[:, None] * cs
+                                     + np.arange(kr)]
+         for z in ((0, 1, 2) if kz == 3 else (1,)) for ky in range(3)],
+        axis=-1)
     got = (cols.reshape(-1, kp_route).astype(np.float64)
            @ m.numpy().astype(np.float64)).reshape(B * D, H, W, CO)
     if kz == 1:
@@ -151,20 +163,26 @@ def test_folded_k_order_matches_jax(kz, layout):
 
 def test_folded_k_pads_channels_to_16_in_bf16():
     """bf16: each tap's K rows hold 16 channels, zeros past C (the halo's
-    32-byte pixels); f32 keeps C channels per tap and zero rows up to the
-    k8 step."""
+    32-byte pixels); f32 holds C rounded up to 4 channels per tap (the
+    staged pixel's floats, 16-byte rows for ldmatrix), zeros past C, and
+    each (kz, ky) row of three taps zero rows up to the k8 step."""
     from dg_tta_tpu_torch.kernels.conv3x3 import few_k, pack_few_weights
 
     w = torch.from_numpy(_inputs(13, 1, 1, 1, 5, 8, "float32", kz=3)[1])
     assert few_k(5, 3, torch.bfloat16) == (16, 432)
-    assert few_k(5, 3, torch.float32) == (5, 136)
+    assert few_k(5, 3, torch.float32) == (8, 216)
+    assert few_k(2, 3, torch.float32) == (4, 144)
+    assert few_k(15, 1, torch.float32) == (16, 144)
     m = pack_few_weights(w.bfloat16())
     assert m.dtype == torch.bfloat16 and m.shape == (432, 8)
     rows = m.float().reshape(27, 16, 8)
     assert torch.equal(rows[:, :5], w.bfloat16().float().reshape(27, 5, 8))
     assert not rows[:, 5:].any()
-    assert torch.equal(pack_few_weights(w), torch.nn.functional.pad(
-        w.reshape(135, 8), (0, 0, 0, 1)))
+    m = pack_few_weights(w)
+    assert m.shape == (216, 8)
+    taps = m.reshape(27, 8, 8)
+    assert torch.equal(taps[:, :5], w.reshape(27, 5, 8))
+    assert not taps[:, 5:].any()
 
 
 # The "c1" route's GEMMs (C = 1): (N, depth, H, W, CO, kz).  Ragged planes,
@@ -541,15 +559,16 @@ def test_3xtf32_products_meet_the_f32_tolerance(C):
 
 
 def _longest_wgrad_few_k():
-    """The most positions one block of the "few" route's f32 weight
-    gradient sums at the MIND stem's shape (a trained step's batch)."""
-    from dg_tta_tpu_torch.kernels.conv3x3 import wgrad_few_splits
+    """The most positions one accumulator of the "few" route's f32 weight
+    gradient sums at the MIND stem's shape: a trained step's batch and the
+    grouped runs' (`few_plan`'s `longest`)."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import few_plan
 
-    depth, H, W, C, CO = _chip_smoke().STEM_SHAPE
-    N = 2 * depth
-    tiles = N * (-(-H // 4)) * (-(-W // 16))
-    splits = wgrad_few_splits((N, H, W, C), CO, torch.float32)
-    return -(-tiles // splits) * 64
+    cs = _chip_smoke()
+    depth, H, W, C, CO = cs.STEM_SHAPE
+    groups = [1] + [g for n, g in cs.GROUPED_RUNS if n == "float32"]
+    return max(few_plan(2 * g * depth, depth, H, W, C, CO, torch.float32,
+                        wgrad=True)["longest"] for g in groups)
 
 
 def _longest_wgrad_tf32x3_k(kernel="tf32x3_n32"):
@@ -597,7 +616,8 @@ def _longest_wgmma_k():
 # how each kernel rounds the lo part of the operand it splits itself: the
 # forward and the weight gradient leave the exact remainder for the tensor
 # core to truncate
-LO_ROUNDING = {"conv3x3_wgmma.cu": "rz", "conv3x3_wgrad_wgmma.cu": "rz"}
+LO_ROUNDING = {"conv3x3_wgmma.cu": "rz", "conv3x3_wgrad_wgmma.cu": "rz",
+               "conv3x3_few.cu": "rz"}
 
 
 @pytest.mark.parametrize("source,k_per_stage,tol", [
@@ -610,10 +630,11 @@ LO_ROUNDING = {"conv3x3_wgmma.cu": "rz", "conv3x3_wgrad_wgmma.cu": "rz"}
     ("conv3x3_wgrad_wgmma.cu", 64, 1e-4),
     # its 64-column kernel: no promotion, K = its longest split
     ("conv3x3_wgrad_wgmma.cu", None, 1e-4),
-    # the "few" route's forward: K = 328 at the MIND stem, no promotion
+    # the "few" route's forward: K = 360 at the MIND stem, no promotion
     ("conv3x3_few.cu", None, 5e-5),
-    # its weight gradient: 64 positions per stage, the longest block sum
-    ("conv3x3_few.cu", 64, 1e-4),
+    # its weight gradient: 24 positions per accumulator a step (half of 6 x
+    # 8), the longest accumulator's sum
+    ("conv3x3_few.cu", 24, 1e-4),
 ])
 def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
                                                         tol):
@@ -621,16 +642,16 @@ def test_3xtf32_promotion_bounds_truncated_accumulation(source, k_per_stage,
     with truncation.  Over the longest K of the main path that drift
     reaches ~1e-4 of the output's range (forward, K = 27 x 512 in one
     block) or ~3e-4 (weight gradient, ~37k positions per block, and up
-    to 131072 on its 32-column f32 kernel); each
-    kernel therefore adds its accumulator into a second, rounded f32 sum
-    every `kPromote` stages (csrc/conv3x3_wgmma.cu: 3 stages of 9 taps x 16
-    channels; csrc/conv3x3_wgrad_wgmma.cu's 32-column f32 kernel, the
-    weight gradient of csrc/conv3x3_few.cu), except the "few" forward, whose
-    K of 328 needs none, and the 64-column f32 weight gradient, whose plan
-    keeps each block's sum to 2048 positions.  A model of that: k8 steps of three exact 8-term
-    products, each step's sum truncated to f32, with and without the
-    promotion; it must stay within half the route's tolerance (chip_smoke
-    KERNEL_RTOL, WGRAD_RTOL)."""
+    to 131072 on its 32-column f32 kernel); each kernel therefore adds its
+    accumulator into a second, rounded f32 sum every `kPromote` stages
+    (csrc/conv3x3_wgmma.cu: 3 stages of 9 taps x 16 channels;
+    csrc/conv3x3_wgrad_wgmma.cu's 32-column f32 kernel, the weight
+    gradient of csrc/conv3x3_few.cu), except the "few" forward, whose K of
+    360 needs none, and the 64-column f32 weight gradient, whose plan
+    keeps each block's sum to 2048 positions.  A model of that: k8 steps
+    of three exact 8-term products, each step's sum truncated to f32, with
+    and without the promotion; it must stay within half the route's
+    tolerance (chip_smoke KERNEL_RTOL, WGRAD_RTOL)."""
     import re
     from pathlib import Path
 

@@ -881,13 +881,15 @@ def test_padded_channels_on_wgmma_routes_match_plain(cuda_device, dtype,
 
 # The "few" route (1 < C < 16, CO % 8 == 0, either type): (N, depth, H, W,
 # C, CO, kz).  Ragged planes leave every tile part empty (bf16: 4 x 64
-# forward, 8 x 16 weight gradient; f32: 16 x 16 and 4 x 16); C = 12 and 8
-# load the f32 halo by TMA, C = 2, 3 and 15 by cp.async (C = 3 and 15 odd:
-# bf16 element by element), C = 15 the most the route takes (f32: seven
-# m64 tiles of (tap, ci) rows); CO = 40 takes two 32-channel tiles, the
-# second part empty; the stem's plane size (112 x 128) at two volumes of 16
-# planes, and the stem's own shape (one volume of 112 planes), both with
-# enough positions to split the weight gradient.
+# forward, 8 x 16 weight gradient; f32: 16 x 16 and 6 x 8); every kernel
+# stages its planes into a ring by cp.async, in 16-, 8- or 4-byte units
+# (C = 3 and 15 odd: bf16 element by element); C = 15 is the most the
+# route takes (f32 forward: 16-channel pixels, K = 48 a row of taps; f32
+# weight gradient: three m64 tiles of (ky, kx, ci) rows, two a block, so a
+# second block row); CO = 40 takes two 32-channel tiles, the second part
+# empty; the stem's plane size (112 x 128) at two volumes of 16 planes, and
+# the stem's own shape (one volume of 112 planes), both with enough
+# positions to split the weight gradient.
 FEW_CASES = {
     "mind_stem": (8, 4, 19, 37, 12, 32, 3),
     "stem_one_z_tap": (6, 3, 11, 21, 12, 32, 1),
