@@ -29,7 +29,15 @@ Phases; any failure raises and the script exits non-zero:
    loads cp.async (`LDGSTS`), and that of the warp's affine-entry kernels
    cp.async (`LDGSTS`) and shared-memory gathers (`LDS`), and that of the
    exact adjoint's kernels shared-memory atomics (`ATOMS`) and 16-byte
-   global reductions (`REDG.E.ADD.F32x4`);
+   global reductions (`REDG.E.ADD.F32x4`), and that of the catch-all
+   kernels (`conv3x3`, `conv3x3_wgrad`: both types) tensor-core
+   instructions (the forward `HGMMA`: wgmma; the weight gradient `HMMA`:
+   mma.sync), their rings filled by cp.async (`LDGSTS`) and, but for the
+   f32 weight gradient (32-bit loads), their fragments read by ldmatrix
+   (`LDSM`);
+   prints their ptxas notes (registers and spills per instantiation, the
+   warpgroup.arrives injected, C7519) and fails on any wgmma serialized
+   there (C7510-C7515);
 3. kernels: holds each kernel against its plain version on the card at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick only; the port
@@ -43,13 +51,18 @@ Phases; any failure raises and the script exits non-zero:
      (`conv3x3_route`: "c1" for the C = 1 first conv, "wgmma" for bf16,
      "wgmma_tf32x3" for f32); the shapes of the "c1" and "wgmma_tf32x3"
      routes also run on the CUDA-core kernel they took before
-     (`route="cuda_core"`, marked "forced"), so both are timed in one call;
-     each bound is the larger of the bytes floor and the operations floor
-     on the unit the route computes on (`_ops_ms`: the CUDA cores' f32
-     rate for "cuda_core" in either type, the tensor cores for the other
-     routes, f32 there as three tf32 products), and the "c1" shapes print
-     both floors; the wgmma routes' shapes also print their device time
-     (`device_ms`: a CUDA graph of the calls, no host work between them);
+     (`route="cuda_core"`, marked "forced"), and so do the "wgmma"
+     (bf16) shapes, so both are timed in one call; each bound is the
+     larger of the bytes floor and the operations floor on the tensor
+     cores, where every route computes (`_ops_ms`: bf16 at its rate, f32
+     as three tf32 products), the catch-all's shapes printing the CUDA
+     cores' f32 floor beside it (`cuda_core_floor_ms`), and the "c1"
+     shapes print both floors; the wgmma and catch-all shapes also print
+     their device time (`device_ms`: a CUDA graph of the calls, no host
+     work between them); the ragged net's shapes on the catch-all route
+     (`_ragged_cases`: `RAGGED_FEATURES`, widths 30 .. 300, a window
+     forward, a trained step's forward and input gradients), a second
+     launch at its step forward bit for bit the first;
      and the stem conv of a MIND model (12 -> 32 channels, route "few")
      at its window forward and its step forward, also forced onto the
      type's wgmma route (zero-padded to 16 channels: the route it took
@@ -62,9 +75,10 @@ Phases; any failure raises and the script exits non-zero:
      also forced onto the CUDA-core kernel, and the f32 routes' per-step
      totals on the same shapes side by side; the MIND stem's shape too, on
      "few", forced onto the padded wgmma route and the CUDA-core kernel;
-     at the top level (the first shape with C > 1) and at the stem two
-     launches of each type are held equal bit for bit (a fixed summation
-     order, no atomics);
+     the ragged net's shapes on the catch-all route; at the top level (the
+     first shape with C > 1), at the stem and at the ragged net's shapes
+     two launches of each type are held equal bit for bit (a fixed
+     summation order, no atomics);
    * `warp` at its four call sites of adaptation, f32 and bf16: the C=1
      border warp of the input, the C=n_opt zeros unwarp of the logits and
      its adjoint (112 x 112 x 128, times 1 / |det|), and the nearest label
@@ -138,7 +152,8 @@ Phases; any failure raises and the script exits non-zero:
    pretraining step of the full-width TS104_GIN_MIND net on a small patch
    (every augmentation gate on, GIN, MIND, deep supervision, SGD) and
    MultiRes's operators at the patch size with matmul TF32 turned on
-   around the call (`reference_pretrain`);
+   around the call (`reference_pretrain`); and the patch step and short
+   `tta_one_volume` again on the ragged net (`RAGGED_FEATURES`);
 5. remat (`phase_remat`): one trained step of the full-width TS104_GIN
    net at the TS104 patch in f32, with and without `remat` (both branches
    recomputed in the backward), on the same weights and draws: the
@@ -148,7 +163,13 @@ Phases; any failure raises and the script exits non-zero:
    member's adaptation run twice in this process (`phase_repeat`:
    TS104_GIN f32 at the smoke plan, the same weights and draws), printing
    how far the second run's losses and updates lie from the first's (a
-   trace of the several-rank gap, ROADMAP C; it asserts nothing);
+   trace of the several-rank gap, ROADMAP C; it asserts nothing); then
+   the catch-all route's main path (`phase_ragged_tta`): the full-width
+   ragged net adapted by `tta_one_volume` (the smoke plan, 3 members) in
+   f32 one member at a time, bf16 one at a time and bf16 with CHUNK side
+   by side, each run's launches held to `expected_launches` (the
+   catch-all's above 0), its losses finite, the chunk's members held to
+   the serial bf16 run's at CHUNK_LOSS_RTOL / CHUNK_UPDATE_RTOL;
 6. DG pretraining (`phase_pretrain`, configs 4-5), f32: `run_pretraining`
    on three synthetic 128 x 128 x 144 CTs at 1.5 mm with a 105-label
    `dataset.json` (`obs/synthetic.make_pretrain_dataset`) at the full
@@ -208,8 +229,10 @@ Phases; any failure raises and the script exits non-zero:
    unsharded call; and a one-rank NCCL group with an all-reduce.
 
 It prints one JSON line with the kernels' numbers (f32, with bf16 fields
-beside them where a kernel serves both types; the CUDA-core rows at the
-shapes they ran before the "c1" and "wgmma_tf32x3" routes took them; the
+beside them where a kernel serves both types; the catch-all rows
+(`conv3x3`, `conv3x3_wgrad`, route "cuda_core") at the ragged net's
+shapes, their launches the ragged TTA runs', with the TS104 shapes forced
+onto them and the CUDA cores' floor beside them; the
 "c1" rows with their operations and bytes floors and their shapes' times
 and bounds on the CUDA-core kernels (forced); the
 MIND stem's rows on "few" with the forced padded-route and CUDA-core
@@ -218,7 +241,8 @@ grid entry per deformable branch of a trained step, the exact adjoint's
 grid entry on a deformable grid and its affine entry; each row's launches
 count the main-path runs, `phase_parallel`'s ranks included; the conv
 rows' `member_chunk_launches` those of the chunk runs alone) and, last,
-one JSON line naming the device.
+one JSON line naming the device.  Before them it logs each phase's wall
+seconds as it ends and, in one line, all of them ("seconds per phase").
 """
 
 import contextlib
@@ -376,6 +400,15 @@ DP_RANKS = 2
 CHUNK = 3
 CHUNK_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 CHUNK_UPDATE_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# The ragged net: TS104_3D_FULLRES with UNet_base_num_features 30 and
+# unet_max_num_features 300 (widths 30, 60, 120, 240, 300; PERF.md §4): no
+# published checkpoint has these widths, a plan a user can write, and the
+# shape set that runs the catch-all conv route ("cuda_core") at full width
+# (output channels that are no multiple of 8).  Its TTA runs
+# (`phase_ragged_tta`): the smoke plan, 3 members, f32 one at a time, bf16
+# one at a time and CHUNK side by side.
+RAGGED_FEATURES = (30, 300)
+RAGGED_RUNS = (("float32", 1), ("bfloat16", 1), ("bfloat16", CHUNK))
 # every CUDA source of the main path (dg_tta_tpu_torch/kernels/csrc)
 SOURCES = ["conv3x3", "conv3x3_wgrad", "warp", "conv3x3_wgmma",
            "conv3x3_wgrad_wgmma", "conv3x3_c1", "conv3x3_few"]
@@ -464,7 +497,12 @@ def phase_build():
     ring = ("HGMMA", "LDGSTS", "LDSM")
     halo = ("HGMMA", "UTMALDG", "LDSM")
     hmma, hmma_cp = ("HMMA",), ("HMMA", "LDGSTS")
+    hmma_ring = ("HMMA", "LDGSTS", "LDSM")
     for name, marker, ops in (
+            ("conv3x3", "conv3x3_kernelI13__nv_bfloat16", ring),
+            ("conv3x3", "conv3x3_kernelIf", ring),
+            ("conv3x3_wgrad", "wgrad_kernelI13__nv_bfloat16", hmma_ring),
+            ("conv3x3_wgrad", "wgrad_kernelIf", hmma_cp),
             ("conv3x3_wgmma", "conv3x3_wgmma_kernelI13__nv_", halo),
             ("conv3x3_wgmma", "conv3x3_wgmma_kernelIf", halo),
             ("conv3x3_wgrad_wgmma", "wgrad_tf32x3_kernel", tma),
@@ -487,6 +525,24 @@ def phase_build():
             raise AssertionError(f"{name} {marker}: {len(funcs)} functions, "
                                  f"SASS instruction counts {counts}")
         log(f"  {name} {marker}: {len(funcs)} instantiations, SASS {counts}")
+    # the catch-all kernels: registers and spills per instantiation; no
+    # wgmma serialized (C7510-C7515) in the forward, none in the weight
+    # gradient (mma.sync); the warpgroup.arrives ptxas injected for
+    # registers (C7519), counted
+    for name in ("conv3x3", "conv3x3_wgrad"):
+        text = build.library_path(name).with_suffix(".log").read_text()
+        notes = [line.strip() for line in text.splitlines()
+                 if any(f"C75{c}" in line for c in
+                        ("10", "11", "12", "13", "14", "15"))]
+        if notes:
+            raise AssertionError(f"{name}: ptxas serialized wgmmas: "
+                                 + "; ".join(notes))
+        arrives = sum("C7519" in line for line in text.splitlines())
+        notes = _ptxas_notes(text)
+        log(f"  {name}: ptxas, {len(notes)} kernels, no wgmma serialized "
+            f"(C7510-C7515), {arrives} warpgroup.arrive injected (C7519): "
+            + "; ".join(f"{k} {r} registers, spill {st}/{ld} bytes "
+                        f"stored/loaded" for k, r, st, ld in notes))
     for name, codes in (("conv3x3_wgrad_wgmma", ("C7513", "C7511")),
                         ("conv3x3_few", ("C7513", "C7511", "C7512"))):
         text = build.library_path(name).with_suffix(".log").read_text()
@@ -506,6 +562,32 @@ def phase_build():
                                 "few_wgrad_bf16_kernel",
                                 "few_wgrad_f32_kernel")}
             log(f"  {name}: warpgroup.arrive injected (C7519): {fenced}")
+
+
+def _ptxas_notes(text, kernels=("conv3x3_kernel", "wgrad_kernel",
+                                 "sum_splits_kernel", "pack_kernel")):
+    """[(kernel, registers, spill stores, spill loads)] of a ptxas -v log,
+    each of `kernels` named with its template arguments
+    (`conv3x3_kernel<bf16, 64, 16>`)."""
+    import re
+
+    out, name, spill = [], "?", (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in kernels if k in m.group(1)), m.group(1))
+            rest = m.group(1).split(name, 1)[-1]
+            targs = (["bf16"] if rest.startswith("I13__nv_bfloat16") else
+                     ["f32"] if rest.startswith("If") else [])
+            name += f"<{', '.join(targs + re.findall(r'Li(\d+)E', rest))}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, int(m.group(1)), *spill))
+    return out
 
 
 def _record(tot, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult=1):
@@ -551,17 +633,59 @@ def _stem_cases():
             ("stem step forward", 2, *STEM_SHAPE, 1, False)]
 
 
+def _ragged_shapes():
+    """The ragged net's stride-1 convs on the catch-all route, as
+    (depth, H, W, C, CO, convs per forward, input gradient there too?):
+    `obs/conv_times.RAGGED_NET`."""
+    from dg_tta_tpu_torch.obs.conv_times import RAGGED_NET
+
+    return RAGGED_NET
+
+
+def ragged_model(patch_size=None, compute_dtype=None):
+    """The ragged net: TS104_GIN's plan at `UNet_base_num_features` 30
+    and `unet_max_num_features` 300 (`RAGGED_FEATURES`)."""
+    from dg_tta_tpu_torch.obs.profile_inference import ts104_model
+
+    return ts104_model(patch_size, compute_dtype, features=RAGGED_FEATURES)
+
+
+def _ragged_cases():
+    """The ragged net's conv3x3 shapes on the catch-all route, as
+    `_conv_cases` (uses prefixed "ragged"): a window forward, a trained
+    step's forward and its input gradients where they take the route too
+    (all but 120 -> 60's, whose 60 -> 120 takes a wgmma route)."""
+    cases = [(f"ragged {use}", vols, d, H, W, C, CO, mult, False)
+             for use, vols in (("window forward", 1), ("step forward", 2))
+             for d, H, W, C, CO, mult, _ in _ragged_shapes()]
+    cases += [("ragged step dgrad", 2, d, H, W, CO, C, mult, True)
+              for d, H, W, C, CO, mult, dgrad in _ragged_shapes() if dgrad]
+    return cases
+
+
+def _group(use):
+    """The totals' prefix of a shape: the MIND stem's "stem12/", the
+    ragged net's "ragged/", the TS104 net's none."""
+    return ("stem12/" if use.startswith("stem") else
+            "ragged/" if use.startswith("ragged") else "")
+
+
 def _ops_ms(ops, name, route):
     """The least time for `ops` operations of type `name` on the unit
-    that `route` computes on: "cuda_core" on the CUDA cores' f32 rate in
-    either type (bf16 is widened to f32 there); every other route on the
-    tensor cores, bf16 at its rate and f32 as three tf32 products
-    (3xTF32)."""
-    if route == "cuda_core":
-        return ops / PEAK_OPS["float32"] * 1e3
+    that `route` computes on: every route on the tensor cores, bf16 at its
+    rate and f32 as three tf32 products (3xTF32); the catch-all
+    ("cuda_core") runs there too since its redesign (`cuda_core_floor_ms`
+    is the CUDA cores' f32 floor it was held to before)."""
     if name == "float32":
         return ops / (PEAK_TF32 / 3) * 1e3
     return ops / PEAK_OPS["bfloat16"] * 1e3
+
+
+def cuda_core_floor_ms(ops):
+    """The least time for `ops` operations on the CUDA cores' f32 rate
+    (67 TFLOP/s): the unit the catch-all route ran on before its
+    redesign, printed beside its tensor-core bound."""
+    return ops / PEAK_OPS["float32"] * 1e3
 
 
 def _bound_text(ops_ms, bytes_ms, both):
@@ -574,12 +698,12 @@ def _bound_text(ops_ms, bytes_ms, both):
     return text
 
 
-def _route_totals(totals, name, main, route, stem):
+def _route_totals(totals, name, main, route, group):
     """The totals a shape's time on `route` adds to: its route's per type
-    ("<type>/<route>", the MIND stem's "<type>/stem12/<route>") and, for a
-    "c1" shape forced onto another route, "<type>/c1/<route>" too."""
-    at = [totals.setdefault(f"{name}/{'stem12/' if stem else ''}{route}",
-                            _new_totals())]
+    ("<type>/<route>", the MIND stem's "<type>/stem12/<route>", the ragged
+    net's "<type>/ragged/<route>") and, for a "c1" shape forced onto
+    another route, "<type>/c1/<route>" too."""
+    at = [totals.setdefault(f"{name}/{group}{route}", _new_totals())]
     if main == "c1" and route != main:
         at.append(totals.setdefault(f"{name}/c1/{route}", _new_totals()))
     return at
@@ -588,14 +712,16 @@ def _route_totals(totals, name, main, route, stem):
 def _side_routes(main, stem, dtype):
     """The routes timed beside the main path's on one shape: the MIND
     stem's (on "few") also on the type's wgmma route, which runs it
-    zero-padded to 16 channels, and on the CUDA-core kernel; the "c1" and
-    "wgmma_tf32x3" shapes on the CUDA-core kernel that ran them before."""
+    zero-padded to 16 channels, and on the catch-all kernel; the "c1",
+    "wgmma_tf32x3" and "wgmma" shapes on the catch-all ("cuda_core")
+    kernel, which takes every shape."""
     import torch
 
     if stem:
         return [{torch.float32: "wgmma_tf32x3",
                  torch.bfloat16: "wgmma"}[dtype], "cuda_core"]
-    return ["cuda_core"] if main in ("c1", "wgmma_tf32x3") else []
+    return (["cuda_core"] if main in ("c1", "wgmma_tf32x3", "wgmma")
+            else [])
 
 
 def phase_kernels():
@@ -619,8 +745,9 @@ def phase_kernels():
         tot = _new_totals()
         per_use = {}
         for use, vols, depth, H, W, C, CO, mult, dgrad in \
-                _conv_cases() + _stem_cases():
-            stem = use.startswith("stem")
+                _conv_cases() + _stem_cases() + _ragged_cases():
+            group = _group(use)
+            stem = group == "stem12/"
             N = vols * depth
             x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
             if dgrad:
@@ -654,7 +781,8 @@ def phase_kernels():
                         f"conv3x3 {name} {use} route={route} "
                         f"{(N, depth, H, W, C, CO)}: max abs err {err} > "
                         f"tol {tol}")
-                if route == main and use == "stem step forward":
+                if route == main and use in ("stem step forward",
+                                             "ragged step forward"):
                     # a fixed order of sums: a second launch, bit for bit
                     again = conv3x3(x, w, depth=depth)
                     if not torch.equal(again, got):
@@ -668,13 +796,15 @@ def phase_kernels():
                 k_ms = time_ms(lambda: conv3x3(x, w, depth=depth,
                                                route=route))
                 dev = ""
-                if route in ("wgmma", "wgmma_tf32x3"):
+                if route in ("wgmma", "wgmma_tf32x3", "cuda_core"):
                     # the device time too (CUDA graph: no host work
                     # between the launches)
                     d_ms = device_ms(lambda: conv3x3(x, w, depth=depth,
                                                      route=route), reps=10)
                     dev = f"device_ms={d_ms:.4f} "
                 ops_ms = _ops_ms(ops, name, route)
+                floor = (f"cuda_core_floor_ms={cuda_core_floor_ms(ops):.4f} "
+                         if route == "cuda_core" else "")
                 log(f"conv3x3 {name} {use} N={N} depth={depth} {H}x{W} "
                     f"{C}->{CO} route={route}"
                     f"{'' if route == main else ' (forced)'}: "
@@ -683,9 +813,9 @@ def phase_kernels():
                     f"(tol {KERNEL_RTOL[name]:.1e}) kernel_ms={k_ms:.4f} "
                     f"{dev}plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                     f"{_bound_text(ops_ms, bytes_ms, main == 'c1')} "
-                    f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
-                at = _route_totals(totals, name, main, route, stem)
-                if route == main and not stem:
+                    f"{floor}TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/{use}")
+                at = _route_totals(totals, name, main, route, group)
+                if route == main and not group:
                     at += [tot, per_use.setdefault(use, _new_totals())]
                 for t in at:
                     _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
@@ -726,9 +856,11 @@ def phase_wgrad():
         name = str(dt).split(".")[-1]
         tot = _new_totals()
         side = {}  # f32: both routes' per-step totals on the tf32x3 shapes
-        for depth, H, W, C, CO, mult, stem in \
-                [(*sh, False) for sh in TS104_CONV_SHAPES] \
-                + [(*STEM_SHAPE, 1, True)]:
+        for depth, H, W, C, CO, mult, group in \
+                [(*sh, "") for sh in TS104_CONV_SHAPES] \
+                + [(*STEM_SHAPE, 1, "stem12/")] \
+                + [(*sh[:6], "ragged/") for sh in _ragged_shapes()]:
+            stem = group == "stem12/"
             N = 2 * depth
             x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
             dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
@@ -756,7 +888,8 @@ def phase_wgrad():
                         f"conv3x3_wgrad {name} route={route} "
                         f"{(N, depth, H, W, C, CO)}: max abs err {err} > "
                         f"{WGRAD_RTOL * scale}")
-                if route == main and ((depth, H, W, C, CO) == top or stem):
+                if route == main and ((depth, H, W, C, CO) == top
+                                      or group):
                     # a fixed order of sums: a second launch, bit for bit
                     again = conv3x3_wgrad(x, dy, depth=depth)
                     if not torch.equal(again, got):
@@ -769,19 +902,22 @@ def phase_wgrad():
                     del again
                 k_ms = time_ms(lambda: conv3x3_wgrad(x, dy, depth=depth,
                                                      route=route))
+                floor = (f"cuda_core_floor_ms={cuda_core_floor_ms(ops):.4f} "
+                         if route == "cuda_core" else "")
                 log(f"conv3x3_wgrad {name} N={N} depth={depth} {H}x{W} "
                     f"{C}->{CO} route={route}"
                     f"{'' if route == main else ' (forced)'}"
-                    f"{' MIND stem' if stem else ''}: "
+                    f"{' MIND stem' if stem else ''}"
+                    f"{' ragged net' if group == 'ragged/' else ''}: "
                     f"max_abs_err={err:.3e} (tol {WGRAD_RTOL * scale:.3e}) "
                     f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"library_ms={l_ms:.4f} "
                     f"{_bound_text(ops_ms, bytes_ms, main == 'c1')} "
-                    f"TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
-                if main == "wgmma_tf32x3" and not stem:
+                    f"{floor}TFLOP/s={ops / k_ms / 1e9:.2f} x{mult}/step")
+                if main == "wgmma_tf32x3" and not group:
                     side[route] = side.get(route, 0.0) + mult * k_ms
-                at = _route_totals(totals, name, main, route, stem)
-                if route == main and not stem:
+                at = _route_totals(totals, name, main, route, group)
+                if route == main and not group:
                     at.append(tot)
                 for t in at:
                     _record(t, err, k_ms, p_ms, l_ms, ops_ms, bytes_ms, mult)
@@ -1740,10 +1876,11 @@ def reference_mind_gin():
         f"norm (tol {GRAD_RTOL:.0e})")
 
 
-def reference_adaptation():
-    """The adaptation of the full-width TS104_GIN net on a small patch, on
-    the card against the CPU, with the same injected draws: one patch
-    step's gradient, then a short `tta_one_volume`.
+def reference_adaptation(features=None):
+    """The adaptation of the full-width TS104_GIN net (with `features`,
+    the ragged net's widths: `RAGGED_FEATURES`) on a small patch, on the
+    card against the CPU, with the same injected draws: one patch step's
+    gradient, then a short `tta_one_volume`.
 
     Tolerances: the consistency loss compares two nearly equal branches,
     so its gradient is a sum that mostly cancels, and f32 rounding in
@@ -1762,7 +1899,8 @@ def reference_adaptation():
     from dg_tta_tpu_torch.tta.engine import make_tta_functions, tta_one_volume
     from dg_tta_tpu_torch.tta.plan import TTAPlan
 
-    model = ts104_model(patch_size=(32, 48, 64))
+    model = ts104_model(patch_size=(32, 48, 64), features=features)
+    net_name = "TS104" if features is None else f"ragged net {features}"
     # two trained epochs: the losses of the last one follow an update
     plan = TTAPlan(epochs=3, patches_to_be_accumulated=2, ensemble_count=1,
                    start_tta_at_epoch=1)
@@ -1836,10 +1974,11 @@ def reference_adaptation():
         raise AssertionError(f"tta_one_volume card vs CPU: losses "
                              f"{got_l.ravel()} vs {ref_l.ravel()}, dices "
                              f"{got_d.ravel()} vs {ref_d.ravel()}")
-    log(f"reference: TS104 patch {model.patch_size}, one patch step: "
+    log(f"reference: {net_name} patch {model.patch_size}, one patch step: "
         f"{len(grads[0])} gradients, largest error {g_rel:.3e} of its norm "
         f"(tol 5e-2)")
-    log(f"reference: tta_one_volume TS104 patch {model.patch_size}, 1 member "
+    log(f"reference: tta_one_volume {net_name} patch {model.patch_size}, "
+        f"1 member "
         f"x {plan.epochs} epochs x {plan.patches_to_be_accumulated} patches: "
         f"losses {got_l.ravel()} vs CPU {ref_l.ravel()} (rel err "
         f"{l_err:.2e}, tol 1e-3); dices {got_d.ravel()} vs "
@@ -2246,6 +2385,106 @@ def phase_repeat():
         f"their norm, largest per parameter {max(per):.3e} "
         f"({sum(p > 0 for p in per)} of {len(per)} parameters differ)")
     return l_rel, whole / norm
+
+
+def phase_ragged_tta():
+    """The ragged net (`RAGGED_FEATURES`: widths 30 .. 300, half of its
+    stride-1 convs on the catch-all route) adapted through
+    `tta/engine.tta_one_volume` at full width (the TS104 patch, 105
+    classes, seeded weights) on `phase_repeat`'s volume, the smoke plan (2
+    epochs x 4 patches) for 3 members, once per `RAGGED_RUNS` entry: f32
+    one member at a time, bf16 one at a time, bf16 with CHUNK members
+    side by side.  Each run's launches are held to `expected_launches`
+    (the catch-all's above 0), its losses must be finite and every member
+    moved; the chunk run's members are held to the serial bf16 run's as
+    `check_member_chunk` holds the main path's (losses CHUNK_LOSS_RTOL,
+    updates CHUNK_UPDATE_RTOL of their norm).  The card-vs-CPU check of
+    this net is `reference_adaptation(RAGGED_FEATURES)`.  Returns {(name,
+    dtype): launches} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dg_tta_tpu_torch.obs.profile_inference import seeded_net
+    from dg_tta_tpu_torch.tta.draws import TorchDraws
+    from dg_tta_tpu_torch.tta.engine import tta_one_volume
+    from dg_tta_tpu_torch.tta.plan import TTAPlan
+
+    members = 3
+    rng = np.random.default_rng(4)
+    vol = torch.from_numpy(rng.normal(0.0, 0.3, size=(1, *VOLUME_SHAPE, 1))
+                           .astype(np.float32)).cuda()
+    vol[0, 60:140, 80:160, 90:190] += 2.0
+    idx = np.arange(N_OPT)
+    launches, results = {}, {}
+    for dtype, chunk in RAGGED_RUNS:
+        model = ragged_model(
+            compute_dtype=None if dtype == "float32" else dtype)
+        plan = TTAPlan(ensemble_count=members, **SMOKE_PLAN)
+        net0 = seeded_net(model, 13, "cuda")
+        init = {k: v.detach().clone() for k, v in net0.state_dict().items()}
+        expected = expected_launches(
+            model.spec, 0, members, dict(SMOKE_PLAN, ensemble_chunk=chunk),
+            dtype, evals=0)
+        key = (f"ragged{f' ensemble_chunk {chunk}' if chunk > 1 else ''}",
+               dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        nets, losses, _ = tta_one_volume(
+            model, plan, net0, vol, [list(map(float, VOLUME_SHAPE))], idx,
+            idx, TorchDraws(seed=21), ensemble_chunk=chunk, num_devices=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_counts()
+        if got != expected:
+            raise AssertionError(f"{key}: launches {got}, expected "
+                                 f"{expected}")
+        if not (got["conv3x3_cuda_core"] > 0
+                and got["conv3x3_wgrad_cuda_core"] > 0):
+            raise AssertionError(f"{key}: the catch-all route launched "
+                                 f"{got['conv3x3_cuda_core']} forwards and "
+                                 f"{got['conv3x3_wgrad_cuda_core']} weight "
+                                 f"gradients")
+        losses = np.asarray(losses, np.float64)
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{key}: losses {losses.tolist()}")
+        states = [{k: v.detach().clone() for k, v in n.state_dict().items()}
+                  for n in nets]
+        for i, sd in enumerate(states):
+            if all(torch.equal(v, init[k]) for k, v in sd.items()):
+                raise AssertionError(f"{key}: member {i} did not move")
+        launches[key] = got
+        results[key] = (losses, states, init)
+        log(f"ragged TTA {model.spec.features_per_stage} {dtype}, {members} "
+            f"members x {plan.epochs} epochs x "
+            f"{plan.patches_to_be_accumulated} patches, ensemble_chunk "
+            f"{chunk}: {wall:.2f} s wall, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"launches {got} (expected); losses {losses.T.tolist()}")
+        del nets, net0
+    # the chunk run's members against the serial run of its type
+    (s_l, s_sd, init), (c_l, c_sd, _) = (
+        results["ragged", "bfloat16"],
+        results[f"ragged ensemble_chunk {CHUNK}", "bfloat16"])
+    loss_rel = float(np.max(np.abs(c_l - s_l) / np.abs(s_l)))
+    upd = []
+    for got, ref in zip(c_sd, s_sd):
+        diff = sum(((got[k].double() - ref[k].double()).norm() ** 2).item()
+                   for k in ref)
+        norm = sum(((ref[k].double() - init[k].double()).norm() ** 2)
+                   .item() for k in ref)
+        upd.append(math.sqrt(diff / norm))
+    log(f"ragged TTA bfloat16: {CHUNK} members side by side against one "
+        f"after another: losses max rel diff {loss_rel:.3e} (tol "
+        f"{CHUNK_LOSS_RTOL['bfloat16']}); member updates off by "
+        f"{[f'{u:.3e}' for u in upd]} of their norm (tol "
+        f"{CHUNK_UPDATE_RTOL['bfloat16']})")
+    if not (loss_rel <= CHUNK_LOSS_RTOL["bfloat16"]
+            and max(upd) <= CHUNK_UPDATE_RTOL["bfloat16"]):
+        raise AssertionError("ragged TTA: the chunk's members miss the "
+                             "serial run's")
+    return launches
 
 
 def check_member_chunk(dtype, serial, chunk, repeat):
@@ -2842,6 +3081,24 @@ def _row(name, source, replaces, launches, t, bf16=None, bf16_route=None,
     return row
 
 
+def _cuda_core_extra(totals):
+    """The catch-all rows' extras: the TS104 shapes forced onto it (ms,
+    bound, library ms), and the CUDA cores' f32 floor of the ragged rows
+    and of the forced ones."""
+    out = {}
+    for dt, pre in (("float32", ""), ("bfloat16", "bf16_")):
+        t, f = totals[f"{dt}/ragged/cuda_core"], totals[f"{dt}/cuda_core"]
+        # the operations floor on the CUDA cores from the tensor cores'
+        # (`_ops_ms`: the same operations at another rate)
+        to_cc = _ops_ms(1e12, dt, "cuda_core") / cuda_core_floor_ms(1e12)
+        out.update({f"{pre}cuda_core_floor_ms": t["ops_ms"] / to_cc,
+                    f"{pre}forced_ms": f["ms"],
+                    f"{pre}forced_bound_ms": max(f["ops_ms"], f["bytes_ms"]),
+                    f"{pre}forced_library_ms": f["library_ms"],
+                    f"{pre}forced_cuda_core_floor_ms": f["ops_ms"] / to_cc})
+    return out
+
+
 def _c1_extra(totals):
     """The "c1" rows' floors by unit and their forced CUDA-core times."""
     out = {}
@@ -2855,33 +3112,55 @@ def _c1_extra(totals):
     return out
 
 
+def timed(fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds logged and kept in SECONDS under
+    its name (summed over calls)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        dt = time.perf_counter() - t0
+        SECONDS[fn.__name__] = SECONDS.get(fn.__name__, 0.0) + dt
+        log(f"{fn.__name__}: {dt:.1f} s")
+
+
+SECONDS = {}
+
+
 def main():
+    t0 = time.perf_counter()
     phase_device()
     import numpy as np
     import torch
 
     from dg_tta_tpu_torch.kernels import conv3x3, warp
 
-    phase_build()
-    totals = {"conv3x3": phase_kernels(), "conv3x3_wgrad": phase_wgrad(),
-              "warp": phase_warp(), "warp_grid": phase_warp_deformable(),
-              "warp_pretrain": phase_warp_pretrain()}
-    phase_grouped_kernels(totals)
-    phase_member_chunk_kernels(totals)
-    phase_reference()
-    reference_pretrain()
-    phase_remat()
-    repeat = phase_repeat()
+    timed(phase_build)
+    totals = {"conv3x3": timed(phase_kernels),
+              "conv3x3_wgrad": timed(phase_wgrad),
+              "warp": timed(phase_warp),
+              "warp_grid": timed(phase_warp_deformable),
+              "warp_pretrain": timed(phase_warp_pretrain)}
+    timed(phase_grouped_kernels, totals)
+    timed(phase_member_chunk_kernels, totals)
+    timed(phase_reference)
+    timed(reference_pretrain)
+    timed(reference_adaptation, RAGGED_FEATURES)
+    timed(phase_remat)
+    repeat = timed(phase_repeat)
     runs, losses = {}, {}
+    # the catch-all route's main path: the ragged net's TTA runs
+    runs.update(timed(phase_ragged_tta))
 
     members = {}
 
     def main_path(key, *args, **kw):
-        runs[key], losses[key], members[key] = phase_main_path(*args, **kw)
+        runs[key], losses[key], members[key] = timed(phase_main_path, *args,
+                                                     **kw)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # DG pretraining (configs 4-5): GIN_MIND, GIN_MultiRes, a resume
-        pre_runs, pre_ref = phase_pretrain(Path(tmp) / "pretrain")
+        pre_runs, pre_ref = timed(phase_pretrain, Path(tmp) / "pretrain")
         runs.update(pre_runs)
         for dtype in ("float32", "bfloat16"):
             main_path(("TS104_GIN", dtype), Path(tmp) / f"gin_{dtype}", dtype)
@@ -2928,9 +3207,10 @@ def main():
                 (runs[key], losses[key], members[key]), repeat)
         # Phase 1 over 3 ranks sharing the card, a data-parallel step,
         # window-sharded inference, NCCL
-        runs.update(phase_parallel(
-            Path(tmp) / "parallel", losses["TS104_GIN", "float32"],
-            members["TS104_GIN", "float32"], pre_ref))
+        runs.update(timed(
+            phase_parallel, Path(tmp) / "parallel",
+            losses["TS104_GIN", "float32"], members["TS104_GIN", "float32"],
+            pre_ref))
 
     def both(key, dtype=None):
         # launches over the main-path runs (of one type)
@@ -2941,7 +3221,7 @@ def main():
         # launches of the chunk runs (members side by side)
         return {"member_chunk_launches": sum(
             r[key] for (name, _), r in runs.items()
-            if name.startswith("TS104_GIN ensemble_chunk"))}
+            if "ensemble_chunk" in name)}
 
     c, wg = totals["conv3x3"], totals["conv3x3_wgrad"]
     w32, w16 = totals["warp"]["float32"], totals["warp"]["bfloat16"]
@@ -2957,16 +3237,18 @@ def main():
                                for site in ("deformable grid", "affine grid",
                                             "affine entry"))
     rows = [
-        # the CUDA-core kernels, timed on the shapes they ran before the
-        # later routes took them (f32: every conv; bf16: C = 1)
+        # the catch-all kernels ("cuda_core") at the ragged net's shapes
+        # (a window forward and a trained step), their launches the ragged
+        # TTA runs'; beside them the TS104 shapes forced onto them (every
+        # conv, both types) and the CUDA cores' f32 floor of both
         _row("conv3x3", conv3x3.SOURCE, conv3x3.REPLACES,
-             both("conv3x3_cuda_core"), c["float32/cuda_core"],
-             c["bfloat16/cuda_core"], "cuda_core",
-             **chunked("conv3x3_cuda_core")),
+             both("conv3x3_cuda_core"), c["float32/ragged/cuda_core"],
+             c["bfloat16/ragged/cuda_core"], "cuda_core",
+             **_cuda_core_extra(c), **chunked("conv3x3_cuda_core")),
         _row("conv3x3_wgrad", conv3x3.WGRAD_SOURCE, conv3x3.REPLACES,
-             both("conv3x3_wgrad_cuda_core"), wg["float32/cuda_core"],
-             wg["bfloat16/cuda_core"], "cuda_core",
-             **chunked("conv3x3_wgrad_cuda_core")),
+             both("conv3x3_wgrad_cuda_core"), wg["float32/ragged/cuda_core"],
+             wg["bfloat16/ragged/cuda_core"], "cuda_core",
+             **_cuda_core_extra(wg), **chunked("conv3x3_wgrad_cuda_core")),
         # the warp's grid entry at its main-path sites, a deformable
         # branch of a trained step (10 field warps, the input warp, the
         # unwarp and its fast adjoint), with its times on the card's
@@ -3050,6 +3332,9 @@ def main():
              bf16_padded_ms=wg["bfloat16/stem12/wgmma"]["ms"],
              cuda_core_ms=wg["float32/stem12/cuda_core"]["ms"],
              bf16_cuda_core_ms=wg["bfloat16/stem12/cuda_core"]["ms"])]
+    log("seconds per phase: " + json.dumps(
+        {k: round(v, 1) for k, v in SECONDS.items()}
+        | {"total": round(time.perf_counter() - t0, 1)}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

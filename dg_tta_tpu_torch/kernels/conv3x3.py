@@ -35,8 +35,16 @@ a launch error raises, and a misaligned tensor raises before the launch):
   products (3xTF32); a first launch of the same call writes the weights
   transposed and split into a tf32 part and its remainder (the bits of
   `tf32_split`) into scratch the wrapper allocates;
-* "cuda_core" (`csrc/conv3x3.cu`): CO % 8 != 0; f32 FMAs on the CUDA
-  cores.
+* "cuda_core" (`csrc/conv3x3.cu`): the catch-all, CO % 8 != 0 (a plan's
+  widths 30, 60, 300; a stem's input gradient) and any shape a caller
+  forces onto it: the tensor cores (wgmma; f32 as 3xTF32), x read at
+  its own C by cp.async into a ring of (z-tap, channel chunk) stages, the
+  weights packed by a first launch of the same call
+  (`pack_cuda_core_weights` is its plain version: CO rounded up to the
+  block's 8, 16, 32 or 64 columns, C to the chunk, f32 split), the
+  splits `cuda_core_plan`'s; the name is the one it had when it ran on
+  the CUDA cores, kept so that scripts force it by one name on every
+  checkout.
 The wgmma routes step 16 (bf16) or 8 (f32) input channels at a time: a
 C that is not a multiple of the step (C = 20, say) runs on x and w
 zero-padded to the next multiple (`route_channels`, `pad_channels`), and
@@ -62,7 +70,8 @@ same five routes chosen by the same shapes (`conv3x3_wgrad_route`: "c1",
 split in shared memory in f32; "wgmma" (bf16) and "wgmma_tf32x3" (f32,
 3xTF32, dy transposed and split in shared memory), the kernels of
 `csrc/conv3x3_wgrad_wgmma.cu` that `wgrad_plan` picks; "cuda_core",
-`csrc/conv3x3_wgrad.cu`, for the other channel counts; plain version
+`csrc/conv3x3_wgrad.cu`, for the other channel counts, its splits
+`cuda_core_wgrad_plan`'s; plain version
 `conv3x3_wgrad_reference`; counts `conv3x3_wgrad.launches`,
 `.wgmma_launches`, `.tf32x3_launches`, `.c1_launches`, `.few_launches`
 and `.padded_launches`).  The input gradient needs no
@@ -74,8 +83,7 @@ flipped in (kz, ky, kx) and their channel axes swapped, so it runs through
 Members side by side: a `w` of shape (M, KZ, 3, 3, C, CO) holds the
 weights of M ensemble members, and `x` is then (M * n, H, W, C), member
 m's n planes (a multiple of `depth`) after member m - 1's.  Each plane
-takes its member's weights, in one launch on every route but
-"cuda_core", whose wrapper launches its kernel once per member.  The
+takes its member's weights, in one launch on every route.  The
 weight gradient of such a call (`conv3x3_wgrad(..., members=M)`) is (M,
 KZ, 3, 3, C, CO), dw[m] summed over member m's positions alone.  Every
 plan and split count is computed from one member's n planes, never from
@@ -293,24 +301,141 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
-def _launch(x, w6, y, depth):
-    """The CUDA-core kernel, one launch per member (the one route whose
-    kernel takes no member axis); returns the launches."""
-    fn = build.function("conv3x3", "dgtta_conv3x3",
-                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                        + [ctypes.c_void_p])
-    M = w6.shape[0]
-    for xm, w5, ym in zip(_member_planes(x, M), w6, _member_planes(y, M)):
-        N, H, W, C = xm.shape
-        err = fn(xm.data_ptr(), w5.data_ptr(), ym.data_ptr(), N, depth, H,
-                 W, C, w5.shape[-1], w5.shape[0], _DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+# the catch-all route (csrc/conv3x3.cu, csrc/conv3x3_wgrad.cu): the
+# forward's output tile (pixels), input channels of a stage per type (one
+# MMA depth), ring stages per type, halo row pitch (bytes); the weight
+# gradient's position tile, output channels of an item, ring stages and
+# row pitch per type: the sources' constants (kTH x kTW, kKC, kStages,
+# kPitch; kCh), which
+# tests/test_torch_conv3x3_ragged.py holds these to.  The SMs of an H100.
+_CC_TILE = (16, 16)
+_CC_KC = {torch.bfloat16: 16, torch.float32: 8}
+_CC_STAGES = {torch.bfloat16: 3, torch.float32: 3}
+_CC_PITCH = 48
+_CCW_TILE = (8, 16)
+_CCW_STAGES = 3
+_CCW_PITCH = {torch.bfloat16: 80, torch.float32: 160}
+_CC_SMS = 132
+# the blocks a volume's launch aims at where it splits (two waves), and
+# the forward's most stage splits
+_CC_TARGET_BLOCKS = 2 * _CC_SMS
+_CC_MAX_SPLITS = 8
+# the forward's columns of a block (the source's launch_bn cases); the
+# weight gradient's input channels of an item per type (launch_ci) and
+# output channels of an item (kCh)
+_CC_BN = (8, 16, 32, 64)
+_CCW_CI = {torch.float32: (8, 16, 32), torch.bfloat16: (16, 32)}
+_CCW_CH = 32
+
+
+def cuda_core_vec(element_size: int, *rows_and_ptrs) -> int:
+    """The bytes of the catch-all kernels' cp.async granule: the widest of
+    16, 8, 4 (and 2, for bf16) that divides every row's bytes (channels x
+    element size) and every address given (ints, mixed)."""
+    for v in (16, 8, 4, 2):
+        if v >= element_size and all(r % v == 0 for r in rows_and_ptrs):
+            return v
+    raise ValueError(f"no cp.async granule divides {rows_and_ptrs}")
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_core_plan(depth: int, H: int, W: int, C: int, CO: int, dtype,
+                   kz: int = 3) -> dict:
+    """How `csrc/conv3x3.cu` runs one forward on the "cuda_core" route,
+    from one volume's shape (`depth` planes of (H, W), C -> CO, kz
+    z-taps) alone, never from the batch or the members side by side, so
+    that a plane's sums do not depend on the batch, `patch_group` or the
+    members beside it:
+    * bn: output channels of a block (wgmma's N): CO rounded up to 8, 16
+      or 32, else column tiles of 64;
+    * splits, per_split: where one volume has fewer (plane, 16 x 16 tile,
+      column tile) items than SMs (the 7 x 8 and 14 x 16 levels: 35-56),
+      the runs of per_split (z-tap, chunk of `_CC_KC` channels) stages the
+      kz x ceil(C / KC) stages are cut into, a block each, their partial
+      sums added in order by a second pass: as many as give the volume's
+      items `_CC_TARGET_BLOCKS` blocks, at most `_CC_MAX_SPLITS` and the
+      stages, none empty (the 28 x 32 level's 224 items ran slower with 2
+      in bf16: 0.109 against 0.090 ms a window).
+    Cached."""
+    bn = next(b for b in _CC_BN if CO <= b or b == 64)
+    th, tw = _CC_TILE
+    items = depth * -(-H // th) * -(-W // tw) * -(-CO // bn)
+    stages = kz * -(-C // _CC_KC[dtype])
+    splits = (1 if items >= _CC_SMS else
+              max(1, min(_CC_MAX_SPLITS, stages,
+                         -(-_CC_TARGET_BLOCKS // items))))
+    per = -(-stages // splits)
+    return dict(bn=bn, splits=-(-stages // per), per_split=per)
+
+
+def pack_cuda_core_weights(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """The weights of the "cuda_core" forward, w (3, 3, C, CO), (kz, 3, 3,
+    C, CO) or members' (M, kz, 3, 3, C, CO), as its stages take them, for
+    column tiles of bn: (M, kz, chunks, co_tiles, parts, 9, bn, kc) in w's
+    type, for each member, z-tap, chunk of kc input channels and tile of
+    bn output channels one contiguous block, a tap's bn rows of kc
+    channels (K contiguous: the B operand), C and CO zero-padded; f32 in
+    two parts, the tf32 part and its remainder (`tf32_split`), bf16 in
+    one; each 32-byte row with its two 16-byte halves swapped where bit 2
+    of the row is set (wgmma's 32-byte swizzle).  On a CUDA tensor the
+    source's `pack_kernel` (one launch; the forward's C entry runs it
+    itself), on the CPU this plain version."""
+    w6 = _as_6d(w)
+    M, kz, _, _, C, CO = w6.shape
+    kc = _CC_KC[w.dtype]
+    nch, ct = -(-C // kc), -(-CO // bn)
+    parts = 2 if w.dtype == torch.float32 else 1
+    if w.device.type == "cuda":
+        out = torch.empty((M, kz, nch, ct, parts, 9, bn, kc), dtype=w.dtype,
+                          device=w.device)
+        fn = build.function("conv3x3", "dgtta_conv3x3_pack",
+                            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                            + [ctypes.c_void_p])
+        with torch.cuda.device(w.device):
+            err = fn(w6.contiguous().data_ptr(), out.data_ptr(), M, kz, C,
+                     CO, bn, _DTYPE_CODES[w.dtype],
+                     torch.cuda.current_stream(w.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"conv3x3 kernel launch failed with CUDA "
-                               f"error {err} for x {tuple(xm.shape)} "
-                               f"{x.dtype}, w {tuple(w5.shape)}, depth "
-                               f"{depth}")
-    return M
+            raise RuntimeError(f"conv3x3 pack kernel launch failed with CUDA "
+                               f"error {err} for w {tuple(w6.shape)}, bn {bn}")
+        return out
+    p = F.pad(w6, (0, ct * bn - CO, 0, nch * kc - C))
+    p = p.reshape(M, kz, 9, nch, kc, ct, bn).permute(0, 1, 3, 5, 2, 6, 4)
+    p = torch.stack(tf32_split(p) if parts == 2 else (p,), dim=4)
+    halves = p.reshape(p.shape[:-1] + (2, kc // 2))
+    swap = ((torch.arange(bn) >> 2) & 1).bool().view(bn, 1, 1)
+    return torch.where(swap, halves.flip(-2), halves).reshape(p.shape) \
+        .contiguous()
+
+
+def _launch(x, w6, y, depth):
+    """The catch-all kernel, every member in one launch (the weights
+    packed by a first launch of the same call)."""
+    fn = build.function("conv3x3", "dgtta_conv3x3",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                        + [ctypes.c_void_p])
+    M, kz, _, _, C, CO = w6.shape
+    N, H, W, _ = x.shape
+    plan = cuda_core_plan(depth, H, W, C, CO, x.dtype, kz)
+    bn, kc = plan["bn"], _CC_KC[x.dtype]
+    wp = torch.empty(M * kz * -(-C // kc) * -(-CO // bn) * 9 * bn * kc
+                     * (2 if x.dtype == torch.float32 else 1),
+                     dtype=x.dtype, device=x.device)
+    vec = cuda_core_vec(x.element_size(), C * x.element_size(), x.data_ptr())
+    # the splits' partial sums
+    scratch = (torch.empty((plan["splits"],) + tuple(y.shape),
+                           dtype=torch.float32, device=x.device)
+               if plan["splits"] > 1 else None)
+    err = fn(x.data_ptr(), w6.data_ptr(), wp.data_ptr(), y.data_ptr(),
+             0 if scratch is None else scratch.data_ptr(), N, M, depth, H, W,
+             C, CO, kz, bn, vec, plan["splits"], plan["per_split"],
+             _DTYPE_CODES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 kernel launch failed with CUDA "
+                           f"error {err} for x {tuple(x.shape)} "
+                           f"{x.dtype}, w {tuple(w6.shape)}, depth "
+                           f"{depth}")
 
 
 # conv3x3_wgmma (csrc/conv3x3_wgmma.cu): output tiles of the "big" and the
@@ -403,7 +528,6 @@ def _launch_wgmma(x, w6, y, depth):
         raise RuntimeError(f"conv3x3 wgmma kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
                            f"w {tuple(w6.shape)}, depth {depth}")
-    return 1
 
 
 def _launch_c1(x, w6, y, depth):
@@ -420,7 +544,6 @@ def _launch_c1(x, w6, y, depth):
         raise RuntimeError(f"conv3x3 c1 kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
                            f"w {tuple(w6.shape)}, depth {depth}")
-    return 1
 
 
 def _launch_few(x, w6, y, depth):
@@ -439,7 +562,6 @@ def _launch_few(x, w6, y, depth):
         raise RuntimeError(f"conv3x3 few kernel launch failed with CUDA "
                            f"error {err} for x {tuple(x.shape)} {x.dtype}, "
                            f"w {tuple(w6.shape)}, depth {depth}")
-    return 1
 
 
 # conv3x3_few (csrc/conv3x3_few.cu), per (type, weight gradient?): the
@@ -566,10 +688,9 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, depth: int = 1,
     padded = x.shape[-1] != C
     y = torch.empty((N, H, W, w6.shape[-1]), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        launches = _LAUNCH[route](x, w6, y, depth)
-    for _ in range(launches):
-        _count(conv3x3, route)
-        conv3x3.padded_launches += padded
+        _LAUNCH[route](x, w6, y, depth)
+    _count(conv3x3, route)
+    conv3x3.padded_launches += padded
     return y
 
 
@@ -589,11 +710,6 @@ def conv3x3_flops(x_shape, w_shape, depth: int = 1) -> int:
     return 2 * (3 * H - 2) * (3 * W - 2) * C * w_shape[-1] * plane_taps
 
 
-# conv3x3_wgrad tiles (csrc/conv3x3_wgrad.cu): 4 x 16 positions per tile,
-# 32 output channels per block, 4 or 32 input channels per block.
-_WG_TILE_H, _WG_TILE_W, _WG_TCO = 4, 16, 32
-# blocks to aim for when the positions are split: 8 per SM of an H100
-_WG_TARGET_BLOCKS = 8 * 132
 # conv3x3_wgrad_wgmma (csrc/conv3x3_wgrad_wgmma.cu): 4 x 16 positions per
 # stage; per kernel the input and output channels of a block, whether it
 # sums the three z-taps itself, and the most position tiles a split may sum
@@ -662,13 +778,32 @@ def conv3x3_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
     return dw.permute(2, 3, 4, 1, 0).contiguous()
 
 
-def wgrad_splits(x_shape, co: int, kz: int = 3) -> int:
-    """How many blocks share the sum over positions of one output tile."""
-    N, H, W, C = x_shape
-    tc = 4 if C <= 4 else 32
-    tiles = N * (-(-H // _WG_TILE_H)) * (-(-W // _WG_TILE_W))
-    base = kz * (-(-C // tc)) * (-(-co // _WG_TCO))
-    return max(1, min(-(-tiles // 4), -(-_WG_TARGET_BLOCKS // base)))
+@functools.lru_cache(maxsize=None)
+def cuda_core_wgrad_plan(depth: int, H: int, W: int, C: int, CO: int, dtype,
+                         kz: int = 3) -> dict:
+    """How `csrc/conv3x3_wgrad.cu` runs one volume's weight gradient on
+    the "cuda_core" route: `depth` planes of (H, W), C input and CO output
+    channels, kz z-taps, from this volume's shape alone (never from the
+    batch, `patch_group` or the members side by side, so that a volume's
+    partial sums are the same whatever launch carries it).
+    * ci: the input channels of an item (the N of its mma.sync tiles), C
+      rounded up to 8 (f32), 16 or 32, else items of 32; an item's output
+      channels are 32;
+    * splits, per_split: runs of per_split 8 x 16 position tiles (the last
+      shorter, none empty) that cut the volume, enough for
+      `_CC_TARGET_BLOCKS` (two waves of 132 SMs) of one volume's kz x
+      ceil(C / ci) x ceil(CO / 32) items, at most one run a tile; every
+      volume of the launch is cut the same way, and a member's volumes x
+      splits partials are added in a fixed order.
+    Cached."""
+    cis = _CCW_CI[dtype]
+    ci = next(c for c in cis if C <= c or c == cis[-1])
+    th, tw = _CCW_TILE
+    tiles = depth * -(-H // th) * -(-W // tw)
+    items = kz * -(-C // ci) * -(-CO // _CCW_CH)
+    splits = max(1, min(tiles, -(-_CC_TARGET_BLOCKS // items)))
+    per = -(-tiles // splits)
+    return dict(ci=ci, splits=-(-tiles // per), per_split=per)
 
 
 def wgrad_kernel(C: int, CO: int, dtype) -> str:
@@ -771,11 +906,6 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                            depth, kz, route, members)
         conv3x3_wgrad.padded_launches += 1
         return dw[..., :C, :].contiguous()
-    if route == "cuda_core" and M > 1:
-        # the one route whose kernel takes no member axis: a launch each
-        return torch.stack([
-            conv3x3_wgrad(xm, dym, depth, kz, route) for xm, dym in
-            zip(_member_planes(x, M), _member_planes(dy, M))])
     # one member's planes: every plan and split count is theirs
     n_shape = (N // M, H, W, C)
     code = _DTYPE_CODES[x.dtype]
@@ -800,21 +930,31 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, depth: int = 1,
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p])
     else:
-        splits = wgrad_splits(x.shape, CO, kz)
+        plan = cuda_core_wgrad_plan(depth, H, W, C, CO, x.dtype, kz)
+        splits = plan["splits"]
+        e = x.element_size()
+        # x's granule, and dy's: 16 bytes where its rows allow, else x's
+        vec = cuda_core_vec(e, C * e, x.data_ptr())
+        dvec = cuda_core_vec(e, CO * e, dy.data_ptr())
+        if dvec != 16:
+            vec = dvec = min(vec, dvec)
         fn = build.function("conv3x3_wgrad", "dgtta_conv3x3_wgrad",
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
                             + [ctypes.c_void_p])
     dw = torch.empty((M, kz, 3, 3, C, CO), dtype=torch.float32,
                      device=x.device)
-    scratch = (torch.empty((M, splits) + tuple(dw.shape[1:]),
+    # a member's partial sums (on "cuda_core" each volume's splits)
+    n_part = splits * (N // M // depth if route == "cuda_core" else 1)
+    scratch = (torch.empty((M, n_part) + tuple(dw.shape[1:]),
                            dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
+               if n_part > 1 else None)
     args = [x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), N]
-    if route != "cuda_core":
-        args.append(M)
-    args += [depth, H, W]
-    args += [CO, kz, splits] if route == "c1" else [C, CO, kz, splits]
+            0 if scratch is None else scratch.data_ptr(), N, M, depth, H, W]
+    if route == "cuda_core":
+        args += [C, CO, kz, plan["ci"], splits, plan["per_split"], vec,
+                 dvec]
+    else:
+        args += [CO, kz, splits] if route == "c1" else [C, CO, kz, splits]
     args.append(code)
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, conv3x3_few.cu): the host
-// side encodes TMA tensor maps, the device side
+// (conv3x3_wgmma.cu, conv3x3_wgrad_wgmma.cu, conv3x3_few.cu, conv3x3.cu):
+// the host side encodes TMA tensor maps, the device side
 // wraps the PTX of mbarriers, TMA tile loads (cp.async.bulk.tensor),
 // ldmatrix, warpgroup matrix multiply-accumulate (wgmma), and the cluster
 // barrier and distributed shared-memory reads of a thread block cluster.
@@ -332,11 +332,38 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// 8 and 16 columns (the catch-all conv's narrow output tiles)
+__device__ __forceinline__ void wgmma_m64n8k8_tf32(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k8_tf32(float (&d)[8],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_m64k8_tf32(float (&d)[N / 2],
                                                  const uint32_t (&a)[4],
                                                  uint64_t db) {
-  if constexpr (N == 32) wgmma_m64n32k8_tf32(d, a, db);
+  if constexpr (N == 8) wgmma_m64n8k8_tf32(d, a, db);
+  else if constexpr (N == 16) wgmma_m64n16k8_tf32(d, a, db);
+  else if constexpr (N == 32) wgmma_m64n32k8_tf32(d, a, db);
   else wgmma_m64n64k8_tf32(d, a, db);
 }
 
@@ -409,11 +436,41 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(TB));
 }
 
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+      "1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
 template <int N, int TB = 0>
 __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  if constexpr (N == 32) wgmma_m64n32k16_rs<TB>(d, a, db);
+  if constexpr (N == 8) wgmma_m64n8k16_rs<TB>(d, a, db);
+  else if constexpr (N == 16) wgmma_m64n16k16_rs<TB>(d, a, db);
+  else if constexpr (N == 32) wgmma_m64n32k16_rs<TB>(d, a, db);
   else wgmma_m64n64k16_rs<TB>(d, a, db);
 }
 

@@ -3,7 +3,7 @@
 (`--few`) of one or more checkouts of the port on one card, for comparing
 a change with its parent in one call.
 
-    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits|--wgrad|--few] CHECKOUT ...
+    python3 dg_tta_tpu_torch/obs/conv_times.py [--splits|--wgrad|--few|--ragged] CHECKOUT ...
 
 Run it by path.  For each CHECKOUT, in the order given (e.g. parent,
 change, change, parent: the card's clocks drift within a call), a
@@ -59,6 +59,20 @@ has it; else the forward's "-" and the weight gradient's splits), and
 the error against the plain version at KERNEL_RTOL / WGRAD_RTOL.  Rows
 as PERF.md's kernel table counts them: the forward's window + step, the
 weight gradient's step.
+
+With `--ragged` it times the catch-all route ("cuda_core": `conv3x3` and
+`conv3x3_wgrad` forced there by `route="cuda_core"`, a name every
+checkout's wrappers take), in f32 and bf16: every TS104 shape of
+`chip_smoke._conv_cases` (rows "ts104 forward", and its C = 1 shapes
+"ts104 c1 forward") and every TS104 stride-1 shape's weight gradient at a
+trained step's batch ("ts104 wgrad", "ts104 c1 wgrad"), then the ragged
+net's shapes (`RAGGED_NET`: a window forward, a trained step's forward,
+input gradients and weight gradients: rows "ragged forward" and "ragged
+wgrad").  Per shape: device ms by CUDA graph and eager ms, the library
+call by CUDA graph (`F.conv3d` or cuDNN's `conv3d_weight`, TF32 off in
+f32), the bound on the tensor cores beside the CUDA cores' f32 floor,
+TFLOP/s at the device time, and the error against the plain version;
+per row the sums and the share of the bound.
 """
 
 import json
@@ -66,6 +80,23 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+# The ragged net (TS104_3D_FULLRES with UNet_base_num_features 30 and
+# unet_max_num_features 300: widths 30, 60, 120, 240, 300): its stride-1
+# convs that take the catch-all route, as (depth, H, W, C, CO, convs of
+# this shape per forward, input gradient on the route too?); 120 -> 60's
+# input gradient (60 -> 120) takes a wgmma route.
+RAGGED_NET = [
+    (112, 112, 128, 30, 30, 2, True),
+    (112, 112, 128, 60, 30, 1, True),
+    (56, 56, 64, 60, 60, 2, True),
+    (56, 56, 64, 120, 60, 1, False),
+    (7, 7, 8, 300, 300, 1, True),
+]
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and tf32 on the tensor
+# cores, f32 on the CUDA cores
+_TC_RATE = {"bfloat16": 989e12, "float32": 495e12 / 3}
+_CUDA_CORE_RATE = 67e12
 
 
 def _blocks(cc, N, depth, H, W, C, CO, dtype):
@@ -426,14 +457,149 @@ def one_few(checkout: str) -> dict:
     return out
 
 
+def _ragged_cases(cs):
+    """(row, use, volumes, depth, H, W, C, CO, convs per use, weight
+    gradient?) of `--ragged`: the TS104 shapes forced onto the route (rows
+    "ts104 forward", "ts104 wgrad", and their C = 1 shapes alone, "ts104
+    c1 forward" and "ts104 c1 wgrad"), then the ragged net's ("ragged
+    forward": a window forward, a trained step's forward and input
+    gradients; "ragged wgrad": a trained step's)."""
+    out = []
+    for use, vols, d, H, W, C, CO, mult, dgrad in cs._conv_cases():
+        c1 = C == 1 and not dgrad
+        out.append(("ts104 forward", use, vols, d, H, W, C, CO, mult, False))
+        if c1:
+            out.append(("ts104 c1 forward", use, vols, d, H, W, C, CO, mult,
+                        False))
+    for d, H, W, C, CO, mult in cs.TS104_CONV_SHAPES:
+        out.append(("ts104 wgrad", "step wgrad", 2, d, H, W, C, CO, mult,
+                    True))
+        if C == 1:
+            out.append(("ts104 c1 wgrad", "step wgrad", 2, d, H, W, C, CO,
+                        mult, True))
+    for use, vols in (("window forward", 1), ("step forward", 2)):
+        for d, H, W, C, CO, mult, _ in RAGGED_NET:
+            out.append(("ragged forward", use, vols, d, H, W, C, CO, mult,
+                        False))
+    for d, H, W, C, CO, mult, dgrad in RAGGED_NET:
+        if dgrad:
+            out.append(("ragged forward", "step dgrad", 2, d, H, W, CO, C,
+                        mult, False))
+    for d, H, W, C, CO, mult, _ in RAGGED_NET:
+        out.append(("ragged wgrad", "step wgrad", 2, d, H, W, C, CO, mult,
+                    True))
+    return out
+
+
+def one_ragged(checkout: str) -> dict:
+    """The times of `checkout`'s catch-all kernels (`route="cuda_core"`,
+    forced where the shapes choose another route) at `_ragged_cases`, in
+    its own process: device ms by CUDA graph, eager ms, the library call
+    (`F.conv3d`, or cuDNN's `conv3d_weight`; TF32 off in f32) by CUDA
+    graph, the bound on the tensor cores (bf16 at 989 TFLOP/s, f32 as
+    three tf32 products) beside the CUDA cores' f32 floor (67 TFLOP/s),
+    and the error against the plain version (chip_smoke's KERNEL_RTOL,
+    WGRAD_RTOL)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from dg_tta_tpu_torch.kernels import conv3x3 as cc
+
+    out = {"checkout": checkout}
+    keys = ("device_ms", "eager_ms", "library_ms", "bound_ms",
+            "cuda_core_floor_ms")
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        gen = torch.Generator().manual_seed(8)
+        rows, shapes = {}, []
+        for row, use, vols, depth, H, W, C, CO, mult, wgrad in \
+                _ragged_cases(cs):
+            N = vols * depth
+            x = torch.randn((N, H, W, C), generator=gen).to(dt).cuda()
+            x5 = x.view(vols, depth, H, W, C).permute(0, 4, 1, 2, 3)
+            if wgrad:
+                dy = torch.randn((N, H, W, CO), generator=gen).to(dt).cuda()
+                dy5 = dy.view(vols, depth, H, W, CO).permute(0, 4, 1, 2, 3)
+
+                def run():
+                    return cc.conv3x3_wgrad(x, dy, depth=depth,
+                                            route="cuda_core")
+
+                def lib():
+                    return torch.nn.grad.conv3d_weight(
+                        x5, (CO, C, 3, 3, 3), dy5, padding=1)
+
+                def ref_fn():
+                    return cc.conv3x3_wgrad_reference(x, dy, depth=depth)
+
+                rtol, reps = cs.WGRAD_RTOL, 2 if name == "float32" else 5
+            else:
+                w = (torch.randn((3, 3, 3, C, CO), generator=gen)
+                     * (2.0 / (27 * C)) ** 0.5).to(dt).cuda()
+                wt = w.permute(4, 3, 0, 1, 2).contiguous()
+
+                def run():
+                    return cc.conv3x3(x, w, depth=depth, route="cuda_core")
+
+                def lib():
+                    return F.conv3d(x5, wt, padding=1)
+
+                def ref_fn():
+                    return cc.conv3x3_reference(x, w, depth=depth)
+
+                rtol, reps = cs.KERNEL_RTOL[name], 10
+            with cs.tf32_off():
+                ref = ref_fn()
+                lib_ms = cs.device_ms(lib, reps=reps)
+            got = run()
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= rtol * scale:
+                raise AssertionError(f"{checkout} {name} {row} {use} "
+                                     f"{(N, H, W, C, CO)}: max abs err {err}"
+                                     f" > {rtol * scale}")
+            del got, ref
+            dev = cs.device_ms(run, reps=10)
+            eager = cs.time_ms(run)
+            ops = cc.conv3x3_flops(x.shape, (3, 3, 3, C, CO), depth)
+            res = dict(row=row, use=use, N=N, depth=depth, H=H, W=W, C=C,
+                       CO=CO, mult=mult, device_ms=dev, eager_ms=eager,
+                       library_ms=lib_ms,
+                       bound_ms=ops / _TC_RATE[name] * 1e3,
+                       cuda_core_floor_ms=ops / _CUDA_CORE_RATE * 1e3,
+                       tflops=ops / dev / 1e9, max_rel_err=err / scale)
+            shapes.append(res)
+            tot = rows.setdefault(row, dict.fromkeys(keys, 0.0))
+            for key in keys:
+                tot[key] += mult * res[key]
+            print(f"{checkout} ragged {name} {row}: {use} N={N} {H}x{W} "
+                  f"{C}->{CO} device_ms={dev:.4f} eager_ms={eager:.4f} "
+                  f"library_ms={lib_ms:.4f} bound_ms={res['bound_ms']:.4f} "
+                  f"cuda_core_floor_ms={res['cuda_core_floor_ms']:.4f} "
+                  f"TFLOP/s={res['tflops']:.1f} rel_err={err / scale:.2e} "
+                  f"x{mult}", flush=True)
+            del x, x5
+        for row, tot in rows.items():
+            print(f"{checkout} ragged {name} {row} row: "
+                  + " ".join(f"{k}={v:.3f}" for k, v in tot.items())
+                  + f" share_of_bound={tot['bound_ms'] / tot['device_ms']:.3f}",
+                  flush=True)
+        out[name] = {"shapes": shapes, "rows": rows}
+    return out
+
+
 def main(argv):
     splits = "--splits" in argv
     wgrad = "--wgrad" in argv
     few = "--few" in argv
-    argv = [a for a in argv if a not in ("--splits", "--wgrad", "--few")]
+    ragged = "--ragged" in argv
+    argv = [a for a in argv
+            if a not in ("--splits", "--wgrad", "--few", "--ragged")]
     if argv[:1] == ["--one"]:
-        res = (one_few(argv[1]) if few else one_wgrad(argv[1]) if wgrad
-               else one(argv[1], splits))
+        res = (one_ragged(argv[1]) if ragged else one_few(argv[1]) if few
+               else one_wgrad(argv[1]) if wgrad else one(argv[1], splits))
         print(json.dumps(res), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -444,7 +610,8 @@ def main(argv):
         root = Path(checkout).resolve()
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "--one", checkout] + ["--splits"] * splits
-                       + ["--wgrad"] * wgrad + ["--few"] * few,
+                       + ["--wgrad"] * wgrad + ["--few"] * few
+                       + ["--ragged"] * ragged,
                        cwd=root, check=True,
                        timeout=900, env={**os.environ,
                                          "PYTHONPATH": str(root)})

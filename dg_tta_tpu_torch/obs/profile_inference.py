@@ -28,15 +28,20 @@ MEMBERS = 3
 
 
 def ts104_model(patch_size=None, compute_dtype=None,
-                trainer="nnUNetTrainer_GIN"):
+                trainer="nnUNetTrainer_GIN", features=None):
     """The TS104 model of `trainer` (TS104_GIN by default; 105 classes),
-    optionally with another patch."""
+    optionally with another patch, or with `features` = (base, cap), the
+    plan's `UNet_base_num_features` and `unet_max_num_features` (widths
+    min(base * 2**i, cap)) in place of the published 32 and 320."""
     from dg_tta_tpu_torch.models.network import build_model
     from dg_tta_tpu_torch.resources import TS104_3D_FULLRES
 
     cfg = dict(TS104_3D_FULLRES)
     if patch_size is not None:
         cfg["patch_size"] = list(patch_size)
+    if features is not None:
+        cfg["UNet_base_num_features"], cfg["unet_max_num_features"] = \
+            features
     plans = {"configurations": {"3d_fullres": cfg}}
     ds = {"labels": {f"c{i}": i for i in range(N_CLASSES)},
           "channel_names": {"0": "CT"}}

@@ -428,6 +428,18 @@ def test_flops_count_skips_z_taps_past_the_volume():
     (16, 32, torch.float32, "wgmma_tf32x3", "wgmma_tf32x3"),
     (12, 20, torch.bfloat16, "cuda_core", "cuda_core"),  # CO % 8 != 0
     (12, 20, torch.float32, "cuda_core", "cuda_core"),
+    # a plan's ragged widths (base 30, cap 300) and a GIN_MIND stem into
+    # them: the catch-all, on the tensor cores
+    (30, 30, torch.bfloat16, "cuda_core", "cuda_core"),
+    (30, 30, torch.float32, "cuda_core", "cuda_core"),
+    (60, 60, torch.bfloat16, "cuda_core", "cuda_core"),
+    (60, 60, torch.float32, "cuda_core", "cuda_core"),
+    (300, 300, torch.bfloat16, "cuda_core", "cuda_core"),
+    (300, 300, torch.float32, "cuda_core", "cuda_core"),
+    (120, 60, torch.bfloat16, "cuda_core", "cuda_core"),
+    (120, 60, torch.float32, "cuda_core", "cuda_core"),
+    (12, 30, torch.bfloat16, "cuda_core", "cuda_core"),
+    (12, 30, torch.float32, "cuda_core", "cuda_core"),
 ])
 def test_routes(C, CO, dtype, route, wgrad_route):
     from dg_tta_tpu_torch.kernels.conv3x3 import (conv3x3_route,
@@ -449,7 +461,7 @@ def test_routes(C, CO, dtype, route, wgrad_route):
     ("c1", "few", torch.float32, None),
 ])
 def test_forced_routes(route, chosen, dtype, picked):
-    """A caller may force the CUDA-core kernels onto any shape and the
+    """A caller may force the catch-all kernels onto any shape and the
     type's wgmma route (on zero-padded channels) onto a shape that chooses
     "few", to time two routes on one shape; nothing else."""
     from dg_tta_tpu_torch.kernels.conv3x3 import _pick_route

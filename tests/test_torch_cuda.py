@@ -12,7 +12,8 @@ Tolerances, max |kernel - plain| over max |plain|:
   plain version) and 2^-7 in bf16 (both round one f32 sum to bf16), on
   every route ("c1" for C = 1, "few" for 1 < C < 16, "wgmma" for bf16
   and "wgmma_tf32x3" for f32 with CO a multiple of 8, C zero-padded to a
-  multiple of 16/8, else "cuda_core");
+  multiple of 16/8, else "cuda_core", the catch-all on the tensor cores
+  by mma.sync, f32 as 3xTF32);
 * conv3x3_wgrad: 1e-4, f32 out from f32 or bf16 in (sums over every
   position, split across blocks, in another order than cuDNN's);
 * warp, trilinear: 1e-5 in f32 (eight products, fused multiply-adds in the
@@ -1408,14 +1409,16 @@ def test_augment_batch_warps_on_card_match_cpu(cuda_device, multires):
     (12, 32, 19, 37),    # "few", the MIND stem
     (32, 32, 28, 32),    # the wgmma routes, big layout, several splits
     (64, 128, 7, 8),     # small layout, clusters
-    (16, 36, 9, 11),     # "cuda_core" (CO % 8 != 0): a launch a member
+    (16, 36, 9, 11),     # "cuda_core" (CO % 8 != 0)
+    (30, 30, 19, 37),    # "cuda_core", a ragged plan's width
+    (60, 300, 7, 8),     # "cuda_core", five column tiles
 ])
 def test_members_launch_equals_member_launches(cuda_device, dtype, C, CO,
                                                H, W):
     """Three members' weights in one launch of every route (forward, input
     gradient, weight gradient) give each member's planes the bits of that
-    member's own launch, within the tolerances of the plain version; the
-    "cuda_core" route launches once per member."""
+    member's own launch, within the tolerances of the plain version, in
+    one launch on every route."""
     from dg_tta_tpu_torch.kernels.conv3x3 import route_launches
     M, n, D = 3, 8, 4
     dt = getattr(torch, dtype)
@@ -1430,8 +1433,7 @@ def test_members_launch_equals_member_launches(cuda_device, dtype, C, CO,
     before = route_launches(conv3x3)[route]
     y = conv3x3(x, w, D)
     torch.cuda.synchronize()
-    assert route_launches(conv3x3)[route] - before == \
-        (M if route == "cuda_core" else 1)
+    assert route_launches(conv3x3)[route] - before == 1
     ys = torch.cat([conv3x3(xm, wm, D) for xm, wm in zip(x.chunk(M), w)])
     assert torch.equal(y, ys)
     assert _max_rel_err(y, conv3x3_reference(x, w, D)) <= RTOL[dtype]
@@ -1442,8 +1444,7 @@ def test_members_launch_equals_member_launches(cuda_device, dtype, C, CO,
     before = route_launches(conv3x3_wgrad)[route]
     dw = conv3x3_wgrad(x, dy, D, members=M)
     torch.cuda.synchronize()
-    assert route_launches(conv3x3_wgrad)[route] - before == \
-        (M if route == "cuda_core" else 1)
+    assert route_launches(conv3x3_wgrad)[route] - before == 1
     assert dw.shape == (M, 3, 3, 3, C, CO)
     assert torch.equal(dw, torch.stack([
         conv3x3_wgrad(xm, dm, D) for xm, dm in zip(x.chunk(M),
@@ -1475,3 +1476,162 @@ def test_members_conv_op_gradients_equal_member_ops(cuda_device, dtype):
         assert torch.equal(y.chunk(M)[m], ym)
         assert torch.equal(xg.grad.chunk(M)[m], xm.grad)
         assert torch.equal(wg.grad[m], wm.grad)
+
+
+# the catch-all route ("cuda_core", csrc/conv3x3.cu and conv3x3_wgrad.cu):
+# every input and output channel count of a ragged plan and of a stem's
+# input gradient, odd and ragged CO, cp.async granules of 2 (bf16 at odd
+# C), 4, 8 and 16 bytes
+RAGGED_C = [2, 5, 12, 30, 60, 300]
+RAGGED_CO = [1, 7, 12, 30, 60, 300]
+
+
+def _ragged_inputs(C, CO, kz, dtype, device, N=6, D=3, H=9, W=19, seed=0):
+    rng = np.random.default_rng(seed + C * 1000 + CO)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(N, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(kz, 3, 3, C, CO))
+                          / (9 * kz * C) ** 0.5).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(N, H, W, CO)).astype(np.float32))
+    return (t.to(dt).to(device) for t in (x, w, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kz", [1, 3])
+@pytest.mark.parametrize("C", RAGGED_C)
+@pytest.mark.parametrize("CO", RAGGED_CO)
+def test_cuda_core_ragged_matches_plain(cuda_device, dtype, kz, C, CO):
+    """The forward and the weight gradient at every (C, CO) of the ragged
+    sets, three planes a volume (both depth edges), a 9 x 19 plane (ragged
+    16 x 16 and 8 x 16 tiles): f32 at the wgmma_tf32x3 route's tolerance,
+    bf16 at one rounding."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import route_launches
+    x, w, dy = _ragged_inputs(C, CO, kz, dtype, cuda_device)
+    assert conv3x3_route(C, CO, x.dtype) == "cuda_core"
+    before = route_launches(conv3x3)["cuda_core"]
+    y = conv3x3(x, w, depth=3)
+    torch.cuda.synchronize()
+    assert route_launches(conv3x3)["cuda_core"] == before + 1
+    assert _max_rel_err(y, conv3x3_reference(x, w, depth=3)) <= RTOL[dtype]
+    before = route_launches(conv3x3_wgrad)["cuda_core"]
+    dw = conv3x3_wgrad(x, dy, depth=3, kz=kz)
+    torch.cuda.synchronize()
+    assert route_launches(conv3x3_wgrad)["cuda_core"] == before + 1
+    ref = conv3x3_wgrad_reference(x, dy, depth=3, kz=kz)
+    assert _max_rel_err(dw, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,CO,D,H,W", [
+    (1, 32, 8, 33, 70),     # a "c1" shape
+    (12, 32, 6, 19, 37),    # a "few" shape, the MIND stem
+    (32, 64, 4, 28, 32),    # a wgmma shape
+    (320, 320, 8, 7, 8),    # the TS104 bottleneck
+    (30, 30, 1, 40, 40),    # depth 1: no z-neighbours
+])
+def test_cuda_core_forced_matches_plain(cuda_device, dtype, C, CO, D, H, W):
+    """Shapes of the other routes forced onto the catch-all kernels, as
+    chip_smoke and obs/conv_times.py time them."""
+    x, w, dy = _ragged_inputs(C, CO, 3, dtype, cuda_device, N=2 * D, D=D,
+                              H=H, W=W)
+    y = conv3x3(x, w, depth=D, route="cuda_core")
+    assert _max_rel_err(y, conv3x3_reference(x, w, depth=D)) <= RTOL[dtype]
+    dw = conv3x3_wgrad(x, dy, depth=D, route="cuda_core")
+    ref = conv3x3_wgrad_reference(x, dy, depth=D)
+    assert _max_rel_err(dw, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,CO", [(30, 30), (60, 300), (5, 7)])
+def test_cuda_core_is_deterministic(cuda_device, dtype, C, CO):
+    """Two weight-gradient launches equal bit for bit (each volume's splits
+    summed in a fixed order, no atomics), at a shape with many splits; and
+    two forwards."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import cuda_core_wgrad_plan
+    x, w, dy = _ragged_inputs(C, CO, 3, dtype, cuda_device, N=32, D=16,
+                              H=40, W=48)
+    assert cuda_core_wgrad_plan(16, 40, 48, C, CO, x.dtype)["splits"] > 1
+    assert torch.equal(conv3x3_wgrad(x, dy, depth=16),
+                       conv3x3_wgrad(x, dy, depth=16))
+    assert torch.equal(conv3x3(x, w, depth=16), conv3x3(x, w, depth=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_core_offset_views_and_grouped_volumes(cuda_device, dtype):
+    """A member's planes as a view at an odd element offset (the granule
+    narrows to what the address allows) give the bits of an aligned copy;
+    the weight gradient of two volumes in one launch is the sum of each
+    volume's partials, the same partials a launch of each computes."""
+    x, w, dy = _ragged_inputs(30, 30, 3, dtype, cuda_device, N=6, D=3)
+    big = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    xo = big[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16
+    assert torch.equal(conv3x3(xo, w, depth=3), conv3x3(x, w, depth=3))
+    both = conv3x3_wgrad(x, dy, depth=3)
+    one = conv3x3_wgrad(x[:3], dy[:3], depth=3)
+    two = conv3x3_wgrad(x[3:].contiguous(), dy[3:].contiguous(), depth=3)
+    ref = conv3x3_wgrad_reference(x, dy, depth=3)
+    assert _max_rel_err(both, ref) <= 1e-4
+    assert _max_rel_err(one + two, both) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_core_never_takes_the_plain_version(cuda_device, monkeypatch):
+    """A CUDA tensor launches the kernel: the plain versions are not called,
+    and a launch the kernel refuses raises."""
+    from dg_tta_tpu_torch.kernels import conv3x3 as mod
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(mod, "conv3x3_reference", refuse)
+    monkeypatch.setattr(mod, "conv3x3_wgrad_reference", refuse)
+    x, w, dy = _ragged_inputs(30, 30, 3, "float32", cuda_device)
+    mod.conv3x3(x, w, depth=3)
+    mod.conv3x3_wgrad(x, dy, depth=3)
+    # a column tile the C entry does not take
+    monkeypatch.setattr(mod, "cuda_core_plan",
+                        lambda *a, **k: dict(bn=48, splits=1, per_split=12))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mod.conv3x3(x, w, depth=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,kz,C,CO", [(1, 3, 30, 30), (3, 1, 5, 1),
+                                       (2, 3, 12, 300), (1, 3, 300, 60)])
+def test_cuda_core_pack_kernel_matches_plain(cuda_device, dtype, M, kz, C,
+                                             CO):
+    """The forward's pack kernel writes the bits of its plain version
+    (`pack_cuda_core_weights` on the CPU) at every column tile."""
+    from dg_tta_tpu_torch.kernels.conv3x3 import (_CC_BN,
+                                                  pack_cuda_core_weights)
+    g = torch.Generator().manual_seed(C + CO)
+    w = torch.randn((M, kz, 3, 3, C, CO), generator=g).to(getattr(torch,
+                                                                  dtype))
+    for bn in _CC_BN:
+        got = pack_cuda_core_weights(w.to(cuda_device), bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), pack_cuda_core_weights(w, bn)), bn
+
+
+@pytest.mark.cuda
+def test_cuda_core_failed_build_raises(cuda_device, monkeypatch, tmp_path):
+    """A source that does not compile raises at first use; no other kernel
+    or plain version takes its place."""
+    from dg_tta_tpu_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "conv3x3.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "_FUNCTIONS", {})
+    x, w, _ = _ragged_inputs(30, 30, 3, "float32", cuda_device)
+    with pytest.raises(RuntimeError, match="build failed"):
+        conv3x3(x, w, depth=3)
